@@ -1,0 +1,47 @@
+"""Carry the JAX package's numpy-side objects across to the port.
+
+The device loop has no weights; its "state" is the graph state and the
+static tables. These helpers turn the JAX package's objects (anything
+``np.asarray`` accepts, so JAX arrays too, without importing JAX) into
+the port's tensors on a given device, so tests can feed both packages
+from one numpy source.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.poa_loop import GState, LoopConfig, PackedState
+
+
+def tensor(x, device) -> torch.Tensor:
+    """int32 tensor on `device` from any numpy-convertible array (e.g.
+    ``make_scal_base``'s)."""
+    return torch.from_numpy(np.array(np.asarray(x), dtype=np.int32,
+                                     copy=True)).to(device)
+
+
+def loop_config(cfg) -> LoopConfig:
+    """A JAX ``LoopConfig`` -> the port's (the TPU packing and probe
+    fields G, GT, gk, abl, dv, gv and the unused use_zdrop have no
+    counterpart)."""
+    if getattr(cfg, "wmode", 0):
+        raise NotImplementedError("qv weights (wmode=1) are not ported "
+                                  "yet (ROADMAP A4q)")
+    return LoopConfig(**{f: getattr(cfg, f) for f in LoopConfig._fields})
+
+
+def gstate(st, device) -> GState:
+    """A numpy (or JAX) GState -> the port's GState of tensors."""
+    return GState(*(tensor(x, device) for x in st))
+
+
+def packed_state(ps, device) -> PackedState:
+    """A JAX PackedState -> the port's PackedState of tensors."""
+    return PackedState(*(tensor(x, device) for x in ps))
+
+
+def loop_inputs(st, i2n, n2i, remain, device):
+    """``init_state_np``'s tuple -> (GState, i2n, n2i, remain) tensors."""
+    return (gstate(st, device), tensor(i2n, device), tensor(n2i, device),
+            tensor(remain, device))

@@ -1,0 +1,293 @@
+"""The device-resident progressive POA loop in PyTorch.
+
+Counterpart of ``abpoa_tpu/ops/poa_loop.py``. Read 0 of every instance
+is fused on the host; each later read is one ROUND on the device:
+
+    build_scal (torch glue) -> band DP kernel -> graph-update kernel
+
+all on the current CUDA stream with no host synchronisation between
+rounds. The graph state crosses the rounds in the packed form both
+kernels read directly (``PackedState``); the host gets the per-round
+``misc`` rows and step streams at the end and replays them through the
+native C fusion (``parallel/batch.py``).
+
+Semantics replicated bit-exactly (all orders are byte-parity-critical):
+fusion ref src/abpoa_graph.c:596-672 (native/poagraph.c pg_fuse_steps),
+Kahn FIFO with aligned grouping ref :186-231, max_remain ref :233-274.
+
+Scope: global mode, banded, m == 5, unit weights, any gap mode. The
+qv-weight variant (``wmode=1``) of the JAX package is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import layout as L
+
+
+class LoopConfig(NamedTuple):
+    R: int          # node-id capacity == DP row capacity
+    E: int          # out-degree capacity
+    P: int          # in-degree capacity (DP predecessor slots)
+    A: int          # aligned-list capacity (m=5 -> 4 is exact)
+    Wq: int         # padded query width
+    WB: int         # band tile width
+    LS: int         # step-stream capacity (walk length bound)
+    NR: int         # number of device rounds (reads 1..NR)
+    B: int          # batch
+    pn: int         # lane-snapping segment width of the 16-bit dispatch
+    inf_min: int
+    gap_mode: int
+    wbits: int = 4  # out-edge weight bits above the 16-wbits id bits
+
+
+class GState(NamedTuple):
+    """Per-instance graph state, all [B, ...]; node ids are array rows."""
+    bases: object    # [B, R]
+    out_ids: object  # [B, R, E]
+    out_w: object    # [B, R, E]
+    n_out: object    # [B, R]
+    in_ids: object   # [B, R, P]
+    n_in: object     # [B, R]
+    al_ids: object   # [B, R, A]
+    n_al: object     # [B, R]
+    node_n: object   # [B]
+    fail: object     # [B] (sticky)
+
+
+class PackedState(NamedTuple):
+    """The loop carry in the packed form both kernels consume.
+    ctrl: base(3)|n_out(4)<<3|n_al(3)<<7|n_in(4)<<10|remain(16,s)<<16;
+    outp: out-edge halves id|w<<(16-wbits); inp/alp: id halves;
+    i2nn: the topo maps packed as i2n | n2i<<16. All int32."""
+    ctrl: torch.Tensor    # [B, R]
+    outp: torch.Tensor    # [B, R*E//2]
+    inp: torch.Tensor     # [B, R*P//2]
+    alp: torch.Tensor     # [B, R*((A+1)//2)]
+    i2nn: torch.Tensor    # [B, R]
+    node_n: torch.Tensor  # [B]
+    fail: torch.Tensor    # [B]
+
+
+I32 = torch.int32
+
+
+def _pack2(x, B, R, k2):
+    x = x.to(I32) & 0xFFFF
+    if x.shape[2] % 2:
+        x = torch.cat([x, x.new_zeros(B, R, 1)], dim=2)
+    return (x[:, :, 0::2] | (x[:, :, 1::2] << 16)).reshape(B, R * k2)
+
+
+def _unpack2(x, B, R, k, cap):
+    x = x.reshape(B, R, k)
+    full = torch.stack([x & 0xFFFF, (x >> 16) & 0xFFFF], dim=3)
+    return full.reshape(B, R, 2 * k)[:, :, :cap]
+
+
+def pack_state(cfg: LoopConfig, st: GState, i2n, n2i, remain) -> PackedState:
+    """GState (+ topo/remain arrays, node-id indexed) -> PackedState.
+    All inputs are int tensors on one device."""
+    B, R = st.bases.shape[0], cfg.R
+    E2, P2, A2 = cfg.E // 2, cfg.P // 2, (cfg.A + 1) // 2
+    IDB = 16 - cfg.wbits
+    st = GState(*(x.to(I32) for x in st))
+    ctrl = (st.bases | (st.n_out << 3) | (st.n_al << 7) | (st.n_in << 10)
+            | ((remain.to(I32) & 0xFFFF) << 16))
+    outp = _pack2(st.out_ids | (st.out_w << IDB), B, R, E2)
+    inp = _pack2(st.in_ids, B, R, P2)
+    alp = _pack2(st.al_ids, B, R, A2)
+    i2nn = (i2n.to(I32) & 0xFFFF) | (n2i.to(I32) << 16)
+    return PackedState(ctrl.contiguous(), outp.contiguous(),
+                       inp.contiguous(), alp.contiguous(),
+                       i2nn.contiguous(), st.node_n.contiguous(),
+                       st.fail.contiguous())
+
+
+def unpack_state(cfg: LoopConfig, ps: PackedState):
+    """PackedState -> (GState, i2n, n2i, remain)."""
+    B, R = ps.ctrl.shape[0], cfg.R
+    E, P, A = cfg.E, cfg.P, cfg.A
+    E2, P2, A2 = E // 2, P // 2, (A + 1) // 2
+    IDB = 16 - cfg.wbits
+    ctrl = ps.ctrl
+    ow = _unpack2(ps.outp, B, R, E2, E)
+    st = GState(
+        bases=ctrl & 7,
+        out_ids=ow & ((1 << IDB) - 1), out_w=ow >> IDB,
+        n_out=(ctrl >> 3) & 15,
+        in_ids=_unpack2(ps.inp, B, R, P2, P), n_in=(ctrl >> 10) & 15,
+        al_ids=_unpack2(ps.alp, B, R, A2, A), n_al=(ctrl >> 7) & 7,
+        node_n=ps.node_n, fail=ps.fail)
+    return st, ps.i2nn & 0xFFFF, ps.i2nn >> 16, ctrl >> 16
+
+
+def s16w_to_s16(s16w: torch.Tensor) -> torch.Tensor:
+    """Wire words (2 steps16 halves per int32, low half = even step) ->
+    the flat int16 stream. Little-endian int32 -> int16 view."""
+    return s16w.contiguous().view(torch.int16)
+
+
+def pack_qp4(cfg: LoopConfig, qcodes: torch.Tensor) -> torch.Tensor:
+    """Query codes [..., Wq] -> 4 bases per int32 word for the graph
+    update's reads. Leading axes are free."""
+    qb = qcodes.to(I32) & 0xFF
+    if cfg.Wq % 4:
+        pad = qb.new_zeros(*qb.shape[:-1], 4 - cfg.Wq % 4)
+        qb = torch.cat([qb, pad], dim=-1)
+    return (qb[..., 0::4] | (qb[..., 1::4] << 8) | (qb[..., 2::4] << 16)
+            | (qb[..., 3::4] << 24)).contiguous()
+
+
+# ------------------------------------------------------------------ #
+# host-side state init (numpy; re-hosted from the JAX package)
+
+def init_state_np(graphs, cfg: LoopConfig):
+    """Initial GState (numpy) + topo/remain arrays from host graphs that
+    already contain read 0 and are topologically sorted."""
+    B, R, E, P, A = cfg.B, cfg.R, cfg.E, cfg.P, cfg.A
+    z = np.zeros
+    bases = z((B, R), np.int32)
+    out_ids = z((B, R, E), np.int32)
+    out_w = z((B, R, E), np.int32)
+    n_out = z((B, R), np.int32)
+    in_ids = z((B, R, P), np.int32)
+    n_in = z((B, R), np.int32)
+    al_ids = z((B, R, A), np.int32)
+    n_al = z((B, R), np.int32)
+    node_n = z(B, np.int32)
+    fail = z(B, np.int32)
+    i2n = z((B, R), np.int32)
+    n2i = z((B, R), np.int32)
+    remain = z((B, R), np.int32)
+
+    def fill(dst_ids, dst_n, flat, off, b, n, extra=None, dst_w=None):
+        cnt = (off[1:] - off[:-1]).astype(np.int64)
+        if cnt[:n].max(initial=0) > dst_ids.shape[2]:
+            return False
+        rows = np.repeat(np.arange(n), cnt[:n])
+        pos = np.arange(len(rows)) - np.repeat(
+            np.cumsum(cnt[:n]) - cnt[:n], cnt[:n])
+        dst_ids[b, rows, pos] = flat[:len(rows)]
+        dst_n[b, :n] = cnt[:n]
+        if dst_w is not None:
+            dst_w[b, rows, pos] = extra[:len(rows)]
+        return True
+
+    for b, g in enumerate(graphs):
+        c = g.build_csr()
+        n = c["n"]
+        if n > R:
+            fail[b] = 1
+            node_n[b] = min(n, R)
+            continue
+        node_n[b] = n
+        bases[b, :n] = c["bases"][:n]
+        ok = fill(out_ids, n_out, c["out_flat"], c["out_off"], b, n,
+                  extra=c["out_w_flat"], dst_w=out_w)
+        ok &= fill(in_ids, n_in, c["in_flat"], c["in_off"], b, n)
+        ok &= fill(al_ids, n_al, c["al_flat"], c["al_off"], b, n)
+        if not ok:
+            fail[b] = 1
+            continue
+        i2n[b, :n] = np.asarray(g.index_to_node_id[:n])
+        n2i[b, :n] = np.asarray(g.node_id_to_index[:n])
+        remain[b, :n] = np.asarray(g.node_id_to_max_remain[:n])
+    stt = GState(bases, out_ids, out_w, n_out, in_ids, n_in, al_ids,
+                 n_al, node_n, fail)
+    return stt, i2n, n2i, remain
+
+
+def make_scal_base(params, cfg: LoopConfig) -> np.ndarray:
+    """Static scal template (gaps/zdrop/matrix/inf_min); the per-instance
+    slots are set each round by build_scal."""
+    m = params.m
+    scal = np.zeros(L.S_NSCAL + m * m, dtype=np.int32)
+    scal[L.S_INF] = cfg.inf_min
+    scal[L.S_E1] = params.gap_ext1
+    scal[L.S_O1] = params.gap_open1
+    scal[L.S_OE1] = params.gap_oe1
+    scal[L.S_E2] = params.gap_ext2
+    scal[L.S_O2] = params.gap_open2
+    scal[L.S_OE2] = params.gap_oe2
+    scal[L.S_ZDROP] = params.zdrop
+    scal[L.S_NSCAL:] = np.asarray(params.mat, dtype=np.int64).reshape(-1)
+    return scal
+
+
+# ------------------------------------------------------------------ #
+# the loop
+
+def band_config(cfg: LoopConfig):
+    from .band_dp import BandConfig
+    return BandConfig(gap_mode=cfg.gap_mode, pn=cfg.pn, R=cfg.R, WB=cfg.WB,
+                      Wq=cfg.Wq, P=cfg.P, m=5, bt_lmax=cfg.LS)
+
+
+def build_scal(cfg: LoopConfig, ps: PackedState, qlen, scal_base, wb: int,
+               wf1000: int) -> torch.Tensor:
+    """Per-round scal rows [B, S_NSCAL] from the carry: the only glue
+    between the two kernels. w = wb + (wf1000*qlen)//1000 matches the
+    host's int(wf*qlen) for the reference's wf=0.01."""
+    B = ps.ctrl.shape[0]
+    scal = scal_base[:L.S_NSCAL].to(I32).expand(B, L.S_NSCAL).clone()
+    qlen = qlen.to(I32)
+    scal[:, L.S_W] = wb + (wf1000 * qlen) // 1000
+    scal[:, L.S_QLEN] = qlen
+    scal[:, L.S_NROWS] = ps.node_n
+    scal[:, L.S_DPSN] = qlen // cfg.pn + 1
+    # remain of the last topo node (SINK, -1, for whole-graph rounds)
+    last = (ps.node_n - 1).clamp(0, cfg.R - 1).long()[:, None]
+    lastn = (ps.i2nn.gather(1, last) & 0xFFFF).clamp(max=cfg.R - 1)
+    scal[:, L.S_REMEND] = (ps.ctrl.gather(1, lastn.long()) >> 16)[:, 0]
+    return scal
+
+
+def device_round_packed(cfg: LoopConfig, ps: PackedState, qlen, qpf, qp4,
+                        scal_base, wb: int, wf1000: int, misc_out=None,
+                        s16_out=None):
+    """One POA round on the device: the band DP reads the packed state
+    and emits (misc, steps16 wire words); the graph update consumes them.
+    On a CUDA state the graph update rewrites ps's state arrays in
+    place. Returns (PackedState, misc, s16w)."""
+    from .band_dp import band_poa_dp_packed
+    from .graph_update import graph_update_packed
+    scal = build_scal(cfg, ps, qlen, scal_base, wb, wf1000)
+    misc, s16w = band_poa_dp_packed(band_config(cfg), scal, ps.ctrl,
+                                    ps.inp, ps.i2nn, qpf,
+                                    misc_out=misc_out, s16_out=s16_out)
+    ps2 = graph_update_packed(cfg, ps, s16w, misc, qlen, qp4)
+    return ps2, misc, s16w
+
+
+def poa_device_loop(cfg: LoopConfig, st0: GState, i2n0, n2i0, remain0,
+                    qcodes_rounds, qlen_rounds, scal_base, wb: int,
+                    wf1000: int):
+    """NR rounds on the packed carry, all enqueued on the current stream
+    with no host synchronisation. The query-profile folds and packed
+    query codes of all rounds are built before the first round. Inputs
+    are tensors on one device. Returns (final PackedState,
+    misc [NR, B, M_NMISC], s16w [NR, B, LS//2])."""
+    from .band_dp import build_qpf
+    ps = pack_state(cfg, st0, i2n0, n2i0, remain0)
+    B = ps.ctrl.shape[0]
+    dev = ps.ctrl.device
+    qpf_rounds = build_qpf(band_config(cfg), scal_base[L.S_NSCAL:],
+                           qcodes_rounds)
+    qp4_rounds = pack_qp4(cfg, qcodes_rounds)
+    misc = torch.zeros(cfg.NR, B, L.M_NMISC, dtype=I32, device=dev)
+    s16w = torch.zeros(cfg.NR, B, cfg.LS // 2, dtype=I32, device=dev)
+    for r in range(cfg.NR):
+        ps, _, _ = device_round_packed(
+            cfg, ps, qlen_rounds[r], qpf_rounds[r], qp4_rounds[r],
+            scal_base, wb, wf1000, misc_out=misc[r], s16_out=s16w[r])
+    return ps, misc, s16w
+
+
+__all__ = ["LoopConfig", "GState", "PackedState", "pack_state",
+           "unpack_state", "s16w_to_s16", "pack_qp4", "init_state_np",
+           "make_scal_base", "build_scal", "device_round_packed",
+           "poa_device_loop"]
