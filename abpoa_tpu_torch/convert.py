@@ -1,17 +1,29 @@
-"""Carry the JAX package's numpy-side objects across to the port.
+"""Carry the JAX package's objects across to the port.
 
 The device loop has no weights; its "state" is the graph state and the
-static tables. These helpers turn the JAX package's objects (anything
-``np.asarray`` accepts, so JAX arrays too, without importing JAX) into
-the port's tensors on a given device, so tests can feed both packages
-from one numpy source.
+static tables. These helpers turn the JAX package's objects (its
+``Params``, and anything ``np.asarray`` accepts, so JAX arrays too,
+without importing JAX) into the port's own objects and tensors on a
+given device, so tests can feed both packages from one source.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .ops.poa_loop import GState, LoopConfig, PackedState
+from .params import Params
+
+
+def params(p) -> Params:
+    """A JAX-package ``Params`` -> the port's, field by field (the
+    derived score matrix is copied, so the two never share state)."""
+    kw = {f.name: getattr(p, f.name) for f in dataclasses.fields(Params)}
+    if kw["mat"] is not None:
+        kw["mat"] = np.array(kw["mat"], copy=True)
+    return Params(**kw)
 
 
 def tensor(x, device) -> torch.Tensor:

@@ -1,11 +1,19 @@
-// Banded POA DP + backtrack walk over the packed graph state (node-id
-// planes), one CUDA block per POA instance.
+// Banded POA DP + backtrack walk, one CUDA block per POA instance, in
+// two modes over one row body:
+//   node-id mode (NID = true): planes and control words indexed by node
+//     id, the sweep order from the packed i2n|n2i map, steps16 out; the
+//     device loop's kernel.
+//   topo mode (NID = false): planes and control words indexed by
+//     topological row, band-state init (mplr0) and rowmask as inputs when
+//     not fresh, extend mode with z-drop, int32 steps and the band
+//     bounds/state out; the round-based path's kernel.
 //
-// Replaces the TPU kernel make_band_kernel (nid mode) behind
-// band_poa_dp_packed (abpoa_tpu/ops/dp_pallas_band.py:132, :1340).
-// Plain PyTorch version: abpoa_tpu_torch/ops/band_dp.py
-// band_poa_dp_packed_ref; the two are held bit-equal on misc and the
-// step stream.
+// Replaces the TPU kernel make_band_kernel behind band_poa_dp_packed
+// (nid mode) and band_poa_dp_batch (topo mode)
+// (abpoa_tpu/ops/dp_pallas_band.py:132, :1340, :1154). Plain PyTorch
+// versions: abpoa_tpu_torch/ops/band_dp.py band_poa_dp_packed_ref and
+// band_poa_dp_batch_ref; each pair is held bit-equal on misc, the step
+// stream and (topo mode) the band bounds and state.
 //
 // What bounds it on an H100: the DP is row-sequential (row t reads the
 // rows of its predecessors), so one instance is one block and the work
@@ -19,9 +27,9 @@
 // write of a row and the reads of its successors. The prefix-max
 // recurrences of the F (insertion) scores are block-wide Hillis-Steele
 // scans in shared memory; the row max is two warp-shuffle reductions.
-// Instances run in parallel as independent blocks (B = 32 per sub-batch
-// at the bench size); nothing carries from one block to another. The
-// walk reads one backtrack word per step on one thread.
+// Instances run in parallel as independent blocks; nothing carries from
+// one block to another. The walk reads one backtrack word per step on one
+// thread.
 #include <cuda_runtime.h>
 
 #include "layout.cuh"
@@ -32,19 +40,21 @@ namespace {
 struct BandArgs {
   const int* scal;   // [B, S_NSCAL]
   const int* ctrl;   // [B, R]
-  const int* inp;    // [B, R*P/2]
-  const int* i2nn;   // [B, R]
+  const int* inp;    // [B, R*P/2] predecessor halves
+  const int* i2nn;   // [B, R] (node-id mode)
+  const int* mplr0;  // [B, R] mpl|mpr<<16 (topo mode, not fresh) or null
   const int* qpf;    // [B, m*KW1, WB]
   int* misc;         // [B, M_NMISC]
-  int* s16w;         // [B, LS/2] (zeroed by the caller)
+  int* s16w;         // [B, LS/2] (node-id mode; zeroed by the caller)
+  int* steps;        // [B, max(LS, 8)] (topo mode; zeroed by the caller)
+  int* bsn_out;      // [B, R] beg_sn|end_sn<<16 (topo mode; zeroed)
+  int* mplr_out;     // [B, R] mpl|mpr<<16 (topo mode; zeroed)
   int* H;            // [B, R, WB] planes (scratch)
   int* E1;
   int* E2;
   int* BT;
-  int R, WB, Wq, P, pn, gm, LS;
+  int R, WB, Wq, P, pn, gm, LS, m, extend, zdrop_on;
 };
-
-constexpr int M_BASES = 5;
 
 __device__ __forceinline__ int pre_at(const int* s_pre, int P2, int R,
                                       int node, int p) {
@@ -91,14 +101,39 @@ __device__ void scan_max2(int* s1, int* s2, int n) {
   }
 }
 
-__global__ void band_dp_kernel(BandArgs a) {
+// band state of a row pulled from its predecessors' row maxima (the
+// reference scatters each row's max position to its out-nodes; every
+// predecessor completes first, so the pull is the same value)
+__device__ __forceinline__ void pull_band(const int* s_pre, const int* s_rms,
+                                          int P2, int R, int row, int npre,
+                                          int iw, int& mpl, int& mpr) {
+  mpl = 1 << 29;
+  mpr = -(1 << 29);
+  bool has_src = false;
+  for (int p = 0; p < npre; ++p) {
+    int pred = pre_at(s_pre, P2, R, row, p);
+    int wr = s_rms[pred];
+    if (wr >= RM_OK) {
+      int v = wr & (RM_OK - 1);
+      mpl = min(mpl, v);
+      mpr = max(mpr, v);
+    }
+    has_src |= pred == 0;
+  }
+  mpl = min(mpl, has_src ? (1 << 29) : (iw & H16));
+  mpr = max(mpr, has_src ? -(1 << 29) : (iw >> 16));
+}
+
+// up to 1024 band lanes: cap registers at 64 a thread
+template <bool NID>
+__global__ void __launch_bounds__(1024) band_dp_kernel(BandArgs a) {
   extern __shared__ int smem[];
   const int R = a.R, WB = a.WB, P = a.P, pn = a.pn, gm = a.gm;
   const int P2 = P / 2, NSEG = WB / pn, KW1 = a.Wq / WB + 1;
   const int b = blockIdx.x, l = threadIdx.x;
   int* s_ctrl = smem;
-  int* s_i2nn = s_ctrl + R;
-  int* s_pre = s_i2nn + R;
+  int* s_i2nn = s_ctrl + R;                    // node-id mode only
+  int* s_pre = s_i2nn + (NID ? R : 0);
   int* s_bsn = s_pre + R * P2;
   int* s_rms = s_bsn + R;
   int* s_scan1 = s_rms + R;
@@ -110,11 +145,10 @@ __global__ void band_dp_kernel(BandArgs a) {
   int* s_bcast = s_red + 32;   // 4 ints
 
   const int* ctrl = a.ctrl + (size_t)b * R;
-  const int* i2nn = a.i2nn + (size_t)b * R;
   const int* inp = a.inp + (size_t)b * R * P2;
   for (int i = l; i < R; i += blockDim.x) {
     s_ctrl[i] = ctrl[i];
-    s_i2nn[i] = i2nn[i];
+    if (NID) s_i2nn[i] = a.i2nn[(size_t)b * R + i];
   }
   for (int i = l; i < R * P2; i += blockDim.x) s_pre[i] = inp[i];
   const size_t plane = (size_t)R * WB;
@@ -122,12 +156,15 @@ __global__ void band_dp_kernel(BandArgs a) {
   int* E1 = a.E1 + b * plane;
   int* E2 = a.E2 + b * plane;
   int* BT = a.BT + b * plane;
-  const int* qpf = a.qpf + (size_t)b * M_BASES * KW1 * WB;
+  const int* qpf = a.qpf + (size_t)b * a.m * KW1 * WB;
+  const int* mplr0 = a.mplr0 ? a.mplr0 + (size_t)b * R : nullptr;
+  int* mplr_out = NID ? nullptr : a.mplr_out + (size_t)b * R;
   const int* sc = a.scal + (size_t)b * S_NSCAL;
   const int qlen = sc[S_QLEN], nrows = sc[S_NROWS], w = sc[S_W];
   const int inf = sc[S_INF], remend = sc[S_REMEND], dpsn = sc[S_DPSN];
   const int e1 = sc[S_E1], o1 = sc[S_O1], oe1 = sc[S_OE1];
   const int e2 = sc[S_E2], o2 = sc[S_O2], oe2 = sc[S_OE2];
+  const int zdrop = sc[S_ZDROP];
   __syncthreads();
 
   // ---- first row: its window is [0, WB), lane l holds col l ----
@@ -142,10 +179,10 @@ __global__ void band_dp_kernel(BandArgs a) {
     bool de_mask = l <= (end_sn0 + 1) * pn - 1;
     int fill0 = hi_mask ? inf : 0;
     if (gm == LINEAR_GAP) {
-      H[l] = de_mask ? -e1 * l : fill0;
+      H[l] = de_mask ? mulw(-e1, l) : fill0;
     } else {
-      int hv = -o1 - e1 * l;
-      if (gm == CONVEX_GAP) hv = max(hv, -o2 - e2 * l);
+      int hv = -o1 - mulw(e1, l);
+      if (gm == CONVEX_GAP) hv = max(hv, -o2 - mulw(e2, l));
       int h0 = (de_mask && l >= 1) ? hv : fill0;
       H[l] = l == 0 ? 0 : h0;
       E1[l] = l == 0 ? -oe1 : fill0;
@@ -154,37 +191,34 @@ __global__ void band_dp_kernel(BandArgs a) {
     if (l == 0) {
       s_rms[0] = RM_OK | 1;
       s_bsn[0] = shlw(end_sn0, 16);
+      if (!NID) mplr_out[0] = 0;
     }
   }
   __syncthreads();
 
+  // extend-mode best cell and z-drop state: every thread keeps the same
+  // copy (all inputs are block-uniform)
+  int bs = inf, bi = 0, bj = 0, brem = s_ctrl[0] >> 16;
+  bool stop = false;
   const int limit = min(nrows - 1, R - 1);
   for (int t = 1; t < limit; ++t) {
     // ---- per-row scalars (every thread computes them from shared) ----
-    int rid = min(max(s_i2nn[t] & H16, 0), R - 1);
+    int rid = NID ? min(max(s_i2nn[t] & H16, 0), R - 1) : t;
     int cw = s_ctrl[rid];
-    int npre = (cw >> 10) & 15;
-    int mpl = 1 << 29, mpr = -(1 << 29), min_pb = 1 << 30;
-    bool has_src = false;
-    for (int p = 0; p < npre; ++p) {
-      int pred = pre_at(s_pre, P2, R, rid, p);
-      min_pb = min(min_pb, s_bsn[pred] & H16);
-      int wr = s_rms[pred];
-      if (wr >= RM_OK) {
-        int v = wr & (RM_OK - 1);
-        mpl = min(mpl, v);
-        mpr = max(mpr, v);
-      }
-      has_src |= pred == 0;
-    }
-    mpl = min(mpl, has_src ? (1 << 29) : (nrows & H16));
-    mpr = max(mpr, has_src ? -(1 << 29) : (nrows >> 16));
+    int npre = min(NID ? (cw >> 10) & 15 : (cw >> 5) & 31, P);
+    bool active = NID || (((cw >> 10) & 1) && !stop);
+    int iw = (NID || !mplr0) ? nrows : mplr0[t];
+    int mpl, mpr, min_pb = 1 << 30;
+    for (int p = 0; p < npre; ++p)
+      min_pb = min(min_pb, s_bsn[pre_at(s_pre, P2, R, rid, p)] & H16);
+    pull_band(s_pre, s_rms, P2, R, rid, npre, iw, mpl, mpr);
+    if (!NID && l == 0) mplr_out[t] = (int)((unsigned)mpl | shlw(mpr, 16));
     int rem = (cw >> 16) - remend - 1;
     int beg = max(0, min(mpl, qlen - rem) - w);
     int end = min(qlen, max(mpr, qlen - rem) + w);
     int beg_sn = max(floordiv(beg, pn), min_pb);
     int end_sn = floordiv(end, pn);
-    if (l == 0) {
+    if (l == 0 && active) {
       cells += (end_sn - beg_sn + 1) * pn;
       int capg = min(end_sn + 1, dpsn - 1);
       ovfl |= capg - beg_sn + 2 > NSEG;
@@ -196,13 +230,17 @@ __global__ void band_dp_kernel(BandArgs a) {
                     | ((unsigned)(lo_g - k0 * WB) << 20));
     int begc = bel & 1023, endc = (bel >> 10) & 1023, lomodc = bel >> 20;
     int capc = min(endc + 1, dpsn - 1);
-    int base = cw & 7;
-    int fold = min(max(base * KW1 + k0, 0), M_BASES * KW1 - 2);
+    int base = cw & (NID ? 7 : 31);
+    int fold = min(max(base * KW1 + k0, 0), a.m * KW1 - 2);
     int qwin = 0;
-    if (base < M_BASES)
+    if (base < a.m)
       qwin = qpf[(size_t)(l >= lomodc ? fold : fold + 1) * WB + l];
     int dlo = l - lomodc;
     int rel = dlo >= 0 ? dlo : dlo + WB;
+    // rel is in [0, WB) on every swept row; a row with no valid
+    // predecessor (padding, unreachable) has a garbage band whose rel is
+    // only wrapped back into range to index the scan arrays
+    const int ri = floormod(rel, WB);
     int c = begc * pn + rel;
     int seg = floordiv(c, pn);
     bool band = seg >= begc && seg <= endc;
@@ -262,10 +300,10 @@ __global__ void band_dp_kernel(BandArgs a) {
     // ---- F (insertion) recurrences as prefix maxes in band order ----
     int hrow, e1row = 0, e2row = 0, f1row = 0, f2row = 0;
     if (gm == LINEAR_GAP) {
-      s_scan1[rel] = band ? max(h, inf) + rel * e1 : NEG;
+      s_scan1[ri] = band ? max(h, inf) + rel * e1 : NEG;
       __syncthreads();
       scan_max2(s_scan1, nullptr, WB);
-      int hfin = max(s_scan1[rel] - rel * e1, inf);
+      int hfin = max(s_scan1[ri] - rel * e1, inf);
       hrow = band ? hfin : h;
     } else {
       int h0 = h + (band ? qrow : 0);
@@ -273,20 +311,20 @@ __global__ void band_dp_kernel(BandArgs a) {
       int src;
       if (gm == CONVEX_GAP) {
         src = band ? max(max(h0, e1v), e2v) : NEG;
-        s_scan1[rel] = band ? max(src, inf) + rel * e1 : NEG;
-        s_scan2[rel] = band ? max(src, inf) + rel * e2 : NEG;
+        s_scan1[ri] = band ? max(src, inf) + rel * e1 : NEG;
+        s_scan2[ri] = band ? max(src, inf) + rel * e2 : NEG;
       } else {
         src = band ? h0 : NEG;
-        s_scan1[rel] = band ? max(src, inf) + rel * e1 : NEG;
+        s_scan1[ri] = band ? max(src, inf) + rel * e1 : NEG;
       }
       __syncthreads();
       scan_max2(s_scan1, gm == CONVEX_GAP ? s_scan2 : nullptr, WB);
       int seed = s_bcast[0];
-      int pm1 = rel >= 1 ? s_scan1[rel - 1] : NEG;
+      int pm1 = ri >= 1 ? s_scan1[ri - 1] : NEG;
       int f1 = rel == 0 ? seed - oe1 : pm1 - oe1 - (rel - 1) * e1;
       f1 = max(f1, inf);
       if (gm == CONVEX_GAP) {
-        int pm2 = rel >= 1 ? s_scan2[rel - 1] : NEG;
+        int pm2 = ri >= 1 ? s_scan2[ri - 1] : NEG;
         int f2 = rel == 0 ? seed - oe2 : pm2 - oe2 - (rel - 1) * e2;
         f2 = max(f2, inf);
         int hh = max(max(src, f1), f2);
@@ -395,46 +433,85 @@ __global__ void band_dp_kernel(BandArgs a) {
     int key = (rel % pn) * (1 << 15) + (prio * 1024 + lseg + 1024);
     int gmax = block_max(vv, s_red);
     int kpick = block_min(vv == gmax ? key : (1 << 30), s_red);
+    int aux_pick = (kpick & 0x7FFF) - 1024;
+    int wseg = aux_pick - floordiv(aux_pick, 1024) * 1024;
+    int maxi = gmax > inf ? (begc + wseg) * pn + (kpick >> 15) : -1;
+    bool stop_now = false;
+    if (!NID && a.extend) {
+      bool better = gmax > bs;
+      if (a.zdrop_on) {
+        int delta = brem - (cw >> 16);
+        int zlim = zdrop + mulw(e1, abs(delta - (maxi - bj)));
+        stop_now = !better && bs - gmax > zlim;
+      }
+      if (active && better) {
+        bs = gmax;
+        bi = t;
+        bj = maxi;
+        brem = cw >> 16;
+      }
+      stop_now = active && stop_now;
+      stop = stop || stop_now;
+    }
     if (l == 0) {
-      int aux_pick = (kpick & 0x7FFF) - 1024;
-      int wseg = aux_pick - floordiv(aux_pick, 1024) * 1024;
-      int maxi = gmax > inf ? (begc + wseg) * pn + (kpick >> 15) : -1;
-      s_rms[rid] = RM_OK | (maxi + 1);
+      s_rms[rid] = (active && !stop_now) ? (RM_OK | (maxi + 1)) : 0;
       s_bsn[rid] = (int)((unsigned)beg_sn | ((unsigned)end_sn << 16));
     }
     __syncthreads();
   }
 
-  if (l != 0) return;
-  // ---- best cell over the sink's predecessors ----
-  int bs = inf, bi = 0, bj = 0;
-  const int npre_sink = (s_ctrl[SINK_NODE_ID] >> 10) & 15;
-  for (int p = 0; p < npre_sink; ++p) {
-    int pred = pre_at(s_pre, P2, R, SINK_NODE_ID, p);
-    int pw = s_bsn[pred];
-    int ec = min(qlen, ((pw >> 16) + 1) * pn - 1);
-    int lo_p = (pw & H16) * pn;
-    int val = H[(size_t)pred * WB + floormod(ec, WB)];
-    if (!(ec >= lo_p && ec < lo_p + WB)) val = 0;
-    if (val > bs) {
-      bs = val;
-      bi = pred;
-      bj = ec;
+  if (!NID) {
+    // band bounds out; the sink row is never swept: pin its bsn and pull
+    // its band state
+    for (int i = l; i < limit; i += blockDim.x)
+      a.bsn_out[(size_t)b * R + i] = s_bsn[i];
+    if (l == 0 && limit >= 0) {
+      int npre_l = min((s_ctrl[limit] >> 5) & 31, P);
+      int iw = mplr0 ? mplr0[limit] : nrows;
+      int mpl, mpr;
+      pull_band(s_pre, s_rms, P2, R, limit, npre_l, iw, mpl, mpr);
+      mplr_out[limit] = (int)((unsigned)mpl | shlw(mpr, 16));
+      s_bsn[limit] = 0;
     }
   }
+  if (l != 0) return;
   int* misc = a.misc + (size_t)b * M_NMISC;
+  if (!a.extend) {
+    // ---- best cell over the sink's predecessors ----
+    bs = inf;
+    bi = bj = 0;
+    const int sink = NID ? SINK_NODE_ID : min(max(nrows - 1, 0), R - 1);
+    const int npre_sink = min(NID ? (s_ctrl[sink] >> 10) & 15
+                                  : (s_ctrl[sink] >> 5) & 31, P);
+    for (int p = 0; p < npre_sink; ++p) {
+      int pred = pre_at(s_pre, P2, R, sink, p);
+      int pw = s_bsn[pred];
+      int ec = min(qlen, ((pw >> 16) + 1) * pn - 1);
+      int lo_p = (pw & H16) * pn;
+      int val = H[(size_t)pred * WB + floormod(ec, WB)];
+      if (!(ec >= lo_p && ec < lo_p + WB)) val = 0;
+      if (val > bs) {
+        bs = val;
+        bi = pred;
+        bj = ec;
+      }
+    }
+  }
   misc[M_BEST] = bs;
-  misc[M_BI] = s_i2nn[bi] >> 16;
+  misc[M_BI] = NID ? s_i2nn[bi] >> 16 : bi;
   misc[M_BJ] = bj;
   misc[M_CELLS] = cells;
   misc[M_OVFL] = ovfl;
+  if (a.LS == 0) return;
 
-  // ---- the walk: one backtrack word per step, emitting the steps16
-  // deltas (op | dj<<2 | di<<3 in topo space), two halves per word ----
-  int* s16 = a.s16w + (size_t)b * (a.LS / 2);
+  // ---- the walk: one backtrack word per step; node-id mode emits the
+  // steps16 deltas (op | dj<<2 | di<<3 in topo space), two halves per
+  // word, topo mode the int32 words op | row<<2 | col<<14 ----
+  int* s16 = NID ? a.s16w + (size_t)b * (a.LS / 2) : nullptr;
+  int* st = NID ? nullptr : a.steps + (size_t)b * max(a.LS, 8);
   int I = bi, J = bj, lane = floormod(bj, WB), cur = BT_ALL, nst = 0;
   bool if_ = true, fail = false;
-  int PI = s_i2nn[bi] >> 16, PJ = bj;
+  int PI = NID ? s_i2nn[bi] >> 16 : 0, PJ = bj;
   unsigned half = 0;
   bool done = bi <= 0 || bj <= 0 || ovfl;
   while (!done) {
@@ -501,13 +578,18 @@ __global__ void band_dp_kernel(BandArgs a) {
     else if (use_e) new_i = pre_at(s_pre, P2, R, I, min(e_pick_p, P - 1));
     if (any_hit) {
       int op_code = use_m ? 0 : (use_e ? 2 : 1);
-      int ti = s_i2nn[I] >> 16;
-      unsigned hw = ((unsigned)op_code | ((unsigned)(PJ - J) << 2)
-                     | ((unsigned)(PI - ti) << 3)) & 0xFFFFu;
-      if (nst & 1) s16[nst >> 1] = (int)(half | (hw << 16));
-      else half = hw;
-      PI = ti;
-      PJ = J;
+      if (NID) {
+        int ti = s_i2nn[I] >> 16;
+        unsigned hw = ((unsigned)op_code | ((unsigned)(PJ - J) << 2)
+                       | ((unsigned)(PI - ti) << 3)) & 0xFFFFu;
+        if (nst & 1) s16[nst >> 1] = (int)(half | (hw << 16));
+        else half = hw;
+        PI = ti;
+        PJ = J;
+      } else {
+        st[nst] = (int)((unsigned)op_code | ((unsigned)I << 2)
+                        | ((unsigned)J << 14));
+      }
       ++nst;
     }
     bool dj = use_m || use_f;
@@ -521,19 +603,37 @@ __global__ void band_dp_kernel(BandArgs a) {
     J = new_j;
     done = fail || new_i <= 0 || new_j <= 0 || nst >= a.LS;
   }
-  if (nst & 1) s16[nst >> 1] = (int)(half & 0xFFFFu);
+  if (NID && (nst & 1)) s16[nst >> 1] = (int)(half & 0xFFFFu);
   misc[M_NSTEPS] = nst;
   misc[M_FAIL] = fail;
-  misc[M_ENDI] = s_i2nn[I] >> 16;
+  misc[M_ENDI] = NID ? s_i2nn[I] >> 16 : I;
   misc[M_ENDJ] = J;
   misc[M_LASTI] = PI;
+}
+
+// the same number as ops/band_dp.py band_smem_bytes
+size_t band_smem_bytes(bool nid, int R, int P, int WB) {
+  return sizeof(int) * ((size_t)(3 + (nid ? 1 : 0) + P / 2) * R + 5 * WB + 36);
+}
+
+template <bool NID>
+int launch(const BandArgs& a, int B, void* stream) {
+  size_t smem = band_smem_bytes(NID, a.R, a.P, a.WB);
+  cudaError_t err = cudaFuncSetAttribute(
+      band_dp_kernel<NID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  band_dp_kernel<NID><<<B, a.WB, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace abpoa
 
-// C entry point (bound with ctypes). Enqueues the kernel on `stream`;
-// returns the cudaError_t of the launch.
+// C entry points (bound with ctypes). Each enqueues its kernel on
+// `stream` and returns the cudaError_t of the launch.
+
+// node-id mode: global, fresh band state, m = 5
 extern "C" int band_dp_launch(const int* scal, const int* ctrl,
                               const int* inp, const int* i2nn,
                               const int* qpf, int* misc, int* s16w, int* H,
@@ -544,13 +644,29 @@ extern "C" int band_dp_launch(const int* scal, const int* ctrl,
   if (B <= 0) return 0;
   if (WB % 32 || WB > 1024 || WB % pn || P % 2 || P > 15)
     return (int)cudaErrorInvalidValue;
-  size_t smem = sizeof(int) * ((size_t)(4 + P / 2) * R + 5 * WB + 36);
-  cudaError_t err = cudaFuncSetAttribute(
-      band_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  BandArgs a{scal, ctrl, inp, i2nn, qpf, misc, s16w, H, E1, E2, BT,
-             R, WB, Wq, P, pn, gap_mode, LS};
-  band_dp_kernel<<<B, WB, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  BandArgs a{scal, ctrl, inp, i2nn, nullptr, qpf, misc, s16w, nullptr,
+             nullptr, nullptr, H, E1, E2, BT,
+             R, WB, Wq, P, pn, gap_mode, LS, 5, 0, 0};
+  return launch<true>(a, B, stream);
+}
+
+// topo mode: global or extend, fresh (mplr0 == null) or not
+extern "C" int band_dp_topo_launch(const int* scal, const int* ctrl,
+                                   const int* pre, const int* mplr0,
+                                   const int* qpf, int* bsn_out,
+                                   int* mplr_out, int* misc, int* steps,
+                                   int* H, int* E1, int* E2, int* BT, int B,
+                                   int R, int WB, int Wq, int P, int pn,
+                                   int gap_mode, int LS, int m,
+                                   int align_mode, int zdrop_on,
+                                   void* stream) {
+  using namespace abpoa;
+  if (B <= 0) return 0;
+  if (WB % 32 || WB > 1024 || WB % pn || P % 2 || P > 16 || m > 31
+      || (align_mode != 0 && align_mode != 2))
+    return (int)cudaErrorInvalidValue;
+  BandArgs a{scal, ctrl, pre, nullptr, mplr0, qpf, misc, nullptr, steps,
+             bsn_out, mplr_out, H, E1, E2, BT,
+             R, WB, Wq, P, pn, gap_mode, LS, m, align_mode == 2, zdrop_on};
+  return launch<false>(a, B, stream);
 }

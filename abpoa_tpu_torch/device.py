@@ -1,5 +1,6 @@
-"""Explicit device resolution: the port never picks a device for the
-caller and never falls back to the CPU when a GPU was asked for."""
+"""Device resolution: the port's entry points run on the card unless
+the caller asks for the CPU, and never fall back to the CPU when a GPU
+was asked for."""
 from __future__ import annotations
 
 import torch

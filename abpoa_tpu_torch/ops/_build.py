@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface, at first use, into ``build/abpoa_tpu_torch/`` at the
-root of the checkout (git-ignored); the library is loaded with ctypes.
-The library's name carries a hash of the sources, so an edited source is
-rebuilt and a built one is reused. No PyTorch headers are compiled,
-which keeps a build to seconds.
+``nvcc`` compiles each ``csrc/<name>.cu`` into its own shared library
+with a plain C interface, at first use, into ``build/abpoa_tpu_torch/``
+at the root of the checkout (git-ignored); the libraries are loaded with
+ctypes. ``build_all`` starts one ``nvcc`` per source, all at once. A
+library's name carries a hash of its source, the shared headers and the
+flags, so an edited source is rebuilt and a built one is reused. No
+PyTorch headers are compiled, which keeps a build to seconds.
 """
 from __future__ import annotations
 
@@ -27,16 +28,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 
-# (name, argtypes) of every exported C function; each returns the
-# cudaError_t of its launch as an int
-_SIGNATURES = {
-    "band_dp_launch": [_vp] * 11 + [_int] * 8 + [_vp],
-    "graph_update_launch": [_vp] * 14 + [_int] * 8 + [_vp],
+# source -> {exported C function: argtypes}; each returns the cudaError_t
+# of its launch as an int
+SOURCES = {
+    "band_dp": {
+        "band_dp_launch": [_vp] * 11 + [_int] * 8 + [_vp],
+        "band_dp_topo_launch": [_vp] * 13 + [_int] * 11 + [_vp],
+    },
+    "graph_update": {
+        "graph_update_launch": [_vp] * 14 + [_int] * 8 + [_vp],
+    },
+    "fw_dp": {
+        "fw_dp_launch": [_vp] * 22 + [_int] * 12 + [_vp],
+    },
 }
 
 _lock = threading.Lock()
-_lib = None
-build_seconds = None   # wall seconds of the nvcc run of this process
+_libs: dict = {}
+build_seconds = None   # wall seconds of this process's nvcc runs, if any
 
 
 def _nvcc() -> str:
@@ -49,47 +58,58 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> pathlib.Path:
-    srcs = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256()
-    for s in srcs:
+    for s in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libabpoa_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels if this source state has no library yet."""
+def build_all(names=None) -> dict:
+    """Compile every source (or `names`) that has no library for its
+    current state yet: one nvcc per source, all started together.
+    Returns {name: library path}."""
     global build_seconds
-    out = library_path()
-    if out.exists():
-        return out
+    names = list(SOURCES) if names is None else list(names)
+    outs = {n: library_path(n) for n in names}
+    todo = [n for n in names if not outs[n].exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    procs = {}
+    for n in todo:
+        tmp = outs[n].with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    errors = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {n}.cu:\n{log}")
+        else:
+            os.replace(tmp, outs[n])
+    if errors:
+        raise RuntimeError("\n".join(errors))
     build_seconds = time.perf_counter() - t0
-    return out
+    return outs
 
 
-def library():
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def library(name: str):
+    """The loaded library of csrc/<name>.cu (built on first call)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            for fn_name, argtypes in SOURCES[name].items():
+                fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -1,20 +1,25 @@
-"""Banded POA DP + backtrack walk over the packed graph state.
+"""Banded POA DP + backtrack walk, in node-id mode and in topo mode.
 
-Counterpart of ``band_poa_dp_packed`` / ``make_band_kernel`` (nid mode)
-in ``abpoa_tpu/ops/dp_pallas_band.py``. The CUDA kernel is
-``csrc/band_dp.cu``; ``band_poa_dp_packed_ref`` is its plain PyTorch
-version, batched over instances.
+Counterpart of ``make_band_kernel`` in ``abpoa_tpu/ops/dp_pallas_band.py``
+behind its two entries: ``band_poa_dp_packed`` (nid mode, the device
+loop: planes and control words indexed by node id, the sweep order from
+the packed i2n map, steps16 out) and ``band_poa_dp_batch`` (topo mode,
+the round-based path: planes and control words indexed by topological
+row, band state and rowmask as inputs, extend mode with z-drop, int32
+steps and steps16 out). One CUDA source, ``csrc/band_dp.cu``, holds both
+kernels over one row body; ``band_poa_dp_packed_ref`` and
+``band_poa_dp_batch_ref`` are the plain PyTorch versions, batched over
+instances, sharing one implementation (``_band_ref``).
 
-What is computed, per instance: the adaptive-banded global DP of one
-query against the graph in topological order (rows come from the
-packed i2n map, planes are indexed by node id), with H/E1/E2 planes
-whose lane l holds query column c = l (mod WB), a backtrack-bits plane
-that bakes every comparison the reference walk makes (M -> D -> I
-order, indel_first, cur_op gating; ref src/abpoa_align.c:64-170 via
-``abpoa_tpu/align/engine_np.py:636-935``), and the walk, which emits
-the steps16 delta stream (``ops/steps.py``) and the misc row. A row
-whose band does not fit the WB window sets M_OVFL; a walk with no move
-sets M_FAIL. The host rebuilds such instances on the oracle.
+What is computed, per instance: the adaptive-banded DP of one query
+against the graph in topological order, with H/E1/E2 planes whose lane
+l holds query column c = l (mod WB), a backtrack-bits plane that bakes
+every comparison the reference walk makes (M -> D -> I order,
+indel_first, cur_op gating; ref src/abpoa_align.c:64-170 via
+``align/engine_np.py:636-935``), and the walk, which emits the step
+stream and the misc row. A row whose band does not fit the WB window
+sets M_OVFL; a walk with no move sets M_FAIL. The host rebuilds such
+instances on the oracle.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from abpoa_tpu.params import LINEAR_GAP, CONVEX_GAP, SINK_NODE_ID
+from ..params import (GLOBAL_MODE, EXTEND_MODE, LINEAR_GAP, CONVEX_GAP,
+                      SINK_NODE_ID)
 
 from . import layout as L
 from ._build import check_launch, library
@@ -32,9 +38,11 @@ RM_OK = 1 << 30
 
 
 class BandConfig(NamedTuple):
-    """Geometry of the band kernel. It always runs the JAX kernel's
-    global, node-id-plane, fresh-band-state mode (nid=True, fresh=True):
-    the only mode the device loop uses."""
+    """Geometry and mode of the band kernel (the JAX ``BandConfig``
+    without the TPU packing fields G and dv). ``nid`` selects node-id
+    mode (the device loop; needs ``fresh`` and global mode); ``fresh``
+    synthesises the post-sort band state (mpl = n_rows, mpr = 0) and an
+    all-ones rowmask instead of reading them."""
     gap_mode: int
     pn: int
     R: int
@@ -43,42 +51,93 @@ class BandConfig(NamedTuple):
     P: int       # predecessor slots per row
     m: int
     bt_lmax: int  # walk length bound (step-stream capacity)
+    align_mode: int = GLOBAL_MODE
+    use_zdrop: bool = False
+    fresh: bool = True
+    nid: bool = True
+
+
+class BandOut(NamedTuple):
+    beg_sn: torch.Tensor   # [B, R]
+    end_sn: torch.Tensor
+    mpl: torch.Tensor
+    mpr: torch.Tensor
+    misc: torch.Tensor     # [B, M_NMISC]
+    steps: torch.Tensor    # [B, max(bt_lmax, 8)] op|row<<2|col<<14
+    steps16: torch.Tensor  # [B, max(bt_lmax, 8)] int16 delta stream
 
 
 def build_qpf(cfg: BandConfig, mat, qcodes: torch.Tensor) -> torch.Tensor:
     """Query-profile folds [..., m*(KW+1), WB]: fold k of base a holds
     mat[a, code(col)] for query columns [k*WB, (k+1)*WB); the last fold
-    of each base is zeros. qcodes: [..., Wq]; mat: [m*m]."""
+    of each base is zeros. qcodes: [..., Wq]; mat: [m*m], or [..., m*m]
+    with the leading axes of qcodes (one matrix per instance)."""
     m, WB = cfg.m, cfg.WB
     KW = cfg.Wq // WB
-    mat = torch.as_tensor(mat, dtype=I32, device=qcodes.device).reshape(m, m)
+    lead = qcodes.shape[:-1]
+    mat = torch.as_tensor(mat, dtype=I32, device=qcodes.device)
+    mat = mat.reshape(*mat.shape[:-1], m, m)
     codes = qcodes.to(torch.int64)
     valid = codes < m
-    qp = torch.where(valid[..., None, :],
-                     mat[:, codes.clamp(max=m - 1)].movedim(0, -2),
+    idx = codes.clamp(max=m - 1)[..., None, :]
+    if mat.dim() == 2:
+        qp = mat[:, idx[..., 0, :]].movedim(0, -2)
+    else:
+        qp = mat.gather(-1, idx.expand(*lead, m, codes.shape[-1]))
+    qp = torch.where(valid[..., None, :], qp,
                      torch.zeros((), dtype=I32, device=qcodes.device))
-    lead = qcodes.shape[:-1]
     qp = qp.reshape(*lead, m, KW, WB)
     qpf = torch.cat([qp, qp.new_zeros(*lead, m, 1, WB)], dim=-2)
     return qpf.reshape(*lead, m * (KW + 1), WB).contiguous()
 
 
-def _check_inputs(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
-    if cfg.WB % cfg.pn or cfg.Wq % cfg.WB or cfg.P % 2 or cfg.bt_lmax % 2:
-        raise ValueError(f"band_poa_dp_packed: bad geometry {cfg}")
-    B, R = ctrl.shape[0], cfg.R
-    KW1 = cfg.Wq // cfg.WB + 1
-    want = {"scal": (scal, (B, L.S_NSCAL)), "ctrl": (ctrl, (B, R)),
-            "inp": (inp, (B, R * cfg.P // 2)), "i2nn": (i2nn, (B, R)),
-            "qpf": (qpf, (B, cfg.m * KW1, cfg.WB))}
-    for name, (t, shape) in want.items():
-        if t.dtype != I32:
-            raise TypeError(f"{name}: int32 expected, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-        if t.device != ctrl.device:
-            raise ValueError(f"{name}: on {t.device}, ctrl on {ctrl.device}")
+def _check_geometry(cfg: BandConfig, name: str):
+    if (cfg.WB % cfg.pn or cfg.Wq % cfg.WB or cfg.P % 2 or cfg.bt_lmax % 2
+            or cfg.WB > 1024 or cfg.P > 16):
+        raise ValueError(f"{name}: bad geometry {cfg}")
 
+
+def _check_tensors(name: str, want: dict, dev):
+    for key, (t, shape) in want.items():
+        if t.dtype != I32:
+            raise TypeError(f"{name}: {key}: int32 expected, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key}: shape {tuple(t.shape)} != "
+                             f"{shape}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {key}: on {t.device}, expected {dev}")
+        if dev.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+# dynamic shared memory a block of the band kernel may use on Hopper
+MAX_SMEM_BYTES = 232448
+
+
+def band_smem_bytes(nid: bool, R: int, P: int, WB: int) -> int:
+    """Shared memory of one block: ctrl, (i2nn,) predecessor halves, band
+    bounds and row maxima per row, five WB-lane scratch rows."""
+    return 4 * ((3 + int(nid) + P // 2) * R + 5 * WB + 36)
+
+
+def band_nplanes(gap_mode: int) -> int:
+    """Planes of one instance: H and the backtrack bits, plus E1 (affine)
+    and E2 (convex)."""
+    return {LINEAR_GAP: 2, CONVEX_GAP: 4}.get(gap_mode, 3)
+
+
+def _planes(cfg: BandConfig, B: int, dev):
+    """Plane scratch: H, E1 (affine/convex), E2 (convex), backtrack bits."""
+    nplanes = band_nplanes(cfg.gap_mode)
+    planes = torch.empty(nplanes, B, cfg.R, cfg.WB, dtype=I32, device=dev)
+    H, BT = planes[0], planes[-1]
+    E1 = planes[1] if nplanes >= 3 else H
+    E2 = planes[2] if nplanes == 4 else H
+    return H, E1, E2, BT
+
+
+# ------------------------------------------------------------------ #
+# node-id mode: the device loop's entry
 
 def band_poa_dp_packed(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf,
                        misc_out=None, s16_out=None):
@@ -90,39 +149,37 @@ def band_poa_dp_packed(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf,
 
     CUDA tensors launch ``csrc/band_dp.cu``; CPU tensors run the plain
     version. Nothing else: a kernel fault raises."""
+    if not (cfg.nid and cfg.fresh and cfg.align_mode == GLOBAL_MODE):
+        raise ValueError("band_poa_dp_packed: node-id mode is global and "
+                         "fresh only")
+    _check_geometry(cfg, "band_poa_dp_packed")
     scal = scal[:, :L.S_NSCAL].contiguous()
-    _check_inputs(cfg, scal, ctrl, inp, i2nn, qpf)
-    B = ctrl.shape[0]
-    if ctrl.device.type == "cpu":
+    B, R = ctrl.shape[0], cfg.R
+    KW1 = cfg.Wq // cfg.WB + 1
+    dev = ctrl.device
+    _check_tensors("band_poa_dp_packed", {
+        "scal": (scal, (B, L.S_NSCAL)), "ctrl": (ctrl, (B, R)),
+        "inp": (inp, (B, R * cfg.P // 2)), "i2nn": (i2nn, (B, R)),
+        "qpf": (qpf, (B, cfg.m * KW1, cfg.WB))}, dev)
+    if dev.type == "cpu":
         misc, s16w = band_poa_dp_packed_ref(cfg, scal, ctrl, inp, i2nn, qpf)
         if misc_out is not None:
             misc_out.copy_(misc)
             s16_out.copy_(s16w)
             return misc_out, s16_out
         return misc, s16w
-    if ctrl.device.type != "cuda":
-        raise ValueError(f"band_poa_dp_packed: unsupported device "
-                         f"{ctrl.device}")
-    for t in (ctrl, inp, i2nn, qpf):
-        if not t.is_contiguous():
-            raise ValueError("band_poa_dp_packed: inputs must be contiguous")
-    dev = ctrl.device
+    if dev.type != "cuda":
+        raise ValueError(f"band_poa_dp_packed: unsupported device {dev}")
     misc = (misc_out if misc_out is not None
             else torch.empty(B, L.M_NMISC, dtype=I32, device=dev))
     s16w = (s16_out if s16_out is not None
             else torch.empty(B, cfg.bt_lmax // 2, dtype=I32, device=dev))
-    for name, t, shape in (("misc_out", misc, (B, L.M_NMISC)),
-                           ("s16_out", s16w, (B, cfg.bt_lmax // 2))):
-        if (t.dtype != I32 or tuple(t.shape) != shape or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"band_poa_dp_packed: bad {name}")
+    _check_tensors("band_poa_dp_packed", {
+        "misc_out": (misc, (B, L.M_NMISC)),
+        "s16_out": (s16w, (B, cfg.bt_lmax // 2))}, dev)
     s16w.zero_()
-    nplanes = {LINEAR_GAP: 2, CONVEX_GAP: 4}.get(cfg.gap_mode, 3)
-    planes = torch.empty(nplanes, B, cfg.R, cfg.WB, dtype=I32, device=dev)
-    H, BT = planes[0], planes[-1]
-    E1 = planes[1] if nplanes >= 3 else H
-    E2 = planes[2] if nplanes == 4 else H
-    lib = library()
+    H, E1, E2, BT = _planes(cfg, B, dev)
+    lib = library("band_dp")
     with torch.cuda.device(dev):
         rc = lib.band_dp_launch(
             scal.data_ptr(), ctrl.data_ptr(), inp.data_ptr(),
@@ -139,21 +196,179 @@ def band_poa_dp_packed(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf,
 band_poa_dp_packed.launches = 0
 
 
-# ------------------------------------------------------------------ #
-# plain PyTorch version
-
 def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
-    """Plain PyTorch version of the band kernel, batched over B (runs on
-    any device). Per instance it is the same function as the kernel:
-    rows 1..n_rows-2 in topo order, predecessor slots p < n_in(row)."""
+    """Plain PyTorch version of the node-id kernel (runs on any device):
+    rows 1..n_rows-2 in the order of the i2n map, predecessor slots
+    p < n_in(row). Returns (misc, s16w) like the kernel."""
+    _, _, misc, s16w = _band_ref(cfg, scal, ctrl, inp, qpf, i2nn=i2nn)
+    return misc, s16w
+
+
+# ------------------------------------------------------------------ #
+# topo mode: the round-based path's entry
+
+def band_cells(cfg: BandConfig, scal, bsn, rowmask):
+    """Per-instance band cell count from the bsn (beg_sn|end_sn<<16)
+    output: swept rows are 1..n_rows-2, each contributing
+    (end_sn-beg_sn+1)*pn cells (the reference's DP-cell count). A fresh
+    call's rowmask may be a 1-element dummy: the mask is a subgraph
+    concept, all-ones there, and must not gate the count."""
+    tix = torch.arange(cfg.R, dtype=I32, device=bsn.device)[None, :]
+    live = (tix >= 1) & (tix <= scal[:, L.S_NROWS, None].to(I32) - 2)
+    if not cfg.fresh:
+        live = live & (rowmask.to(I32) > 0)
+    cells = torch.where(live, ((bsn >> 16) - (bsn & L.H16) + 1) * cfg.pn, 0)
+    return cells.sum(1).to(I32)
+
+
+def steps16_compress(st, misc):
+    """The int16 delta stream of int32 step words: i/j are
+    non-increasing along the walk and predecessor jumps fit 13 bits."""
+    iseq = (st >> 2) & 0xFFF
+    jseq = st >> 14
+    prev_i = torch.cat([misc[:, L.M_BI:L.M_BI + 1], iseq[:, :-1]], 1)
+    prev_j = torch.cat([misc[:, L.M_BJ:L.M_BJ + 1], jseq[:, :-1]], 1)
+    s16 = ((st & 3) | ((prev_j - jseq) << 2) | ((prev_i - iseq) << 3))
+    return (((s16 & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16)
+
+
+def _pack_topo(cfg: BandConfig, scal, bases, pre_idx, pre_n, remain,
+               qcodes, mpl0, mpr0, rowmask):
+    """The kernel's int32 inputs from one round's export tuple:
+    ctrl = base | pre_n<<5 | rowmask<<10 | remain<<16, predecessor rows
+    packed two per word, the band state init mplr0 = mpl | mpr<<16 and
+    the query-profile folds."""
+    B, R, P = bases.shape[0], cfg.R, cfg.P
+    scal = scal.to(I32)
+    mat = scal[:, L.S_NSCAL:]
+    scal = scal[:, :L.S_NSCAL].contiguous()
+    rm = (1 << 10) if cfg.fresh else rowmask.to(I32) << 10
+    ctrl = (bases.to(I32) | (pre_n.to(I32) << 5) | rm
+            | (remain.to(I32) << 16))
+    if pre_idx.dtype == torch.uint8:
+        # delta encoding: pred = t - delta, invalid lanes 0
+        pi = pre_idx.reshape(B, R, P).to(I32)
+        tix = torch.arange(R, dtype=I32, device=pi.device)[None, :, None]
+        pre2 = (tix - pi).clamp(min=0).reshape(B, R * P // 2, 2)
+    else:
+        pre2 = pre_idx.to(I32).reshape(B, R * P // 2, 2)
+    pre = (pre2[:, :, 0] | (pre2[:, :, 1] << 16)).contiguous()
+    if cfg.fresh:
+        mplr0 = None
+    else:
+        mplr0 = (mpl0.to(I32) | (mpr0.to(I32) << 16)).contiguous()
+    qpf = build_qpf(cfg, mat, qcodes.to(I32))
+    return scal, ctrl.contiguous(), pre, mplr0, qpf
+
+
+def _finish_topo(cfg: BandConfig, scal, rowmask, bsn, mplr, misc, steps):
+    if cfg.align_mode != EXTEND_MODE:
+        # extend counts cells in-kernel (z-drop can stop a sweep early)
+        misc[:, L.M_CELLS] = band_cells(cfg, scal, bsn, rowmask)
+    return BandOut(bsn & L.H16, bsn >> 16, mplr & L.H16, mplr >> 16, misc,
+                   steps, steps16_compress(steps, misc))
+
+
+def _check_topo(cfg: BandConfig, name: str):
+    if cfg.nid or cfg.align_mode not in (GLOBAL_MODE, EXTEND_MODE):
+        raise ValueError(f"{name}: topo mode runs global or extend "
+                         f"alignments only ({cfg})")
+    _check_geometry(cfg, name)
+
+
+def band_poa_dp_batch(cfg: BandConfig, scal, bases, pre_idx, pre_n,
+                      out_idx, out_n, remain, qcodes, mpl0, mpr0, rowmask):
+    """Batched banded DP + walk in topo space over one round's export
+    tuple (``align/export.py`` ``make_pallas_inputs``, stacked over B,
+    narrow dtypes fine). out_idx/out_n are unused (band state is pulled
+    from predecessors); with ``cfg.fresh`` mpl0/mpr0/rowmask may be
+    1-element dummies. Returns a ``BandOut``; misc slot M_LASTI is 0
+    (node-id mode only). Rows at or past n_rows of beg/end_sn and
+    mpl/mpr are not part of the result.
+
+    CUDA tensors launch ``csrc/band_dp.cu`` (topo kernel); CPU tensors
+    run the plain version."""
+    _check_topo(cfg, "band_poa_dp_batch")
+    dev = bases.device
+    if dev.type == "cpu":
+        return band_poa_dp_batch_ref(cfg, scal, bases, pre_idx, pre_n,
+                                     out_idx, out_n, remain, qcodes, mpl0,
+                                     mpr0, rowmask)
+    if dev.type != "cuda":
+        raise ValueError(f"band_poa_dp_batch: unsupported device {dev}")
+    scal_, ctrl, pre, mplr0, qpf = _pack_topo(
+        cfg, scal, bases, pre_idx, pre_n, remain, qcodes, mpl0, mpr0,
+        rowmask)
+    B, R = ctrl.shape[0], cfg.R
+    KW1 = cfg.Wq // cfg.WB + 1
+    want = {"scal": (scal_, (B, L.S_NSCAL)), "ctrl": (ctrl, (B, R)),
+            "pre": (pre, (B, R * cfg.P // 2)),
+            "qpf": (qpf, (B, cfg.m * KW1, cfg.WB))}
+    if mplr0 is not None:
+        want["mplr0"] = (mplr0, (B, R))
+    _check_tensors("band_poa_dp_batch", want, dev)
+    LS = max(cfg.bt_lmax, 8)
+    bsn = torch.zeros(B, R, dtype=I32, device=dev)
+    mplr = torch.zeros(B, R, dtype=I32, device=dev)
+    misc = torch.zeros(B, L.M_NMISC, dtype=I32, device=dev)
+    steps = torch.zeros(B, LS, dtype=I32, device=dev)
+    H, E1, E2, BT = _planes(cfg, B, dev)
+    lib = library("band_dp")
+    with torch.cuda.device(dev):
+        rc = lib.band_dp_topo_launch(
+            scal_.data_ptr(), ctrl.data_ptr(), pre.data_ptr(),
+            mplr0.data_ptr() if mplr0 is not None else None,
+            qpf.data_ptr(), bsn.data_ptr(), mplr.data_ptr(),
+            misc.data_ptr(), steps.data_ptr(), H.data_ptr(), E1.data_ptr(),
+            E2.data_ptr(), BT.data_ptr(), B, R, cfg.WB, cfg.Wq, cfg.P,
+            cfg.pn, cfg.gap_mode, cfg.bt_lmax, cfg.m, cfg.align_mode,
+            int(cfg.use_zdrop),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(rc, "band_dp_topo")
+    band_poa_dp_batch.launches += 1
+    return _finish_topo(cfg, scal_, rowmask, bsn, mplr, misc, steps)
+
+
+band_poa_dp_batch.launches = 0
+
+
+def band_poa_dp_batch_ref(cfg: BandConfig, scal, bases, pre_idx, pre_n,
+                          out_idx, out_n, remain, qcodes, mpl0, mpr0,
+                          rowmask):
+    """Plain PyTorch version of ``band_poa_dp_batch`` (runs on any
+    device; same inputs, same ``BandOut``)."""
+    _check_topo(cfg, "band_poa_dp_batch_ref")
+    scal_, ctrl, pre, mplr0, qpf = _pack_topo(
+        cfg, scal, bases, pre_idx, pre_n, remain, qcodes, mpl0, mpr0,
+        rowmask)
+    bsn, mplr, misc, steps = _band_ref(cfg, scal_, ctrl, pre, qpf,
+                                       mplr0=mplr0)
+    return _finish_topo(cfg, scal_, rowmask, bsn, mplr, misc, steps)
+
+
+# ------------------------------------------------------------------ #
+# plain PyTorch version of both kernels
+
+def _band_ref(cfg: BandConfig, scal, ctrl, pre, qpf, i2nn=None,
+              mplr0=None):
+    """Batched over B, per instance the same function as the kernels.
+    Node-id mode when i2nn is given (rows in i2n order, ctrl =
+    base|n_out<<3|n_al<<7|n_in<<10|remain<<16), else topo mode (row t is
+    topo index t, ctrl = base|pre_n<<5|rowmask<<10|remain<<16; mplr0 the
+    band state init, None when fresh). Rows outside an instance's sweep
+    write a scratch row R. Returns (bsn [B, R], mplr [B, R], misc, out)
+    with out the steps16 words [B, LS/2] in node-id mode and the int32
+    steps [B, max(LS, 8)] in topo mode."""
+    nid = i2nn is not None
     dev = ctrl.device
     B, R, WB, pn, P = ctrl.shape[0], cfg.R, cfg.WB, cfg.pn, cfg.P
     gm = cfg.gap_mode
+    m = cfg.m
+    extend = cfg.align_mode == EXTEND_MODE
     P2 = P // 2
     NSEG = WB // pn
     KW1 = cfg.Wq // WB + 1
     LS = cfg.bt_lmax
-    SINK = SINK_NODE_ID
 
     def full(v):
         return torch.full((B,), v, dtype=I32, device=dev)
@@ -173,22 +388,25 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
     remend = scal[:, L.S_REMEND]
     dpsn = scal[:, L.S_DPSN]
     dpsnc = dpsn[:, None]
-    e1, o1, oe1, e2, o2, oe2 = (int(v) for v in scal[0, L.S_E1:L.S_OE2 + 1]
-                                .tolist())
-    inp3 = inp.reshape(B, R, P2)
+    e1, o1, oe1, e2, o2, oe2, zdrop = (
+        int(v) for v in scal[0, L.S_E1:L.S_ZDROP + 1].tolist()) \
+        if B else (0,) * 7
+    pre3 = pre.reshape(B, R, P2)
 
     def preds_of(node):
-        """[B, P] predecessor node ids of node [B] (clamped to R-1)."""
-        wv = inp3[bidx, node.long()]
+        """[B, P] predecessor rows of row `node` [B] (clamped to R-1)."""
+        wv = pre3[bidx, node.long()]
         pr = torch.stack([wv & 0xFFFF, (wv >> 16) & 0xFFFF], dim=2)
         return pr.reshape(B, P).clamp(max=R - 1)
 
-    H = torch.zeros(B, R, WB, dtype=I32, device=dev)
+    # one scratch row (R) takes the writes of rows outside a sweep
+    H = torch.zeros(B, R + 1, WB, dtype=I32, device=dev)
     E1 = torch.zeros_like(H) if gm != LINEAR_GAP else None
     E2 = torch.zeros_like(H) if gm == CONVEX_GAP else None
     BT = torch.zeros_like(H)
-    bsn = torch.zeros(B, R, dtype=I32, device=dev)
-    rms = torch.zeros(B, R, dtype=I32, device=dev)
+    bsn = torch.zeros(B, R + 1, dtype=I32, device=dev)
+    rms = torch.zeros(B, R + 1, dtype=I32, device=dev)
+    mplr = torch.zeros(B, R + 1, dtype=I32, device=dev)
 
     # ---- first row (ref :553-662): lane l holds col l ----
     rms[:, 0] = RM_OK | 1
@@ -217,7 +435,26 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
 
     cells = full(0)
     p_iota = torch.arange(P, dtype=I32, device=dev)[None, :]
-    limit = min(int(nrows.max()) - 1, R - 1) if B else 0
+    limit = torch.minimum(nrows - 1, full(R - 1))
+    tmax = int(limit.max()) if B else 0
+    stop = torch.zeros(B, dtype=torch.bool, device=dev)
+    bs = inf.clone()
+    bi = full(0)
+    bj = full(0)
+    brem = ctrl[:, 0] >> 16
+
+    def pull(preds, npre, iw):
+        """Band state of a row from its predecessors' row maxima."""
+        pvs = p_iota < npre[:, None]
+        wr = rms.gather(1, preds.long())
+        ok = pvs & (wr >= RM_OK)
+        v = wr & (RM_OK - 1)
+        mpl = torch.where(ok, v, 1 << 29).amin(1)
+        mpr = torch.where(ok, v, -(1 << 29)).amax(1)
+        has_src = (pvs & (preds == 0)).any(1)
+        mpl = torch.minimum(mpl, torch.where(has_src, 1 << 29, iw & 0xFFFF))
+        mpr = torch.maximum(mpr, torch.where(has_src, -(1 << 29), iw >> 16))
+        return mpl, mpr
 
     def to_rel(x, lane_of_rel):
         return x.gather(1, lane_of_rel)
@@ -225,28 +462,33 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
     def prefmax(gv_rel):
         return torch.cummax(gv_rel, dim=1).values
 
-    for t in range(1, limit):
-        active = t <= nrows - 2
-        rid = torch.where(active, (i2nn[:, t] & 0xFFFF).clamp(0, R - 1),
-                          full(SINK))
+    for t in range(1, tmax):
+        inr = t < limit
+        if nid:
+            # rows past an instance's sweep read the SINK row's control
+            row = torch.where(inr, (i2nn[:, t] & 0xFFFF).clamp(0, R - 1),
+                              SINK_NODE_ID)
+        else:
+            row = full(t)
+        rid = torch.where(inr, row, R)
         ridl = rid.long()
-        cw = ctrl[bidx, ridl]
-        npre = (cw >> 10) & 15
-        preds = preds_of(rid)                                  # [B, P]
+        cw = ctrl[bidx, row.long()]
+        if nid:
+            npre = (cw >> 10) & 15
+            active = inr
+            iw = nrows
+        else:
+            npre = (cw >> 5) & 31
+            active = inr & (((cw >> 10) & 1) > 0) & ~stop
+            iw = nrows if mplr0 is None else mplr0[:, t]
+        preds = preds_of(row)                                  # [B, P]
         pvs = p_iota < npre[:, None]
         predl = preds.long()
         bsnp = bsn.gather(1, predl)
         min_pb = torch.where(pvs, bsnp & 0xFFFF, RM_OK).amin(1)
-        wr = rms.gather(1, predl)
-        ok = pvs & (wr >= RM_OK)
-        v = wr & (RM_OK - 1)
-        mpl = torch.where(ok, v, 1 << 29).amin(1)
-        mpr = torch.where(ok, v, -(1 << 29)).amax(1)
-        has_src = (pvs & (preds == 0)).any(1)
-        mpl = torch.minimum(mpl, torch.where(has_src, 1 << 29,
-                                             nrows & 0xFFFF))
-        mpr = torch.maximum(mpr, torch.where(has_src, -(1 << 29),
-                                             nrows >> 16))
+        mpl, mpr = pull(preds, npre, iw)
+        if not nid:
+            mplr[bidx, ridl] = mpl | (mpr << 16)
         rem = (cw >> 16) - remend - 1
         beg = (torch.minimum(mpl, qlen - rem) - w).clamp(min=0)
         end = torch.minimum(qlen, torch.maximum(mpr, qlen - rem) + w)
@@ -260,11 +502,11 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
         k0 = lo_g // WB
         # the kernel stages beg|end<<10|lomod<<20 in one word
         bel = (beg_sn | (end_sn << 10) | ((lo_g - k0 * WB) << 20))[:, None]
-        base = (cw & 7).long()
-        fold = (base * KW1 + k0).clamp(0, cfg.m * KW1 - 2)
+        base = (cw & (7 if nid else 31)).long()
+        fold = (base * KW1 + k0).clamp(0, m * KW1 - 2)
         qA = qpf[bidx, fold]
         qB = qpf[bidx, fold + 1]
-        bval = (base < cfg.m)[:, None]
+        bval = (base < m)[:, None]
         lomodc = bel >> 20
         qwin = torch.where(bval, torch.where(lane >= lomodc, qA, qB), zero)
         begc = bel & 1023
@@ -274,7 +516,10 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
         rel = torch.where(dlo >= 0, dlo, dlo + WB)
         lane_of_rel = (lomodc + lane) % WB
         lane_of_rel = lane_of_rel.long()
-        rell = rel.long()
+        # rel is in [0, WB) on every swept row; a row with no valid
+        # predecessor (padding, unreachable) has a garbage band whose rel
+        # is only wrapped back into range for indexing
+        rell = (rel % WB).long()
         c = begc * pn + rel
         seg = c // pn
         band = (seg >= begc) & (seg <= endc)
@@ -359,7 +604,7 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
             hrow = torch.where(band, hfin, h)
         else:
             h0 = h + torch.where(band, qrow, zero)
-            seed = h0.gather(1, lomodc.long())
+            seed = h0.gather(1, lomodc.clamp(0, WB - 1).long())
             if gm == CONVEX_GAP:
                 hpf = torch.maximum(torch.maximum(h0, e1v), e2v)
                 hpf = torch.where(band, hpf, NEGt)
@@ -463,35 +708,68 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
         wseg = aux_pick - (aux_pick // 1024) * 1024
         maxi = torch.where(gmax > infc, (begc + wseg) * pn + (kpick >> 15),
                            -1)[:, 0]
-        rms[bidx, ridl] = torch.where(active, RM_OK | (maxi + 1), 0)
+        stop_now = torch.zeros_like(stop)
+        if extend:
+            mx = gmax[:, 0]
+            better = mx > bs
+            if cfg.use_zdrop:
+                delta = brem - (cw >> 16)
+                zlim = zdrop + e1 * (delta - (maxi - bj)).abs()
+                stop_now = ~better & (bs - mx > zlim)
+            take = active & better
+            bs = torch.where(take, mx, bs)
+            bi = torch.where(take, t, bi)
+            bj = torch.where(take, maxi, bj)
+            brem = torch.where(take, cw >> 16, brem)
+            stop_now = active & stop_now
+            stop = stop | stop_now
+        # successors pull this row's max position
+        rms[bidx, ridl] = torch.where(active & ~stop_now,
+                                      RM_OK | (maxi + 1), 0)
 
-    # ---- best cell over the sink's predecessors ----
-    bs = inf.clone()
-    bi = full(0)
-    bj = full(0)
-    sinkt = full(SINK)
-    npre_sink = (ctrl[:, SINK] >> 10) & 15
-    spreds = preds_of(sinkt)
-    for p in range(P):
-        pv = p < npre_sink
-        pred = spreds[:, p].long()
-        pw = bsn[bidx, pred]
-        ec = torch.minimum(qlen, ((pw >> 16) + 1) * pn - 1)
-        lo_p = (pw & 0xFFFF) * pn
-        ln = (ec % WB).long()
-        val = H[bidx, pred, ln]
-        val = torch.where((ec >= lo_p) & (ec < lo_p + WB), val, 0)
-        better = pv & (val > bs)
-        bs = torch.where(better, val, bs)
-        bi = torch.where(better, spreds[:, p], bi)
-        bj = torch.where(better, ec, bj)
-    n2i_of = i2nn >> 16
+    n2i_of = i2nn >> 16 if nid else None
+    if not nid:
+        # the sink row is never swept: pin its bsn and pull its band state
+        bsn[bidx, limit.long()] = 0
+        preds = preds_of(limit)
+        iw = nrows if mplr0 is None else mplr0[bidx, limit.long()]
+        mpl, mpr = pull(preds, (ctrl[bidx, limit.long()] >> 5) & 31, iw)
+        mplr[bidx, limit.long()] = mpl | (mpr << 16)
+
+    if cfg.align_mode == GLOBAL_MODE:
+        # ---- best cell over the sink's predecessors ----
+        if nid:
+            sink = full(SINK_NODE_ID)
+            npre_sink = (ctrl[:, SINK_NODE_ID] >> 10) & 15
+        else:
+            sink = (nrows - 1).clamp(0, R - 1)
+            npre_sink = (ctrl[bidx, sink.long()] >> 5) & 31
+        spreds = preds_of(sink)
+        for p in range(P):
+            pv = p < npre_sink
+            pred = spreds[:, p].long()
+            pw = bsn[bidx, pred]
+            ec = torch.minimum(qlen, ((pw >> 16) + 1) * pn - 1)
+            lo_p = (pw & 0xFFFF) * pn
+            ln = (ec % WB).long()
+            val = H[bidx, pred, ln]
+            val = torch.where((ec >= lo_p) & (ec < lo_p + WB), val, 0)
+            better = pv & (val > bs)
+            bs = torch.where(better, val, bs)
+            bi = torch.where(better, spreds[:, p], bi)
+            bj = torch.where(better, ec, bj)
     misc = torch.zeros(B, L.M_NMISC, dtype=I32, device=dev)
     misc[:, L.M_BEST] = bs
-    misc[:, L.M_BI] = n2i_of[bidx, bi.long()]
+    misc[:, L.M_BI] = n2i_of[bidx, bi.long()] if nid else bi
     misc[:, L.M_BJ] = bj
     misc[:, L.M_CELLS] = cells
     misc[:, L.M_OVFL] = ovfl.to(I32)
+    if nid:
+        out = torch.zeros(B, LS, dtype=I32, device=dev)      # halves
+    else:
+        out = torch.zeros(B, max(LS, 8), dtype=I32, device=dev)
+    if LS == 0:
+        return bsn[:, :R], mplr[:, :R], misc, out
 
     # ---- the walk: one BT read per step ----
     I_ = bi.clone()
@@ -502,12 +780,11 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
     nst = full(0)
     fail = torch.zeros(B, dtype=torch.bool, device=dev)
     done = (bi <= 0) | (bj <= 0) | ovfl
-    PI = n2i_of[bidx, bi.long()]
+    PI = n2i_of[bidx, bi.long()] if nid else None
     PJ = bj.clone()
-    halves = torch.zeros(B, LS, dtype=I32, device=dev)
 
     def pre_at(node, p):
-        wv = inp[bidx, (node * P2 + (p >> 1)).long()]
+        wv = pre[bidx, (node * P2 + (p >> 1)).long()]
         return ((wv >> (16 * (p & 1))) & 0xFFFF).clamp(max=R - 1)
 
     def bit(x, k):
@@ -588,12 +865,16 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
         e_pred = pre_at(I_, e_pick_p.clamp(max=P - 1))
         op_code = torch.where(use_m, 0, torch.where(use_e, 2, 1)).to(I32)
         emit = act & any_hit
-        ti = n2i_of[bidx, Il]
-        hw = (op_code | ((PJ - J) << 2) | ((PI - ti) << 3)) & 0xFFFF
         sel = emit.nonzero()[:, 0]
-        halves[sel, nst[sel].long()] = hw[sel]
-        PI = torch.where(emit, ti, PI)
-        PJ = torch.where(emit, J, PJ)
+        if nid:
+            ti = n2i_of[bidx, Il]
+            hw = (op_code | ((PJ - J) << 2) | ((PI - ti) << 3)) & 0xFFFF
+            out[sel, nst[sel].long()] = hw[sel]
+            PI = torch.where(emit, ti, PI)
+            PJ = torch.where(emit, J, PJ)
+        else:
+            word = op_code | (I_ << 2) | (J << 14)
+            out[sel, nst[sel].long()] = word[sel]
         nst = nst + emit.to(I32)
         new_i = torch.where(use_m, m_pred, torch.where(use_e, e_pred, I_))
         dj = use_m | use_f
@@ -614,8 +895,9 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
                               | (nst >= LS)))
     misc[:, L.M_NSTEPS] = nst
     misc[:, L.M_FAIL] = fail.to(I32)
-    misc[:, L.M_ENDI] = n2i_of[bidx, I_.long()]
+    misc[:, L.M_ENDI] = n2i_of[bidx, I_.long()] if nid else I_
     misc[:, L.M_ENDJ] = J
-    misc[:, L.M_LASTI] = PI
-    s16w = halves[:, 0::2] | (halves[:, 1::2] << 16)
-    return misc, s16w.contiguous()
+    if nid:
+        misc[:, L.M_LASTI] = PI
+        out = (out[:, 0::2] | (out[:, 1::2] << 16)).contiguous()
+    return bsn[:, :R], mplr[:, :R], misc, out

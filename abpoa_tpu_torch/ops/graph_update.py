@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from abpoa_tpu.params import SRC_NODE_ID, SINK_NODE_ID
+from ..params import SRC_NODE_ID, SINK_NODE_ID
 
 from . import layout as L
 from ._build import check_launch, library
@@ -89,7 +89,7 @@ def graph_update_packed(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen,
     i2nn = torch.empty_like(ps.i2nn)
     node_n = torch.empty_like(ps.node_n)
     fail = torch.empty_like(ps.fail)
-    lib = library()
+    lib = library("graph_update")
     with torch.cuda.device(dev):
         rc = lib.graph_update_launch(
             misc.data_ptr(), qlen.data_ptr(), ps.node_n.data_ptr(),

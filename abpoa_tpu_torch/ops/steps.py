@@ -65,7 +65,7 @@ def replay_steps(graph, params, query, steps, n_steps, best_i, best_j,
     res fields (used when the pure-Python graph store is active; the
     native store fuses the words directly). push_cigar merging applies
     only to runs of CINS (ref abpoa_align.h:54-73)."""
-    from abpoa_tpu.cigar import CMATCH, CINS, CDEL
+    from ..cigar import CMATCH, CINS, CDEL
     qlen = len(query)
     i2n = np.asarray(graph.index_to_node_id, dtype=np.int64)
     n = int(n_steps)

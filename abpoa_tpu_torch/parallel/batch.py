@@ -1,29 +1,44 @@
-"""Batched POA through the device-resident loop.
+"""Batched POA across many independent instances, on the device.
 
 Counterpart of ``abpoa_tpu/parallel/batch.py`` (``BatchPOA``,
-``_loop_geometry``, ``_DeviceLoop``, ``batch_msa_from_files``) for the
-device-loop path. Read 0 of every instance is fused on the host; the
-remaining reads run as rounds of the device loop (``ops/poa_loop.py``);
-the host then replays the per-round step streams through the native C
-fusion (``NativeGraph.fuse_steps``) to rebuild the authoritative graph
-for consensus/MSA/GFA. An instance whose sticky fail flag is set (band
-overflow, walk dead end, graph capacity) is rebuilt on the bit-exact
-oracle: that is the algorithm's capacity rule and is counted in
-``fallbacks``. A device or kernel fault is never caught.
+``_loop_geometry``, ``_DeviceLoop``, the round-based path,
+``batch_msa_from_files``). ``BatchPOA.run`` sends a batch down one of
+two paths, decided by eligibility alone:
 
-Scope: global mode, banded, m == 5, unit weights, any gap mode,
-amb_strand (applied in the replay). Other batches raise
+* the device-resident loop (``_DeviceLoop``), when ``_loop_geometry``
+  accepts the batch: global mode, banded, nucleotides, no ``-i``
+  restore, 16-bit scores. Read 0 of every instance is fused on the host;
+  the remaining reads run as rounds of the device loop
+  (``ops/poa_loop.py``: band DP + graph update kernels, no host round
+  trip); the host then replays the per-round step streams through the
+  native C fusion to rebuild the authoritative graph.
+* the round-based path (``_Rounds``) for every other batch: local and
+  extend mode, unbanded (``-b -1``), protein, ``-i`` restores, 32-bit
+  scores, and batches outside the loop's envelope. Each round the host
+  sorts and exports every live instance's graph (``align/export.py``),
+  groups the instances by score width, and one DP kernel per group runs
+  the DP and the walk on the device: the topo-mode band kernel
+  (``ops/band_dp.py``) when the band fits a block, else the full-width
+  kernel (``ops/fw_dp.py``) when its planes fit the memory budget. The
+  host fuses the step streams.
+
+An instance whose device result is unusable (band overflow, walk dead
+end, graph capacity) is rebuilt on the bit-exact oracle: that is the
+algorithm's capacity rule and is counted in ``fallbacks``. A device or
+kernel fault is never caught. Batches neither path serves raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from abpoa_tpu.api import ABPOA
-from abpoa_tpu.params import Params, GLOBAL_MODE
+from ..api import ABPOA
+from ..params import Params, GLOBAL_MODE, SRC_NODE_ID, SINK_NODE_ID
 
 from ..device import resolve_device
 from ..ops import graph_update
@@ -35,12 +50,18 @@ from ..ops.steps import decode_steps_batch, replay_steps, unpack_steps16
 # the batch has at least this many live instances
 SPLIT_MIN = 16
 
+# share of the device's free memory that one round's DP planes may take;
+# the plain versions on the CPU get a fixed allowance instead
+PLANE_BUDGET_SHARE = 0.5
+CPU_PLANE_BUDGET = 4 << 30
+
 _HOST_POOL = None
 
 
 def _host_pool():
-    """Shared pool for per-instance host work (replay fusion, consensus):
-    the hot paths are C calls through ctypes, which release the GIL."""
+    """Shared pool for per-instance host work (graph fusion, toposort,
+    export, consensus): the hot paths are C calls through ctypes, which
+    release the GIL."""
     global _HOST_POOL
     if _HOST_POOL is None:
         import os
@@ -51,20 +72,33 @@ def _host_pool():
     return _HOST_POOL
 
 
-def _make_aligners(instances):
+def _make_aligners(instances, params, init=None):
     """One ABPOA per instance, graph store backed by the native C core
-    when available; read r of an instance has read id r."""
-    from abpoa_tpu.graph import NativeGraph
+    when available.
+
+    init(ab), when given, seeds each aligner's starting state before any
+    read fuses (the batched analog of the serial loop's incremental
+    restore, -i, ref abpoa_restore_graph src/abpoa_seq.c:595-660).
+    Returns (aligners, read_id_offsets): new reads number from each
+    instance's existing read count, exactly like the serial msa()."""
+    from ..graph import NativeGraph
     native = NativeGraph.available()
     abs_ = [ABPOA() for _ in instances]
-    for ab, reads in zip(abs_, instances):
-        ab.n_seq = len(reads)
-        ab.names = [""] * len(reads)
-        ab.is_rc = [0] * len(reads)
-        if native:
+    if native:
+        for ab in abs_:
             ab.graph = NativeGraph()
+    rid0 = []
+    for ab, reads in zip(abs_, instances):
+        if init is not None:
+            init(ab)
+        exist = ab.n_seq
+        rid0.append(exist)
+        ab.n_seq = exist + len(reads)
+        ab.names = list(ab.names) + [""] * len(reads)
+        ab.is_rc = list(ab.is_rc) + [0] * len(reads)
+        if native:
             ab.graph.ensure_reads(ab.n_seq)
-    return abs_
+    return abs_, rid0
 
 
 def _unit(q):
@@ -72,11 +106,22 @@ def _unit(q):
     return [1] * len(q)
 
 
+def _step_stream(pend, steps, b, nst, bi, bj):
+    """Instance b's int32 step words. A stream longer than the fetch cap
+    (long deletion runs) is refetched from the device tensor kept in the
+    pending handle; the band kernel's rows travel as the int16 delta
+    stream and are rebuilt here."""
+    srow = steps[b]
+    if nst > srow.shape[0]:
+        srow = pend["steps_dev"][b, :nst].cpu().numpy()
+    return unpack_steps16(srow, nst, bi, bj) if pend["band"] else srow
+
+
 def _loop_geometry(params, instances):
     """Static LoopConfig (B unset) for a batch, or None when the batch is
     outside the device loop's envelope."""
-    from abpoa_tpu.align.engine_np import score_width_dispatch
-    from abpoa_tpu.align.engine_jax import pick_WB
+    from ..align.engine_np import score_width_dispatch
+    from ..align.export import pick_WB
     lens = [len(q) for reads in instances for q in reads]
     if not lens:
         return None
@@ -113,28 +158,112 @@ def _loop_geometry(params, instances):
     return cfg
 
 
+def _plane_budget(dev) -> int:
+    """Bytes one DP launch's planes may take on `dev`."""
+    if dev.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(dev)
+        return int(free * PLANE_BUDGET_SHARE)
+    return CPU_PLANE_BUDGET
+
+
+class RoundPlan(NamedTuple):
+    """How one round's score-width group runs on the device."""
+    band: bool        # topo-mode band kernel (else the full-width kernel)
+    name: str         # "band_dp_topo" or "fw_dp"
+    kernel: object    # band_poa_dp_batch or fw_poa_dp_batch
+    cfg: object       # its BandConfig / FWConfig
+    arrs: list        # per instance, the make_pallas_inputs tuple
+    chunk: int        # instances per launch (the plane-memory budget)
+    step_cap: int     # step-stream fetch cap
+
+    def stack(self, part, dev):
+        """The kernel's stacked input tensors for instances `part`."""
+        return [torch.from_numpy(np.stack([a[i] for a in self.arrs[part]]))
+                .to(dev) for i in range(len(self.arrs[0]))]
+
+
+def round_plan(params, dgs, dev) -> RoundPlan:
+    """The dispatch rule of one round's group of exports (re-padded to
+    one geometry): the topo-mode band kernel when the band fits a block
+    (at most 1024 lanes, 16 predecessor slots and the shared memory of
+    ``band_smem_bytes``); else the full-width kernel when one instance's
+    planes fit the memory budget (``_plane_budget``); else raise."""
+    from ..align.export import make_pallas_inputs, pick_WB
+    from ..ops import band_dp, fw_dp
+    R = dgs[0].R
+    P_ = max(d.P for d in dgs)
+    WB = max(pick_WB(params, dg.qlen, dg.pn) for dg in dgs)
+    Wq = max((dg.qlen // 128 + 1) * 128 for dg in dgs)
+    LMAX = (R + Wq + 63) // 64 * 64
+    # the packed step word is op|row<<2|col<<14: rows need <= 12 bits
+    # and cols <= 17; the JAX package's XLA tier takes larger rounds
+    if R > 4096 or Wq >= (1 << 17):
+        raise NotImplementedError(
+            f"a round with R={R} rows or Wq={Wq} columns needs the XLA "
+            "tier of the JAX package, not ported yet: ROADMAP A6")
+    WqB = (Wq + WB - 1) // WB * WB
+    band = (params.wb >= 0 and Wq < 32000 and P_ <= 16 and WB <= 1024
+            and band_dp.band_smem_bytes(False, R, P_, WB)
+            <= band_dp.MAX_SMEM_BYTES)
+    made = [make_pallas_inputs(dg, params, WB, force_Wq=WqB if band else Wq,
+                               bt_lmax=LMAX) for dg in dgs]
+    c0 = made[0][0]
+    if band:
+        cfg = band_dp.BandConfig(
+            gap_mode=c0.gap_mode, pn=c0.pn, R=R, WB=WB, Wq=WqB, P=P_,
+            m=c0.m, bt_lmax=LMAX, align_mode=c0.align_mode,
+            use_zdrop=c0.use_zdrop, fresh=True, nid=False)
+        per = band_dp.band_nplanes(cfg.gap_mode) * R * WB * 4
+        kernel, name = band_dp.band_poa_dp_batch, "band_dp_topo"
+    else:
+        cfg = fw_dp.FWConfig(c0.gap_mode, c0.align_mode, c0.pn, R, Wq, P_,
+                             dgs[0].O, c0.m, c0.use_zdrop, LMAX,
+                             banded=params.wb >= 0)
+        per = fw_dp.fw_plane_bytes(cfg)
+        kernel, name = fw_dp.fw_poa_dp_batch, "fw_dp"
+    chunk = _plane_budget(dev) // per
+    if chunk < 1:
+        raise NotImplementedError(
+            f"a round whose band does not fit a block (WB={WB}, R={R}, "
+            f"P={P_}) and whose full-width planes ({per} bytes) exceed the "
+            "memory budget runs on the v1 banded-tile kernel, not ported "
+            "yet: ROADMAP B5 (with A8)")
+    # adaptive fetch cap: the walk is bounded by rows + qlen, but the
+    # typical path is ~qlen + a few deletions; the rare longer stream is
+    # refetched from the device tensor
+    hard_cap = min(LMAX, (max(d.n_rows for d in dgs)
+                          + max(d.qlen for d in dgs) + 71) // 64 * 64)
+    qmax = max(d.qlen for d in dgs)
+    step_cap = min(hard_cap, (qmax + max(96, qmax // 4) + 63) // 64 * 64)
+    return RoundPlan(band, name, kernel, cfg, [m[1] for m in made], chunk,
+                     step_cap)
+
+
 class BatchPOA:
-    """Run many independent POA problems through the device loop.
+    """Run many independent POA problems on the device.
 
     instances: list of problems; each problem is a list of encoded reads
     (uint8 codes). ``run`` returns the ABPOA aligner states (call
     generate_consensus / output on them like the single-instance API).
-    device: "cuda" (the kernels) or "cpu" (their plain versions); there
-    is no default and no fallback from one to the other.
+    device: "cuda" (the kernels, the default) or "cpu" (their plain
+    versions); there is no fallback from one to the other.
     """
 
-    def __init__(self, params: Params, device):
+    def __init__(self, params: Params, device="cuda"):
         self.params = params
         self.device = resolve_device(device)
-        self.dp_cells = 0          # band cells computed on the device
-        self.dp_seconds = 0.0      # wall time of the device-loop phase
-        self.dp_intervals = []     # (t0, t1) per sub-batch fetch
+        self.dp_cells = 0          # DP cells computed on the device
+        self.dp_seconds = 0.0      # wall time of the device phases
+        self.dp_intervals = []     # (t0, t1) per device phase
         self.fallbacks = 0         # instances rebuilt on the oracle
         self.rounds = 0
         self.used_device_loop = False
+        self.launches = {"band_dp_topo": 0, "fw_dp": 0}  # round-path plan
         self.precompute_cons = False   # consensus inside the replay pool
         self.s16_cap = None        # forced step-stream fetch cap (tests:
         #                            exercises the over-cap refetch)
+        self._rid0 = []
+        self._lock = threading.Lock()
 
     def _amb_flagged(self, ab, q, score: int) -> bool:
         """Ambiguous-strand retry threshold (ref abpoa_align.c:315)."""
@@ -142,41 +271,29 @@ class BatchPOA:
                  * self.params.max_mat * .3333)
         return score < thres
 
-    def _scope_error(self, weights, init):
+    def _rid(self, k, r) -> int:
+        """Global read id: instance k's existing reads (incremental
+        restore) come first, new reads number after them."""
+        return self._rid0[k] + r
+
+    def _loop_eligible(self, instances):
+        """The device loop's LoopConfig for this batch, or None."""
         p = self.params
-        if weights is not None:
-            return ("qv weights (wmode=1) are not ported yet: ROADMAP A4q")
-        if init is not None:
-            return ("incremental graphs (-i) run on the round-based path, "
-                    "not ported yet: ROADMAP A6")
-        if p.align_mode != GLOBAL_MODE or p.wb < 0 or p.m != 5 \
-                or p.rev_cigar:
-            return ("local/extend, unbanded and protein batches run on "
-                    "the round-based path, not ported yet: ROADMAP A6")
-        return None
+        if (p.align_mode != GLOBAL_MODE or p.wb < 0 or p.rev_cigar
+                or p.m != 5 or any(r0 != 0 for r0 in self._rid0)):
+            return None
+        return _loop_geometry(p, instances)
 
     def run(self, instances, weights=None, init=None) -> list[ABPOA]:
-        reason = self._scope_error(weights, init)
-        if reason is not None:
-            raise NotImplementedError(reason)
-        params = self.params
-        abs_ = _make_aligners(instances)
-        if max((len(r) for r in instances), default=0) <= 1:
-            # nothing to align: read 0 fuses straight into the graph
-            for ab, reads in zip(abs_, instances):
-                if reads:
-                    ab.graph.add_graph_alignment(params, reads[0],
-                                                 _unit(reads[0]), [], None,
-                                                 0, True)
-            return abs_
-        cfg = _loop_geometry(params, instances)
-        if cfg is None:
-            raise NotImplementedError(
-                "batch outside the device loop's envelope (32-bit scores, "
-                "band wider than 1024 lanes, graph state over the shared "
-                "memory of a block, or more than 63 reads per instance) "
-                "runs on the round-based path, not ported yet: ROADMAP A6")
-        _DeviceLoop(self, abs_, instances, cfg).run()
+        if weights is not None:
+            raise NotImplementedError("qv weights (wmode=1) are not "
+                                      "ported yet: ROADMAP A4q")
+        abs_, self._rid0 = _make_aligners(instances, self.params, init)
+        cfg = self._loop_eligible(instances)
+        if cfg is not None:
+            _DeviceLoop(self, abs_, instances, cfg).run()
+        else:
+            _Rounds(self, abs_, instances).run()
         return abs_
 
     def dp_busy_seconds(self) -> float:
@@ -195,8 +312,8 @@ class BatchPOA:
     def run_consensus(self, instances, weights=None):
         """Batched POA then consensus per instance; returns the list of
         consensus strings per instance (heaviest bundling)."""
-        from abpoa_tpu.consensus import generate_consensus
-        from abpoa_tpu.alphabet import decode_table
+        from ..consensus import generate_consensus
+        from ..alphabet import decode_table
         self.precompute_cons = True
         abs_ = self.run(instances, weights=weights)
         tab = decode_table(self.params.m)
@@ -209,19 +326,17 @@ class BatchPOA:
         return list(_host_pool().map(cons_one, abs_))
 
 
-def batch_msa_from_files(params, fns, out, device):
+def batch_msa_from_files(params, fns, out, device="cuda"):
     """Batched CLI list mode (-l): one POA instance per input file, outputs
     rendered in file order, byte-identical to running abpoa_msa1 serially
-    per file (ref src/abpoa_align.c:439-503)."""
-    from abpoa_tpu.seqio import read_seqs
-    from abpoa_tpu.alphabet import encode_table
+    per file (ref src/abpoa_align.c:439-503). Incremental graphs (-i):
+    every instance restores the same initial graph before its reads
+    fuse."""
+    from ..seqio import read_seqs
+    from ..alphabet import encode_table
     if params.use_qv:
         raise NotImplementedError("qv weights (-Q) are not ported yet: "
                                   "ROADMAP A4q")
-    if params.incr_fn:
-        raise NotImplementedError("incremental graphs (-i) run on the "
-                                  "round-based path, not ported yet: "
-                                  "ROADMAP A6")
     if not (params.disable_seeding and not params.progressive_poa) \
             and params.align_mode == GLOBAL_MODE:
         raise NotImplementedError("seeded windows (-S/-p) are not ported "
@@ -239,10 +354,145 @@ def batch_msa_from_files(params, fns, out, device):
                           for r in recs])
     if not instances:
         return
-    abs_ = BatchPOA(params, device).run(instances)
+    init = None
+    if params.incr_fn:
+        from ..gfa import restore_graph
+
+        def init(ab):
+            restore_graph(ab, params)
+    abs_ = BatchPOA(params, device).run(instances, init=init)
     for ab, nm in zip(abs_, names):
-        ab.names = nm
+        # restored reads (incremental) keep their names; new reads take
+        # the input file's record names
+        ab.names = list(ab.names[:ab.n_seq - len(nm)]) + nm
         ab.output(params, out)
+
+
+class _Rounds:
+    """One batched round-based execution: per round, host sort + export,
+    one DP kernel launch per score-width group (and memory chunk), host
+    fusion of the step streams."""
+
+    def __init__(self, bp: BatchPOA, abs_, instances):
+        self.bp = bp
+        self.abs_ = abs_
+        self.instances = instances
+
+    def run(self):
+        bp, params = self.bp, self.bp.params
+        abs_, instances = self.abs_, self.instances
+        n_rounds = max((len(r) for r in instances), default=0)
+        for r in range(n_rounds):
+            live = [k for k, reads in enumerate(instances) if r < len(reads)]
+            # first read / empty graph: straight fusion, no DP
+            todo = []
+            for k in live:
+                ab, q = abs_[k], instances[k][r]
+                if ab.graph.node_n <= 2:
+                    ab.graph.add_graph_alignment(params, q, _unit(q), [],
+                                                 None, bp._rid(k, r), True)
+                else:
+                    todo.append(k)
+            if not todo:
+                continue
+            # two-pass export: natural buckets, then re-pad to group max
+            from ..align.export import export_dense, repad_dense
+
+            def sort_export(k):
+                g = abs_[k].graph
+                if not g.is_topological_sorted:
+                    g.topological_sort(params)
+                return export_dense(g, params, instances[k][r])
+            nat = dict(zip(todo, _host_pool().map(sort_export, todo)))
+            R = max(d.R for d in nat.values())
+            W = max(d.W for d in nat.values())
+            P_ = max(d.P for d in nat.values())
+            O_ = max(d.O for d in nat.values())
+            for pn in sorted({d.pn for d in nat.values()}):
+                group = [k for k in todo if nat[k].pn == pn]
+                dgs = [repad_dense(nat[k], R, W, P_, O_) for k in group]
+                for pend in self._dispatch(group, dgs, r):
+                    self._collect(pend)
+            bp.rounds += 1
+
+    def _dispatch(self, group, dgs, r):
+        """Launch one round's DP + walk for a score-width group (in memory
+        chunks) and fetch misc and the capped step streams. Yields one
+        pending handle per launch."""
+        bp = self.bp
+        dev = bp.device
+        plan = round_plan(bp.params, dgs, dev)
+        step_cap = plan.step_cap
+        if bp.s16_cap is not None:
+            step_cap = max(2, min(step_cap, int(bp.s16_cap)))
+        for c0 in range(0, len(dgs), plan.chunk):
+            part = slice(c0, c0 + plan.chunk)
+            t0 = time.perf_counter()
+            out = plan.kernel(plan.cfg, *plan.stack(part, dev))
+            steps_dev = out.steps16 if plan.band else out.steps
+            misc = out.misc.cpu().numpy()
+            steps = steps_dev[:, :step_cap].cpu().numpy()
+            t1 = time.perf_counter()
+            bp.launches[plan.name] += 1
+            bp.dp_seconds += t1 - t0
+            bp.dp_intervals.append((t0, t1))
+            bp.dp_cells += int(misc[:, L.M_CELLS].sum())
+            yield dict(group=group[part], r=r, band=plan.band, misc=misc,
+                       steps=steps, steps_dev=steps_dev)
+
+    def _collect(self, pend):
+        """Fuse a launch's results into the host graphs (per instance, on
+        the host pool): the native step fusion, or the step replay into a
+        cigar for rev_cigar or a non-native graph store; amb_strand
+        candidates and unusable device results go through the oracle."""
+        from ..align.engine_np import AlignResult, align_sequence_to_subgraph
+        from ..graph import NativeGraph
+        bp, params = self.bp, self.bp.params
+        abs_, instances = self.abs_, self.instances
+        misc, steps, r = pend["misc"], pend["steps"], pend["r"]
+
+        def fuse_one(b_k):
+            b, k = b_k
+            ab = abs_[k]
+            q = instances[k][r]
+            w = _unit(q)
+            rid = bp._rid(k, r)
+            mi = misc[b]
+            bad = bool(mi[L.M_OVFL] or mi[L.M_FAIL])
+            nst = int(mi[L.M_NSTEPS])
+
+            def step_stream():
+                # deferred past the early-outs that never read the steps
+                return _step_stream(pend, steps, b, nst, int(mi[L.M_BI]),
+                                    int(mi[L.M_BJ]))
+            if params.amb_strand and (
+                    bad or bp._amb_flagged(ab, q, int(mi[L.M_BEST]))):
+                # rc-retry candidate: the sequential fwd+rc body (the
+                # device fwd equals its fwd), ref abpoa_align.c:315
+                ab.poa_one(params, q, w, rid)
+                return
+            if bad:
+                with bp._lock:
+                    bp.fallbacks += 1
+                res = align_sequence_to_subgraph(
+                    ab.graph, params, SRC_NODE_ID, SINK_NODE_ID, q,
+                    arena=ab.arena)
+            elif isinstance(ab.graph, NativeGraph) and not params.rev_cigar:
+                ab.graph.fuse_steps(params, 0, step_stream(), nst,
+                                    int(mi[L.M_BJ]), int(mi[L.M_ENDJ]), q,
+                                    rid, True)
+                return
+            else:
+                res = AlignResult()
+                res.best_score = int(mi[L.M_BEST])
+                replay_steps(ab.graph, params, np.asarray(q), step_stream(),
+                             nst, int(mi[L.M_BI]), int(mi[L.M_BJ]),
+                             int(mi[L.M_ENDI]), int(mi[L.M_ENDJ]), res)
+            ab.graph.add_graph_alignment(params, q, w, res.cigar, None, rid,
+                                         True)
+
+        # each instance mutates its own graph; the hot path is one C call
+        list(_host_pool().map(fuse_one, enumerate(pend["group"])))
 
 
 class _DeviceLoop:
@@ -336,7 +586,7 @@ class _DeviceLoop:
     def _replay(self, live, misc, s16, s16_d, ok_mask):
         bp, params = self.bp, self.bp.params
         abs_, instances = self.abs_, self.instances
-        from abpoa_tpu.graph import NativeGraph
+        from ..graph import NativeGraph
         steps_all = decode_steps_batch(s16, misc)
 
         def replay_one(b_k):
@@ -376,7 +626,7 @@ class _DeviceLoop:
                                      int(mi[L.M_BJ]), int(mi[L.M_ENDJ]),
                                      q, r + 1, True)
                     else:
-                        from abpoa_tpu.align.engine_np import AlignResult
+                        from ..align.engine_np import AlignResult
                         res = AlignResult()
                         replay_steps(g, params, np.asarray(q), steps32, nst,
                                      int(mi[L.M_BI]), int(mi[L.M_BJ]),
@@ -385,7 +635,7 @@ class _DeviceLoop:
                         g.add_graph_alignment(params, q, _unit(q),
                                               res.cigar, None, r + 1, True)
             if bp.precompute_cons:
-                from abpoa_tpu.consensus import generate_consensus
+                from ..consensus import generate_consensus
                 generate_consensus(ab, params)
 
         for fut in [_host_pool().submit(replay_one, bk)

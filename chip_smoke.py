@@ -5,16 +5,29 @@
 
 Phases (each prints its own lines; any failed check exits non-zero):
   1. card   -- nvidia-smi name and power limit; no CUDA -> exit 2
-  2. build  -- nvcc builds the kernels of abpoa_tpu_torch/csrc
-  3. kernels vs plain, on the card, at the bench geometry (heter.fa:
-     R=1024, WB=384, LS=2176): band DP and graph update against their
-     plain PyTorch versions on real round inputs, bit-equal; times of
-     both
-  4. slice  -- BatchPOA(device="cuda").run_consensus over 64 x heter.fa:
-     golden consensus bytes, no oracle fallback, every round through
-     both kernels (launch counts); e2e seconds and DP cells/s
+  2. build  -- one nvcc per kernel source of abpoa_tpu_torch/csrc, all
+     started together
+  3. device-loop kernels vs plain, on the card, at the bench geometry
+     (heter.fa: R=1024, WB=384, LS=2176): band DP (node-id mode) and
+     graph update against their plain PyTorch versions on real round
+     inputs, bit-equal; times of both
+  3b. round-path kernels vs plain on real round inputs of 8 rotated
+     instances, at the shapes the round path's dispatch picks, bit-equal:
+     the topo-mode band DP in extend mode with z-drop (heter.fa) and in
+     global protein mode (prot.fa, -c), the full-width DP in local mode
+     and in unbanded global mode (heter.fa); times of each
+  4. device loop -- BatchPOA(device="cuda").run_consensus over
+     64 x heter.fa: golden consensus bytes, no oracle fallback, every
+     round through both kernels (launch counts); e2e seconds, DP cells/s
   5. list mode -- batch_msa_from_files over 4 x heter.fa writes the
      golden bytes 4 times
+  6. round path -- run_consensus over 64 x heter.fa with -m 1 (full-width
+     kernel) and -m 2 (topo band kernel): the consensus of the port's
+     serial oracle, no fallback, launch counts equal to the dispatch
+     plan; e2e seconds, device-phase seconds, DP cells/s
+  7. round-path list mode -- 4 x seq.fa with -m 1, -m 2, -b -1 and
+     4 x prot.fa with -c give their goldens 4 times; -i seq.gfa equals
+     the port's serial output
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -27,11 +40,23 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HETER = ROOT / "tests" / "data" / "heter.fa"
-GOLD = ROOT / "tests" / "golden_sanitized" / "heter_cons.fa"
-N_INST = 64      # instances of heter.fa in the slice (the bench workload)
-N_CMP = 8        # instances in the kernel-vs-plain phase
+DATA = ROOT / "tests" / "data"
+GOLD_SAN = ROOT / "tests" / "golden_sanitized"
+HETER = DATA / "heter.fa"
+GOLD = GOLD_SAN / "heter_cons.fa"
+N_INST = 64      # instances of heter.fa in the slices (the bench workload)
+N_CMP = 8        # instances in the kernel-vs-plain phases
 REPS = 3         # timed slice runs after one warm-up
+
+# the bound of a kernel: the larger of its bytes (inputs read once,
+# outputs written once) over the H100's HBM rate and its int32
+# operations over the card's int32 rate (132 SMs x 64 INT32 lanes x
+# 1.98 GHz boost clock = 16.7e12 op/s, NVIDIA Hopper white paper)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations of one DP cell's recurrence (adds and maxes of H, E,
+# F), by gap mode: linear 5, affine 11, convex 17
+OPS_PER_CELL = {0: 5, 1: 11, 2: 17}
 
 
 def say(*a):
@@ -43,13 +68,45 @@ def check(cond, what):
         raise SystemExit(f"FAILED: {what}")
 
 
-def reads_of(path):
+def reads_of(path, m=5):
     import numpy as np
-    from abpoa_tpu.seqio import read_seqs
-    from abpoa_tpu.alphabet import encode_table
-    tab = encode_table(5)
+    from abpoa_tpu_torch.seqio import read_seqs
+    from abpoa_tpu_torch.alphabet import encode_table
+    tab = encode_table(m)
     return [tab[np.frombuffer(r.seq.encode(), dtype=np.uint8)]
             for r in read_seqs(str(path))]
+
+
+def wrappers():
+    """Every kernel wrapper of the port by name; each counts its
+    launches in a plain integer attribute."""
+    from abpoa_tpu_torch.ops.band_dp import (band_poa_dp_packed,
+                                             band_poa_dp_batch)
+    from abpoa_tpu_torch.ops.fw_dp import fw_poa_dp_batch
+    from abpoa_tpu_torch.ops.graph_update import graph_update_packed
+    return {"band_dp": band_poa_dp_packed,
+            "graph_update": graph_update_packed,
+            "band_dp_topo": band_poa_dp_batch, "fw_dp": fw_poa_dp_batch}
+
+
+def reset_launches():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def launches_now():
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(nbytes_, ops):
+    """(bound_ms, bound_by) of a call that moves nbytes_ and does ops."""
+    tb = nbytes_ / HBM_BYTES_PER_S
+    to = ops / INT32_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def cuda_ms(fn, n):
@@ -84,13 +141,14 @@ def host_ms(fn, n):
 
 
 def kernel_phase(dev, heter):
-    """Both kernels against their plain versions on the inputs of real
-    rounds: round 1 (state after read 0) and the last round (state after
-    the kernels ran every earlier round, with mismatch bundles)."""
+    """Both device-loop kernels against their plain versions on the
+    inputs of real rounds: round 1 (state after read 0) and the last
+    round (state after the kernels ran every earlier round, with
+    mismatch bundles)."""
     import numpy as np
     import torch
-    from abpoa_tpu.graph import NativeGraph, POAGraph
-    from abpoa_tpu.params import Params
+    from abpoa_tpu_torch.graph import NativeGraph, POAGraph
+    from abpoa_tpu_torch.params import Params
     from abpoa_tpu_torch.ops import poa_loop as pl
     from abpoa_tpu_torch.ops import band_dp as bd
     from abpoa_tpu_torch.ops import graph_update as gu
@@ -125,8 +183,7 @@ def kernel_phase(dev, heter):
     qpf = bd.build_qpf(bc, base[L.S_NSCAL:], qc_d)
     qp4 = pl.pack_qp4(cfg, qc_d)
     wf1000 = round(params.wf * 1000)
-    err = {"band_dp": 0, "graph_update": 0}
-    times = {}
+    rec = {"band_dp": {"max_abs_err": 0}, "graph_update": {"max_abs_err": 0}}
     for r in (0, cfg.NR - 1):
         if r:
             # bring the state to the last round through the kernels
@@ -148,7 +205,8 @@ def kernel_phase(dev, heter):
             d = (k16[b, :n].int() - r16[b, :n].int()).abs().max().item() \
                 if n else 0
             dm = max(dm, d)
-        err["band_dp"] = max(err["band_dp"], dm)
+        rec["band_dp"]["max_abs_err"] = max(rec["band_dp"]["max_abs_err"],
+                                            dm)
         check(dm == 0, f"round {r}: band DP kernel != plain (max |d| {dm})")
         say(f"kernels: round {r + 1} band_dp == plain (misc + "
             f"{int(rm[:, L.M_NSTEPS].sum())} steps)")
@@ -169,29 +227,246 @@ def kernel_phase(dev, heter):
                 < gr.node_n[:, None])
         for a, b_ in ((i2k, i2r), (n2k, n2r), (remk, remr)):
             dm = max(dm, ((a - b_).abs() * live).max().item())
-        err["graph_update"] = max(err["graph_update"], dm)
+        rec["graph_update"]["max_abs_err"] = max(
+            rec["graph_update"]["max_abs_err"], dm)
         check(dm == 0, f"round {r}: graph kernel != plain (max |d| {dm})")
         say(f"kernels: round {r + 1} graph_update == plain "
             f"(node_n {gr.node_n.tolist()})")
         if r == cfg.NR - 1:
-            times["band_dp"] = (
-                cuda_ms(lambda: (lambda: bd.band_poa_dp_packed(*args)), 20),
-                host_ms(lambda: (lambda: bd.band_poa_dp_packed_ref(*args)),
-                        2))
+            rec["band_dp"]["ms"] = cuda_ms(
+                lambda: (lambda: bd.band_poa_dp_packed(*args)), 20)
+            rec["band_dp"]["plain_ms"] = host_ms(
+                lambda: (lambda: bd.band_poa_dp_packed_ref(*args)), 1)
+            cells = int(km[:, L.M_CELLS].sum())
+            rec["band_dp"]["bound_ms"], rec["band_dp"]["bound_by"] = bound(
+                nbytes(scal[:, :L.S_NSCAL], ps.ctrl, ps.inp, ps.i2nn,
+                       qpf[r], km, ks),
+                cells * OPS_PER_CELL[params.gap_mode])
 
             def fresh_kernel():
                 c = pl.PackedState(*(x.clone() for x in ps))
                 return lambda: gu.graph_update_packed(cfg, c, ks, km,
                                                       ql_d[r], qp4[r])
-            times["graph_update"] = (
-                cuda_ms(fresh_kernel, 20),
-                host_ms(lambda: (lambda: gu.graph_update_packed_ref(
-                    cfg, ps, rs, rm, ql_d[r], qp4[r])), 2))
+            rec["graph_update"]["ms"] = cuda_ms(fresh_kernel, 20)
+            rec["graph_update"]["plain_ms"] = host_ms(
+                lambda: (lambda: gu.graph_update_packed_ref(
+                    cfg, ps, rs, rm, ql_d[r], qp4[r])), 1)
+            # fusion: one pass over the step stream; sort and remain: one
+            # visit of every node's in- and out-edge slots
+            ops = (int(km[:, L.M_NSTEPS].sum())
+                   + int(gr.node_n.sum()) * (cfg.E + cfg.P))
+            rec["graph_update"]["bound_ms"], \
+                rec["graph_update"]["bound_by"] = bound(
+                    2 * nbytes(*ps) + nbytes(ks, km, ql_d[r], qp4[r]), ops)
         ps = gk
-    for name, (k, p) in times.items():
-        say(f"time: {name} kernel {k:.4f} ms, plain {p:.4f} ms "
-            f"(B={cfg.B}, round {cfg.NR})")
-    return err, times
+    for name in ("band_dp", "graph_update"):
+        t = rec[name]
+        say(f"time: {name} kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}) (B={cfg.B}, round {cfg.NR})")
+    return rec
+
+
+def round_inputs(dev, params, insts, k):
+    """The round path's plan and stacked inputs of round k (read k
+    against the oracle-fused graph of reads < k) of each instance."""
+    from abpoa_tpu_torch.align.engine_np import align_sequence_to_subgraph
+    from abpoa_tpu_torch.align.export import export_dense, repad_dense
+    from abpoa_tpu_torch.graph import NativeGraph, POAGraph
+    from abpoa_tpu_torch.params import SRC_NODE_ID, SINK_NODE_ID
+    from abpoa_tpu_torch.parallel.batch import round_plan
+    import torch
+    dgs = []
+    for reads in insts:
+        if NativeGraph.available():
+            g = NativeGraph()
+            g.ensure_reads(k)
+        else:
+            g = POAGraph()
+        for r, q in enumerate(reads[:k]):
+            cig = []
+            if g.node_n > 2:
+                if not g.is_topological_sorted:
+                    g.topological_sort(params)
+                cig = align_sequence_to_subgraph(g, params, SRC_NODE_ID,
+                                                 SINK_NODE_ID, q).cigar
+            g.add_graph_alignment(params, q, [1] * len(q), cig, None, r,
+                                  True)
+        g.topological_sort(params)
+        dgs.append(export_dense(g, params, reads[k]))
+    R = max(d.R for d in dgs)
+    W = max(d.W for d in dgs)
+    P = max(d.P for d in dgs)
+    O = max(d.O for d in dgs)
+    dgs = [repad_dense(d, R, W, P, O) for d in dgs]
+    plan = round_plan(params, dgs, dev)
+    return plan, plan.stack(slice(None), dev), [d.n_rows for d in dgs]
+
+
+def round_kernel_phase(dev, heter):
+    """B3 (topo band) and B4 (full width) against their plain versions on
+    the round path's inputs of real rounds."""
+    import torch
+    from abpoa_tpu_torch.params import (Params, LOCAL_MODE, EXTEND_MODE)
+    from abpoa_tpu_torch.ops import band_dp as bd, fw_dp as fw
+    from abpoa_tpu_torch.ops import layout as L
+
+    def mk(**kw):
+        p = Params()
+        for key, v in kw.items():
+            setattr(p, key, v)
+        return p.post_set()
+    rot = [heter[b:] + heter[:b] for b in range(N_CMP)]
+    prot = reads_of(DATA / "prot.fa", 27)
+    prot_rot = [prot[b % len(prot):] + prot[:b % len(prot)]
+                for b in range(N_CMP)]
+    cases = [("band_dp_topo", "extend, z-drop 100, heter",
+              mk(align_mode=EXTEND_MODE, zdrop=100), rot, 4),
+             ("band_dp_topo", "global protein -c, prot", mk(m=27),
+              prot_rot, 2),
+             ("fw_dp", "local -m 1, heter", mk(align_mode=LOCAL_MODE),
+              rot, 4),
+             ("fw_dp", "global -b -1, heter", mk(wb=-1), rot, 4)]
+    rec = {"band_dp_topo": {"max_abs_err": 0}, "fw_dp": {"max_abs_err": 0}}
+    for name, what, params, insts, k in cases:
+        plan, args, nrows = round_inputs(dev, params, insts, k)
+        check(plan.name == name, f"{what}: dispatch picked {plan.name}")
+        ref = (bd.band_poa_dp_batch_ref if plan.band
+               else fw.fw_poa_dp_batch_ref)
+        out = plan.kernel(plan.cfg, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp = ref(plan.cfg, *args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        dm = (out.misc[:, :L.M_LASTI] - exp.misc[:, :L.M_LASTI]).abs().max()
+        dm = int(dm)
+        fields = ["steps"] + (["steps16"] if plan.band else [])
+        for b, n in enumerate(nrows):
+            ns = int(exp.misc[b, L.M_NSTEPS])
+            for f in fields:
+                d = (getattr(out, f)[b, :ns].int()
+                     - getattr(exp, f)[b, :ns].int()).abs()
+                dm = max(dm, int(d.max()) if ns else 0)
+            for f in ("beg_sn", "end_sn", "mpl", "mpr"):
+                d = (getattr(out, f)[b, :n] - getattr(exp, f)[b, :n]).abs()
+                dm = max(dm, int(d.max()))
+        check(dm == 0, f"{what}: {name} kernel != plain (max |d| {dm})")
+        check(not exp.misc[:, L.M_FAIL].any(), f"{what}: walk failed")
+        ms = cuda_ms(lambda: (lambda: plan.kernel(plan.cfg, *args)), 20)
+        cells = int(exp.misc[:, L.M_CELLS].sum())
+        outs = [t for t in out if isinstance(t, torch.Tensor)]
+        bms, bby = bound(nbytes(*args, *outs),
+                         cells * OPS_PER_CELL[params.gap_mode])
+        say(f"kernels: {name} == plain ({what}; B={len(insts)}, "
+            f"R={plan.cfg.R}, "
+            f"{'WB=%d' % plan.cfg.WB if plan.band else 'Wq=%d' % plan.cfg.Wq}"
+            f", {int(exp.misc[:, L.M_NSTEPS].sum())} steps, {cells} cells): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bms:.6f} ms ({bby})")
+        r = rec[name]
+        r["max_abs_err"] = max(r["max_abs_err"], dm)
+        if "ms" not in r:      # the first case of each kernel is recorded
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby)
+    return rec
+
+
+def serial_consensus(params, path):
+    """The port's serial oracle consensus of one input file (CPU)."""
+    from abpoa_tpu_torch.api import ABPOA
+    out = io.StringIO()
+    ABPOA().msa_from_file(params, str(path), out)
+    return out.getvalue().split("\n")[1]
+
+
+def round_path_phase(dev, heter, n_inst=N_INST):
+    """64 x heter.fa through the round path in local and extend mode."""
+    import torch
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
+    launches = {}
+    for flag, mode, name in (("-m 1", LOCAL_MODE, "fw_dp"),
+                             ("-m 2", EXTEND_MODE, "band_dp_topo")):
+        def params():
+            p = Params()
+            p.align_mode = mode
+            return p.post_set()
+        exp = serial_consensus(params(), HETER)
+        bp = BatchPOA(params(), device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        cons = bp.run_consensus([heter] * n_inst)
+        first_s = time.perf_counter() - t0
+        got = launches_now()
+        launches[name] = got[name]
+        check(all(c == [exp] for c in cons),
+              f"round path {flag}: consensus != serial oracle")
+        check(not bp.used_device_loop, f"round path {flag}: device loop")
+        check(bp.fallbacks == 0, f"round path {flag}: {bp.fallbacks} "
+              "oracle fallbacks")
+        # the instances are alike: one score-width group and one memory
+        # chunk per round, so one launch of the planned kernel per round
+        plan = {k: bp.rounds if k == name else 0 for k in bp.launches}
+        round_got = {k: got[k] for k in bp.launches}
+        check(round_got == bp.launches == plan and bp.rounds > 0
+              and got["band_dp"] == 0 and got["graph_update"] == 0,
+              f"round path {flag}: launches {got}, dispatch plan "
+              f"{bp.launches}, rounds {bp.rounds}")
+        say(f"round path {flag}: {n_inst} x heter.fa == serial oracle "
+            f"consensus, fallbacks 0, rounds {bp.rounds}, launches "
+            f"{round_got} == dispatch plan {bp.launches} (device-loop "
+            f"kernels 0), first run {first_s:.4f} s")
+        e2e, busy = [], []
+        for _ in range(REPS):
+            bp = BatchPOA(params(), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cons = bp.run_consensus([heter] * n_inst)
+            torch.cuda.synchronize()
+            e2e.append(time.perf_counter() - t0)
+            busy.append(bp.dp_busy_seconds())
+            check(all(c == [exp] for c in cons) and bp.fallbacks == 0,
+                  f"round path {flag}: timed run != serial oracle")
+        med = statistics.median(e2e)
+        say(f"round path {flag}: e2e {med:.4f} s median of {REPS} "
+            f"{[round(x, 4) for x in e2e]}, device phases (upload, kernel, "
+            f"fetch) {statistics.median(busy):.4f} s, host (sort, export, "
+            f"fusion, consensus) {med - statistics.median(busy):.4f} s, "
+            f"dp_cells {bp.dp_cells}, dp_cells/s {bp.dp_cells / med:.1f}")
+    return launches
+
+
+def round_list_phase(dev):
+    from abpoa_tpu_torch import batch_msa_from_files
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
+    seq = str(DATA / "seq.fa")
+    for flag, kw, golden, fn in (
+            ("-m 1", {"align_mode": LOCAL_MODE}, "seq_cons_local.fa", seq),
+            ("-m 2", {"align_mode": EXTEND_MODE}, "seq_cons_ext.fa", seq),
+            ("-b -1", {"wb": -1}, "seq_cons_noband.fa", seq),
+            ("-c", {"m": 27}, "prot_cons.fa", str(DATA / "prot.fa"))):
+        p = Params()
+        for key, v in kw.items():
+            setattr(p, key, v)
+        p.post_set()
+        out = io.StringIO()
+        batch_msa_from_files(p, [fn] * 4, out, device=dev)
+        check(out.getvalue() == (GOLD_SAN / golden).read_text() * 4,
+              f"list mode {flag} != golden")
+        say(f"list mode {flag}: 4 x {pathlib.Path(fn).name} golden bytes")
+    p = Params()
+    p.incr_fn = str(GOLD_SAN / "seq.gfa")
+    p.out_cons, p.out_gfa = False, True
+    p.post_set()
+    serial = io.StringIO()
+    for _ in range(4):
+        ABPOA().msa_from_file(p, seq, serial)
+    out = io.StringIO()
+    batch_msa_from_files(p, [seq] * 4, out, device=dev)
+    check(out.getvalue() == serial.getvalue(),
+          "list mode -i != the port's serial output")
+    say("list mode -i seq.gfa -r3: 4 x seq.fa == serial output")
 
 
 def main():
@@ -208,6 +483,7 @@ def main():
         print("FAILED: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
 
     # ---- 1. card ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -223,29 +499,30 @@ def main():
     # ---- 2. build ----
     from abpoa_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.library()
+    libs = _build.build_all()
     build_s = time.perf_counter() - t0
-    say(f"build: {build_s:.3f} s ({_build.library_path().name}; nvcc "
-        f"{_build.build_seconds if _build.build_seconds is not None else 0:.3f} s)")
+    say(f"build: {build_s:.3f} s ({', '.join(p.name for p in libs.values())}"
+        f"; nvcc {_build.build_seconds or 0:.3f} s)")
 
-    # ---- 3. kernels vs plain ----
+    # ---- 3. device-loop kernels vs plain ----
     heter = reads_of(HETER)
-    err, times = kernel_phase(dev, heter)
+    rec = kernel_phase(dev, heter)
 
-    # ---- 4. slice ----
-    from abpoa_tpu.params import Params
+    # ---- 3b. round-path kernels vs plain ----
+    rec.update(round_kernel_phase(dev, heter))
+
+    # ---- 4. device loop ----
     from abpoa_tpu_torch import BatchPOA, batch_msa_from_files
-    from abpoa_tpu_torch.ops.band_dp import band_poa_dp_packed
-    from abpoa_tpu_torch.ops.graph_update import graph_update_packed
+    from abpoa_tpu_torch.params import Params
     gold = GOLD.read_text().split("\n")[1]
-    band_poa_dp_packed.launches = 0
-    graph_update_packed.launches = 0
     bp = BatchPOA(Params().post_set(), device="cuda")
+    reset_launches()
     t0 = time.perf_counter()
     cons = bp.run_consensus([heter] * N_INST)
     first_s = time.perf_counter() - t0
-    launches = {"band_dp": band_poa_dp_packed.launches,
-                "graph_update": graph_update_packed.launches}
+    got = launches_now()
+    launches = {"band_dp": got["band_dp"],
+                "graph_update": got["graph_update"]}
     from abpoa_tpu_torch.parallel.batch import SPLIT_MIN
     n_sub = 2 if N_INST >= SPLIT_MIN else 1
     check(all(c == [gold] for c in cons), "slice: consensus != golden")
@@ -255,6 +532,8 @@ def main():
         check(n == (len(heter) - 1) * n_sub,
               f"slice: {name} launched {n} times, expected "
               f"{(len(heter) - 1) * n_sub}")
+    check(got["band_dp_topo"] == 0 and got["fw_dp"] == 0,
+          f"slice: round-path kernels launched {got}")
     say(f"slice: {N_INST} x heter.fa golden consensus, fallbacks 0, "
         f"launches {launches}, first run {first_s:.4f} s")
     e2e = []
@@ -279,20 +558,30 @@ def main():
     check(out.getvalue() == GOLD.read_text() * 4, "list mode != golden")
     say("list mode: 4 x heter.fa golden bytes")
 
-    rec = {"kernels": [
-        {"name": "band_dp", "route": "cuda",
-         "source": "abpoa_tpu_torch/csrc/band_dp.cu",
-         "replaces": "abpoa_tpu/ops/dp_pallas_band.py:132",
-         "launches": launches["band_dp"], "max_abs_err": err["band_dp"],
-         "ms": times["band_dp"][0], "plain_ms": times["band_dp"][1]},
-        {"name": "graph_update", "route": "cuda",
-         "source": "abpoa_tpu_torch/csrc/graph_update.cu",
-         "replaces": "abpoa_tpu/ops/poa_loop.py:840",
-         "launches": launches["graph_update"],
-         "max_abs_err": err["graph_update"],
-         "ms": times["graph_update"][0],
-         "plain_ms": times["graph_update"][1]}]}
-    say(json.dumps(rec))
+    # ---- 6. round path ----
+    launches.update(round_path_phase(dev, heter))
+
+    # ---- 7. round-path list mode ----
+    round_list_phase(dev)
+
+    src = {"band_dp": ("abpoa_tpu_torch/csrc/band_dp.cu",
+                       "abpoa_tpu/ops/dp_pallas_band.py:132"),
+           "graph_update": ("abpoa_tpu_torch/csrc/graph_update.cu",
+                            "abpoa_tpu/ops/poa_loop.py:840"),
+           "band_dp_topo": ("abpoa_tpu_torch/csrc/band_dp.cu",
+                            "abpoa_tpu/ops/dp_pallas_band.py:1247"),
+           "fw_dp": ("abpoa_tpu_torch/csrc/fw_dp.cu",
+                     "abpoa_tpu/ops/dp_pallas_fw.py:746")}
+    kernels = []
+    for name, (source, replaces) in src.items():
+        r = rec[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+    say(f"total: {time.perf_counter() - t_start:.1f} s")
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

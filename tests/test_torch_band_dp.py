@@ -47,11 +47,17 @@ def _params(gap):
     return params.post_set()
 
 
-def _graph(params, reads):
+def _graph(params, reads, port=True):
     """Host graph of `reads` fused by the oracle (bundles -> rows with
-    several predecessors), topologically sorted."""
-    from abpoa_tpu.graph import POAGraph
-    from abpoa_tpu.align.engine_np import align_sequence_to_subgraph
+    several predecessors), topologically sorted: the port's graph and
+    oracle for the port's Params, else the JAX package's."""
+    if port:
+        from abpoa_tpu_torch.graph import POAGraph
+        from abpoa_tpu_torch.align.engine_np import (
+            align_sequence_to_subgraph)
+    else:
+        from abpoa_tpu.graph import POAGraph
+        from abpoa_tpu.align.engine_np import align_sequence_to_subgraph
     g = POAGraph()
     for r, q in enumerate(reads):
         cig = []
@@ -66,7 +72,8 @@ def _graph(params, reads):
 
 
 def _inputs(params, graphs, q, R, device="cpu"):
-    """Port-side inputs of one round (the JAX test shapes: R=192, G=1)."""
+    """Port-side inputs of one round (the JAX test shapes: R=192, G=1)
+    from the port's Params and graphs."""
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.ops import band_dp as tbd
     from abpoa_tpu_torch.parallel.batch import _loop_geometry
@@ -100,7 +107,8 @@ def test_band_ref_equals_jax_interpret(gap):
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.ops import band_dp as tbd
     from abpoa_tpu_torch.ops import layout as L
-    params = _params(gap)
+    from abpoa_tpu_torch import convert
+    params = convert.params(_params(gap))
     reads = _reads("seq.fa", 6)
     graphs = [_graph(params, reads[0:3]), _graph(params, reads[1:4])]
     q = reads[5]
@@ -133,11 +141,15 @@ def test_band_ref_matches_oracle(gap):
     from abpoa_tpu_torch.ops import band_dp as tbd
     from abpoa_tpu_torch.ops import layout as L
     from abpoa_tpu_torch.ops import steps as tst
+    from abpoa_tpu_torch import convert
     params = _params(gap)
+    tparams = convert.params(params)
     reads = _reads("heter.fa", 5)
-    graphs = [_graph(params, reads[0:2]), _graph(params, reads[1:4])]
+    parts = (reads[0:2], reads[1:4])
+    graphs = [_graph(params, r, port=False) for r in parts]
+    tgraphs = [_graph(tparams, r) for r in parts]
     q = reads[4]
-    cfg, ps, scal, qpf = _inputs(params, graphs, q, 1024)
+    cfg, ps, scal, qpf = _inputs(tparams, tgraphs, q, 1024)
     tm, ts = tbd.band_poa_dp_packed(tpl.band_config(cfg), scal, ps.ctrl,
                                     ps.inp, ps.i2nn, qpf)
     tm = tm.numpy()
@@ -152,7 +164,7 @@ def test_band_ref_matches_oracle(gap):
         steps = tst.unpack_steps16(s16[b], n, int(mi[L.M_BI]),
                                    int(mi[L.M_BJ]))
         r2 = AlignResult()
-        tst.replay_steps(g, params, q, steps, n, int(mi[L.M_BI]),
+        tst.replay_steps(tgraphs[b], tparams, q, steps, n, int(mi[L.M_BI]),
                          int(mi[L.M_BJ]), int(mi[L.M_ENDI]),
                          int(mi[L.M_ENDJ]), r2)
         assert r2.cigar == res.cigar
@@ -164,7 +176,8 @@ def test_band_overflow_flag():
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.ops import band_dp as tbd
     from abpoa_tpu_torch.ops import layout as L
-    params = _params("convex")
+    from abpoa_tpu_torch import convert
+    params = convert.params(_params("convex"))
     reads = _reads("heter.fa", 3)
     cfg, ps, scal, qpf = _inputs(params, [_graph(params, reads[:2])],
                                  reads[2], 1024)
@@ -184,7 +197,8 @@ def test_band_kernel_equals_ref_on_gpu(gap, cuda_device):
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.ops import band_dp as tbd
     from abpoa_tpu_torch.ops import layout as L
-    params = _params(gap)
+    from abpoa_tpu_torch import convert
+    params = convert.params(_params(gap))
     reads = _reads("heter.fa", 6)
     graphs = [_graph(params, reads[i:i + 3]) for i in range(3)]
     cfg, ps, scal, qpf = _inputs(params, graphs, reads[5], 1024,

@@ -19,6 +19,7 @@ import torch
 
 
 from abpoa_tpu.params import Params
+from abpoa_tpu_torch import convert
 
 # paths spelled out here (not imported from conftest) so the gpu tests
 # also run with --noconftest on a host without JAX
@@ -46,17 +47,23 @@ def _reads(fn, n=None):
 
 
 def _serial_oracle(instances, params):
+    """The JAX package's serial consensus per instance (after restoring
+    params.incr_fn, as its msa does, when that is set)."""
     from abpoa_tpu.api import ABPOA
     from abpoa_tpu.consensus import generate_consensus
     from abpoa_tpu.alphabet import decode_table
+    from abpoa_tpu.gfa import restore_graph
     dt = decode_table(params.m)
     out = []
     for reads in instances:
         ab = ABPOA()
-        ab.n_seq = len(reads)
-        ab.names = [""] * len(reads)
-        ab.is_rc = [0] * len(reads)
-        ab.poa(params, reads, [[1] * len(q) for q in reads], 0)
+        if params.incr_fn:
+            restore_graph(ab, params)
+        n0 = ab.n_seq
+        ab.n_seq = n0 + len(reads)
+        ab.names = list(ab.names) + [""] * len(reads)
+        ab.is_rc = list(ab.is_rc) + [0] * len(reads)
+        ab.poa(params, reads, [[1] * len(q) for q in reads], n0)
         generate_consensus(ab, params)
         out.append([bytes(dt[b] for b in s).decode()
                     for s in ab.cons.cons_base[:ab.cons.n_cons]])
@@ -81,7 +88,6 @@ def test_rounds_equal_jax_device_round(gaps):
     from abpoa_tpu.ops import poa_loop as pls
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.ops import layout as L
-    from abpoa_tpu_torch import convert
     from test_device_loop import _mk_cfg
     params = Params()
     if gaps is not None:
@@ -161,12 +167,12 @@ def test_slice_mixed_batch_equals_oracle():
     params = Params().post_set()
     instances = _mixed_instances()
     exp = _serial_oracle(instances, params)
-    bp = BatchPOA(params, device="cpu")
+    bp = BatchPOA(convert.params(params), device="cpu")
     assert bp.run_consensus(instances) == exp
     assert bp.used_device_loop
     assert bp.fallbacks >= 1
     assert bp.rounds == 8 and bp.dp_cells > 0
-    bp2 = BatchPOA(params, device="cpu")
+    bp2 = BatchPOA(convert.params(params), device="cpu")
     bp2.s16_cap = 2
     assert bp2.run_consensus(instances) == exp
     assert bp2.fallbacks == bp.fallbacks
@@ -183,7 +189,7 @@ def test_slice_amb_strand_equals_oracle():
     rc = np.array([3 - b if b < 4 else b for b in seq[2][::-1]],
                   dtype=np.uint8)
     instances = [[seq[0], seq[1], rc, seq[3]], seq[:4]]
-    bp = BatchPOA(params, device="cpu")
+    bp = BatchPOA(convert.params(params), device="cpu")
     assert bp.run_consensus(instances) == _serial_oracle(instances, params)
     assert bp.used_device_loop
 
@@ -194,7 +200,7 @@ def test_slice_heter_golden():
     from abpoa_tpu_torch import BatchPOA
     params = Params().post_set()
     heter = _reads("heter.fa")
-    bp = BatchPOA(params, device="cpu")
+    bp = BatchPOA(convert.params(params), device="cpu")
     cons = bp.run_consensus([heter, heter])
     gold = (GOLDEN_SAN / "heter_cons.fa").read_text().split("\n")[1]
     assert cons == [[gold], [gold]]
@@ -207,8 +213,8 @@ def test_list_mode_golden():
     from abpoa_tpu_torch import batch_msa_from_files
     params = Params().post_set()
     out = io.StringIO()
-    batch_msa_from_files(params, [str(DATA / "seq.fa")] * 2, out,
-                         device="cpu")
+    batch_msa_from_files(convert.params(params), [str(DATA / "seq.fa")] * 2,
+                         out, device="cpu")
     assert out.getvalue() == (GOLDEN / "seq_cons.fa").read_text() * 2
 
 
@@ -223,7 +229,8 @@ HETER_PARITY = [("heter_cons.fa", []), ("heter_d2_cons.fa", ["-d2"]),
 
 
 def _cli_params(args, monkeypatch):
-    """The Params the CLI builds for `args` (its run step intercepted)."""
+    """The Params the JAX package's CLI builds for `args` (its run step
+    intercepted), carried across by convert.params."""
     import contextlib
     import abpoa_tpu.cli as cli
     got = {}
@@ -234,7 +241,7 @@ def _cli_params(args, monkeypatch):
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(io.StringIO()):
         cli.main(list(args) + [str(DATA / "seq.fa")])
-    return got["params"]
+    return convert.params(got["params"])
 
 
 def _list_mode(golden, args, fn, device, monkeypatch):
@@ -271,43 +278,92 @@ def test_slice_mixed_batch_on_gpu(cuda_device):
     instances = _mixed_instances()
     exp = _serial_oracle(instances, params)
     for cap in (None, 2):
-        bp = BatchPOA(params, device="cuda")
+        bp = BatchPOA(convert.params(params), device="cuda")
         bp.s16_cap = cap
         assert bp.run_consensus(instances) == exp
         assert bp.used_device_loop and bp.fallbacks >= 1
 
 
-@pytest.mark.parametrize("what", ["local", "unbanded", "qv", "incremental",
-                                  "long"])
+@pytest.mark.parametrize("what", ["qv", "long"])
 def test_out_of_scope_raises(what):
+    """qv weights (A4q) and a round beyond the packed step word (the XLA
+    tier, A6) still raise."""
     from abpoa_tpu_torch import BatchPOA
-    from abpoa_tpu.params import LOCAL_MODE
     params = Params()
     kw = {}
     reads = _reads("seq.fa", 3)
+    if what == "qv":
+        kw["weights"] = [[[1] * len(q) for q in reads]]
+    else:
+        reads = [np.zeros(40000, np.uint8)] * 2
+    params.post_set()
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        BatchPOA(convert.params(params), device="cpu").run([reads], **kw)
+
+
+TURNED_AWAY = ["local", "unbanded", "incremental", "scores32"]
+
+
+@pytest.mark.parametrize("what", TURNED_AWAY)
+def test_round_path_serves_what_the_loop_turns_away(what):
+    """Batches the device loop turns away (local mode, -b -1, a graph
+    restored from seq.gfa, 32-bit score dispatch) run the round path and
+    equal the JAX package's serial consensus."""
+    _turned_away(what, "cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", TURNED_AWAY)
+def test_round_path_serves_what_the_loop_turns_away_on_gpu(what,
+                                                           cuda_device):
+    _turned_away(what, cuda_device)
+
+
+def _turned_away(what, device):
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.alphabet import decode_table
+    from abpoa_tpu_torch.consensus import generate_consensus
+    from abpoa_tpu_torch.gfa import restore_graph
+    from abpoa_tpu.params import LOCAL_MODE
+    params = Params()
+    reads = _reads("seq.fa", 4)
     if what == "local":
         params.align_mode = LOCAL_MODE
     elif what == "unbanded":
         params.wb = -1
-    elif what == "qv":
-        kw["weights"] = [[[1] * len(q) for q in reads]]
     elif what == "incremental":
-        kw["init"] = lambda ab: None
-    elif what == "long":
-        reads = [np.zeros(40000, np.uint8)] * 2
+        params.incr_fn = str(GOLDEN_SAN / "seq.gfa")
+    else:
+        params.match, params.mismatch = 1000, 1200
     params.post_set()
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        BatchPOA(params, device="cpu").run([reads], **kw)
+    tparams = convert.params(params)
+    init = (lambda ab: restore_graph(ab, tparams)) if params.incr_fn \
+        else None
+    instances = [reads, reads[1:]]
+    bp = BatchPOA(tparams, device=device)
+    abs_ = bp.run(instances, init=init)
+    assert not bp.used_device_loop and bp.fallbacks == 0
+    assert bp.rounds == len(reads) - (what != "incremental")
+    if what == "scores32":
+        from abpoa_tpu_torch.align.engine_np import score_width_dispatch
+        assert score_width_dispatch(tparams, 64, len(reads[0]))[0] == 32
+    dt = decode_table(params.m)
+    got = []
+    for ab in abs_:
+        generate_consensus(ab, tparams)
+        got.append([bytes(dt[b] for b in s).decode()
+                    for s in ab.cons.cons_base[:ab.cons.n_cons]])
+    assert got == _serial_oracle(instances, params)
 
 
 @pytest.mark.gpu
 def test_loop_kernels_equal_plain_on_gpu(cuda_device):
     """poa_device_loop through the CUDA kernels equals the plain loop,
     on heter.fa instances with different read orders."""
-    from abpoa_tpu.graph import POAGraph
+    from abpoa_tpu_torch.graph import POAGraph
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.parallel.batch import _loop_geometry
-    params = Params().post_set()
+    params = convert.params(Params().post_set())
     heter = _reads("heter.fa")
     insts = [heter, heter[3:] + heter[:3], heter[::-1]]
     cfg = _loop_geometry(params, insts)._replace(B=len(insts))

@@ -80,6 +80,17 @@ def _oracle_steps(g, params, q, LS):
     return res, steps, misc
 
 
+def _port_state(graphs, cfg, device="cpu"):
+    """The JAX package's init_state_np of its host graphs, carried across
+    by convert.loop_inputs and packed by the port."""
+    from abpoa_tpu.ops import poa_loop as pls
+    from abpoa_tpu_torch import convert
+    from abpoa_tpu_torch.ops import poa_loop as tpl
+    jcfg = pls.LoopConfig(**cfg._asdict(), G=1, GT=cfg.B, use_zdrop=False)
+    return tpl.pack_state(cfg, *convert.loop_inputs(
+        *pls.init_state_np(graphs, jcfg), device))
+
+
 def _wire(steps, misc):
     from abpoa_tpu_torch.ops import steps as tst
     return tst.steps32_to_s16w(torch.from_numpy(steps),
@@ -149,17 +160,15 @@ def test_graph_update_ref_vs_host_graph(fn, nreads):
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.ops import graph_update as tgu
     from abpoa_tpu_torch.parallel.batch import _loop_geometry
+    from abpoa_tpu_torch import convert
     params = Params().post_set()
     reads = _reads(fn, nreads)
-    cfg = _loop_geometry(params, [reads])._replace(B=1)
+    cfg = _loop_geometry(convert.params(params), [reads])._replace(B=1)
     g = POAGraph()
     g.add_graph_alignment(params, reads[0], [1] * len(reads[0]), [], None,
                           0, True)
     g.topological_sort(params)
-    st, i2n, n2i, remain = tpl.init_state_np([g], cfg)
-    ps = tpl.pack_state(cfg, tpl.GState(*(torch.from_numpy(x) for x in st)),
-                        torch.from_numpy(i2n), torch.from_numpy(n2i),
-                        torch.from_numpy(remain))
+    ps = _port_state([g], cfg)
     for r, q in enumerate(reads[1:], start=1):
         if not g.is_topological_sorted:
             g.topological_sort(params)
@@ -205,17 +214,16 @@ def test_graph_update_capacity_sets_fail():
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.ops import graph_update as tgu
     from abpoa_tpu_torch.parallel.batch import _loop_geometry
+    from abpoa_tpu_torch import convert
     params = Params().post_set()
     rng = np.random.default_rng(5)
     reads = [rng.integers(0, 4, 150).astype(np.uint8) for _ in range(2)]
-    cfg = _loop_geometry(params, [reads])._replace(B=1, R=128 + 64)
+    cfg = _loop_geometry(convert.params(params), [reads])._replace(
+        B=1, R=128 + 64)
     g = POAGraph()
     g.add_graph_alignment(params, reads[0], [1] * 150, [], None, 0, True)
     g.topological_sort(params)
-    st, i2n, n2i, remain = tpl.init_state_np([g], cfg)
-    ps = tpl.pack_state(cfg, tpl.GState(*(torch.from_numpy(x) for x in st)),
-                        torch.from_numpy(i2n), torch.from_numpy(n2i),
-                        torch.from_numpy(remain))
+    ps = _port_state([g], cfg)
     # an all-insertion round: every base is a new node (150 + 152 > R)
     misc = np.zeros((1, 10), np.int32)
     misc[0, 2] = 0                       # M_BJ = 0: the read is trailing I
@@ -246,18 +254,15 @@ def test_graph_kernel_equals_ref_on_gpu(cuda_device):
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.ops import graph_update as tgu
     from abpoa_tpu_torch.parallel.batch import _loop_geometry
+    from abpoa_tpu_torch import convert
     params = Params().post_set()
     reads = _reads("heter.fa", 5)
-    cfg = _loop_geometry(params, [reads])._replace(B=2)
+    cfg = _loop_geometry(convert.params(params), [reads])._replace(B=2)
     g = POAGraph()
     g.add_graph_alignment(params, reads[0], [1] * len(reads[0]), [], None,
                           0, True)
     g.topological_sort(params)
-    st, i2n, n2i, remain = tpl.init_state_np([g, g], cfg)
-    ps = tpl.pack_state(cfg, tpl.GState(*(torch.from_numpy(x).to(cuda_device)
-                                          for x in st)),
-                        *(torch.from_numpy(x).to(cuda_device)
-                          for x in (i2n, n2i, remain)))
+    ps = _port_state([g, g], cfg, cuda_device)
     for r, q in enumerate(reads[1:], start=1):
         if not g.is_topological_sorted:
             g.topological_sort(params)

@@ -1,0 +1,98 @@
+"""abpoa_tpu_torch stands alone: no module of the port, and not
+chip_smoke.py, imports the JAX package (abpoa_tpu) or JAX.
+
+* An AST scan of every abpoa_tpu_torch/**/*.py and chip_smoke.py finds
+  no such import statement and no importlib/__import__ call naming one.
+* A fresh interpreter that imports abpoa_tpu_torch and runs BatchPOA on
+  the CPU, through the device loop and through the round path, ends with
+  neither name in sys.modules.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"abpoa_tpu", "jax", "jaxlib"}
+SOURCES = sorted((ROOT / "abpoa_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def _bad_imports(path):
+    """(line, module) of every import of a forbidden package in `path`."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                if _forbidden(alias.name):
+                    yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                yield node.lineno, node.module
+        elif isinstance(node, ast.Call):
+            f = node.func
+            fname = f.attr if isinstance(f, ast.Attribute) else \
+                getattr(f, "id", "")
+            if fname in ("import_module", "__import__") and node.args:
+                a = node.args[0]
+                if isinstance(a, ast.Constant) and isinstance(a.value, str) \
+                        and _forbidden(a.value):
+                    yield node.lineno, a.value
+
+
+def test_no_import_of_the_jax_package_or_jax():
+    assert len(SOURCES) > 20
+    bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
+           for p in SOURCES for line, mod in _bad_imports(p)]
+    assert not bad, "\n".join(bad)
+
+
+def test_scan_finds_a_forbidden_import(tmp_path):
+    """The scan itself: each forbidden form is caught, the port's own
+    package name is not."""
+    src = tmp_path / "m.py"
+    src.write_text("import abpoa_tpu_torch.ops\n"
+                   "from abpoa_tpu_torch import BatchPOA\n"
+                   "from .params import Params\n"
+                   "import jax.numpy as jnp\n"
+                   "def f():\n"
+                   "    from abpoa_tpu.graph import POAGraph\n"
+                   "    importlib.import_module('jaxlib')\n")
+    assert sorted(m for _line, m in _bad_imports(src)) == \
+        ["abpoa_tpu.graph", "jax.numpy", "jaxlib"]
+
+
+RUN = """
+import sys
+import numpy as np
+from abpoa_tpu_torch import BatchPOA
+from abpoa_tpu_torch.alphabet import encode_table
+from abpoa_tpu_torch.params import Params, LOCAL_MODE
+from abpoa_tpu_torch.seqio import read_seqs
+tab = encode_table(5)
+reads = [tab[np.frombuffer(r.seq.encode(), dtype=np.uint8)]
+         for r in read_seqs(sys.argv[1])][:4]
+loop = BatchPOA(Params().post_set(), device="cpu")
+loop.run([reads, reads[1:]])
+p = Params()
+p.align_mode = LOCAL_MODE
+rounds = BatchPOA(p.post_set(), device="cpu")
+rounds.run([reads, reads[1:]])
+assert loop.used_device_loop and not rounds.used_device_loop
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("abpoa_tpu", "jax", "jaxlib")))
+"""
+
+
+def test_running_the_port_loads_neither_package():
+    out = subprocess.run(
+        [sys.executable, "-c", RUN, str(ROOT / "tests" / "data" / "seq.fa")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout

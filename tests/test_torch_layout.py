@@ -79,18 +79,23 @@ def test_sources_never_import_jax():
 
 
 def test_device_is_explicit():
+    """The card by default, the CPU only when asked for, and no silent
+    fallback from one to the other."""
     from abpoa_tpu_torch import resolve_device, BatchPOA
-    from abpoa_tpu.params import Params
+    from abpoa_tpu_torch.params import Params
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device(None)
-    with pytest.raises(TypeError):
-        BatchPOA(Params().post_set())   # no default device
+    assert BatchPOA(Params().post_set(), device="cpu").device.type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             resolve_device("cuda")
         with pytest.raises(RuntimeError):
             BatchPOA(Params().post_set(), device="cuda")
+        with pytest.raises(RuntimeError):
+            BatchPOA(Params().post_set())     # the default is the card
+    else:
+        assert BatchPOA(Params().post_set()).device.type == "cuda"
 
 
 def test_wrapper_rejects_other_devices():

@@ -1,0 +1,178 @@
+"""abpoa_tpu_torch: the round-based BatchPOA path (topo-mode band DP and
+full-width DP, plain versions on the CPU) end to end.
+
+* batch_msa_from_files and BatchPOA give the sanitized golden bytes of
+  the CLI configurations the device loop turns away, with the arguments
+  of tests/test_parity.py and tests/test_modes.py: -m 1 (local),
+  -m 2 (extend), -b -1 (unbanded), -c (protein).
+* -i list mode (every instance restores seq.gfa) equals the port's
+  serial ABPOA.msa_from_file per file, as tests/test_modes.py holds the
+  JAX package's batched list mode to its serial loop.
+* Routing: an eligible batch runs the device loop and launches no round
+  kernel; an ineligible one runs the rounds.
+* On a GPU: the same goldens through the kernels.
+Exact equality everywhere.
+"""
+import contextlib
+import io
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+TESTS = pathlib.Path(__file__).resolve().parent
+DATA = TESTS / "data"
+GOLDEN_SAN = TESTS / "golden_sanitized"
+
+torch.set_num_threads(1)
+
+# (golden, CLI arguments, input) of the round path's configurations
+ROUND_PARITY = [("seq_cons_local.fa", ["-m", "1"], "seq.fa"),
+                ("seq_cons_ext.fa", ["-m", "2"], "seq.fa"),
+                ("seq_cons_noband.fa", ["-b", "-1"], "seq.fa"),
+                ("prot_cons.fa", ["-c"], "prot.fa")]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _cli_params(args, monkeypatch):
+    """The port's Params for the JAX package CLI's parse of `args` (its
+    run step intercepted), carried across by convert.params."""
+    import abpoa_tpu.cli as cli
+    from abpoa_tpu_torch import convert
+    got = {}
+
+    def grab(params, in_list, pos, out):
+        got["params"] = params
+    monkeypatch.setattr(cli, "_run", grab)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cli.main(list(args) + [str(DATA / "seq.fa")])
+    return convert.params(got["params"])
+
+
+def _reads(fn, m=5):
+    from abpoa_tpu_torch.seqio import read_seqs
+    from abpoa_tpu_torch.alphabet import encode_table
+    tab = encode_table(m)
+    return [tab[np.frombuffer(r.seq.encode(), dtype=np.uint8)]
+            for r in read_seqs(str(DATA / fn))]
+
+
+def _list_mode(args, fn, n, device, monkeypatch):
+    from abpoa_tpu_torch import batch_msa_from_files
+    params = _cli_params(args, monkeypatch)
+    out = io.StringIO()
+    batch_msa_from_files(params, [str(DATA / fn)] * n, out, device=device)
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("golden,args,fn", ROUND_PARITY,
+                         ids=[c[0] for c in ROUND_PARITY])
+def test_round_list_mode_golden(golden, args, fn, monkeypatch):
+    """List mode over two copies of the input: golden bytes per file."""
+    assert _list_mode(args, fn, 2, "cpu", monkeypatch) \
+        == (GOLDEN_SAN / golden).read_text() * 2
+
+
+@pytest.mark.parametrize("golden,args,fn", ROUND_PARITY[:2],
+                         ids=[c[0] for c in ROUND_PARITY[:2]])
+def test_round_batch_consensus_golden(golden, args, fn, monkeypatch):
+    """BatchPOA.run_consensus over rotated read orders equals the port's
+    serial loop per instance, and the unrotated instance the golden;
+    a forced step-stream cap of 2 (every instance refetches) gives the
+    same bytes."""
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.consensus import generate_consensus
+    from abpoa_tpu_torch.alphabet import decode_table
+    params = _cli_params(args, monkeypatch)
+    reads = _reads(fn)
+    instances = [reads, reads[2:] + reads[:2], reads[::-1][:6]]
+    dt = decode_table(params.m)
+    exp = []
+    for inst in instances:
+        ab = ABPOA()
+        ab.n_seq = len(inst)
+        ab.names = [""] * len(inst)
+        ab.is_rc = [0] * len(inst)
+        ab.poa(params, inst, [[1] * len(q) for q in inst], 0)
+        generate_consensus(ab, params)
+        exp.append([bytes(dt[b] for b in s).decode()
+                    for s in ab.cons.cons_base[:ab.cons.n_cons]])
+    gold = (GOLDEN_SAN / golden).read_text().split("\n")[1]
+    assert exp[0] == [gold]
+    for cap in (None, 2):
+        bp = BatchPOA(params, device="cpu")
+        bp.s16_cap = cap
+        assert bp.run_consensus(instances) == exp
+        assert not bp.used_device_loop and bp.fallbacks == 0
+        assert bp.rounds == len(reads) - 1
+        assert bp.launches["band_dp_topo"] + bp.launches["fw_dp"] \
+            == bp.rounds
+
+
+def test_incremental_list_mode_equals_serial(monkeypatch):
+    """-i seq.gfa -r3 over 3 x seq.fa: the batched rounds equal the
+    port's serial msa_from_file per file, and its golden."""
+    from abpoa_tpu_torch.api import ABPOA
+    args = ["-i", str(GOLDEN_SAN / "seq.gfa"), "-r3"]
+    params = _cli_params(args, monkeypatch)
+    serial = io.StringIO()
+    for _ in range(3):
+        ABPOA().msa_from_file(params, str(DATA / "seq.fa"), serial)
+    batched = _list_mode(args, "seq.fa", 3, "cpu", monkeypatch)
+    assert batched == serial.getvalue()
+    assert batched == (GOLDEN_SAN / "seq_incr_gfa.gfa").read_text() * 3
+
+
+@pytest.mark.parametrize("mode", ["loop", "rounds"])
+def test_routing_by_eligibility(mode, monkeypatch):
+    """Global banded nucleotides go through the device loop (no round
+    kernel launched); local mode through the rounds (full-width kernel)."""
+    from abpoa_tpu_torch import BatchPOA
+    args = [] if mode == "loop" else ["-m", "1"]
+    params = _cli_params(args, monkeypatch)
+    reads = _reads("seq.fa")[:4]
+    bp = BatchPOA(params, device="cpu")
+    bp.run([reads, reads[1:]])
+    if mode == "loop":
+        assert bp.used_device_loop
+        assert bp.launches == {"band_dp_topo": 0, "fw_dp": 0}
+    else:
+        assert not bp.used_device_loop
+        assert bp.launches == {"band_dp_topo": 0, "fw_dp": 3}
+
+
+@pytest.mark.parametrize("what", ["qv", "seeded", "qv_list"])
+def test_still_out_of_scope_raises(what, monkeypatch):
+    from abpoa_tpu_torch import BatchPOA, batch_msa_from_files
+    reads = _reads("seq.fa")[:3]
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        if what == "qv":
+            params = _cli_params([], monkeypatch)
+            BatchPOA(params, device="cpu").run(
+                [reads], weights=[[[1] * len(q) for q in reads]])
+        elif what == "seeded":
+            params = _cli_params(["-S"], monkeypatch)
+            batch_msa_from_files(params, [str(DATA / "seq.fa")],
+                                 io.StringIO(), device="cpu")
+        else:
+            params = _cli_params(["-Q"], monkeypatch)
+            batch_msa_from_files(params, [str(DATA / "seq.fq")],
+                                 io.StringIO(), device="cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("golden,args,fn", ROUND_PARITY,
+                         ids=[c[0] for c in ROUND_PARITY])
+def test_round_list_mode_golden_on_gpu(golden, args, fn, monkeypatch,
+                                       cuda_device):
+    assert _list_mode(args, fn, 4, "cuda", monkeypatch) \
+        == (GOLDEN_SAN / golden).read_text() * 4

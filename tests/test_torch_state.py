@@ -130,7 +130,7 @@ def test_scal_qpf_qp4_equal_jax(gaps):
     tc = tc._replace(gap_mode=params.gap_mode)
     st, i2n, n2i, remain = _random_state(jc, 7)
     jbase = pls.make_scal_base(params, jc)
-    tbase = tpl.make_scal_base(params, tc)
+    tbase = tpl.make_scal_base(convert.params(params), tc)
     assert (jbase == tbase).all()
     rng = np.random.default_rng(3)
     qc = rng.integers(0, 5, (2, jc.B, jc.Wq)).astype(np.int8)
@@ -154,24 +154,28 @@ def test_scal_qpf_qp4_equal_jax(gaps):
 
 
 def test_init_state_np_equal_jax():
+    """Each package's init_state_np of its own graphs of the same reads
+    (the second over capacity: fail flag, clipped node_n)."""
+    from abpoa_tpu.graph import POAGraph as JGraph
     from abpoa_tpu.ops import poa_loop as pls
+    from abpoa_tpu_torch import convert
+    from abpoa_tpu_torch.graph import POAGraph as TGraph
     from abpoa_tpu_torch.ops import poa_loop as tpl
     jc, tc = _cfgs(R=1024, B=2, Wq=1152)
-    from abpoa_tpu.graph import POAGraph
     params = Params().post_set()
-    graphs = []
-    for q in _reads("heter.fa", 2):
-        g = POAGraph()
-        g.add_graph_alignment(params, q, [1] * len(q), [], None, 0, True)
-        g.topological_sort(params)
-        graphs.append(g)
-    big = POAGraph()          # over capacity: fail flag, clipped node_n
-    q = np.tile(_reads("heter.fa", 1)[0], 2)
-    big.add_graph_alignment(params, q, [1] * len(q), [], None, 0, True)
-    big.topological_sort(params)
-    graphs[1] = big
-    a = pls.init_state_np(graphs, jc)
-    b = tpl.init_state_np(graphs, tc._replace(B=2))
+    reads = [_reads("heter.fa", 1)[0], np.tile(_reads("heter.fa", 1)[0], 2)]
+
+    def graphs(POAGraph, p):
+        out = []
+        for q in reads:
+            g = POAGraph()
+            g.add_graph_alignment(p, q, [1] * len(q), [], None, 0, True)
+            g.topological_sort(p)
+            out.append(g)
+        return out
+    a = pls.init_state_np(graphs(JGraph, params), jc)
+    b = tpl.init_state_np(graphs(TGraph, convert.params(params)),
+                          tc._replace(B=2))
     for x, y in zip(jax_flat(a), jax_flat(b)):
         assert (x == y).all()
     assert b[0].fail.tolist() == [0, 1]

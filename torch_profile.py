@@ -1,0 +1,223 @@
+#!/usr/bin/env python3
+"""Where the time of abpoa_tpu_torch's BatchPOA goes, on one GPU.
+
+    python torch_profile.py [--n-inst 64] [--reps 3]
+
+For each path of the port over N x tests/data/heter.fa -- the device
+loop (default parameters), the round path with -m 1 (full-width DP
+kernel) and with -m 2 (topo-mode band DP kernel) -- after one warm-up
+run (which also builds the kernels):
+  * e2e seconds of run_consensus, median of --reps runs (host clock
+    around a run that ends in torch.cuda.synchronize());
+  * the wall seconds of each host phase of one more run, timed on the
+    calling thread around the port's own functions: aligner set-up,
+    per-round sort + export (on the host pool), re-pad, dispatch plan
+    (make_pallas_inputs), the device phases (upload, kernel, fetch:
+    BatchPOA.dp_intervals), step-stream fusion, consensus; for the
+    device loop, state build + enqueue and the replay;
+  * torch.profiler over one more run: device time and launches per
+    kernel, device busy time (the union of all device intervals, copies
+    included) and the device's idle share of that run.
+Prints one line per measurement, then one JSON object per path. Needs
+CUDA: exits 2 without it.
+"""
+import argparse
+import contextlib
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+HETER = ROOT / "tests" / "data" / "heter.fa"
+
+
+def say(*a):
+    print(*a, flush=True)
+
+
+class PhaseTimer:
+    """Wall seconds per phase name, accumulated by wrapped callables."""
+
+    def __init__(self):
+        self.s = {}
+        self._undo = []
+
+    def add(self, key, dt):
+        self.s[key] = self.s.get(key, 0.0) + dt
+
+    def wrap(self, owner, attr, key):
+        fn = getattr(owner, attr)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.add(key, time.perf_counter() - t0)
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self):
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo.clear()
+
+
+class TimedPool:
+    """The host pool, with the maps of the phases it runs outside the
+    wrapped functions timed (sort + export, consensus)."""
+    NAMES = {"sort_export": "sort + export", "cons_one": "consensus"}
+
+    def __init__(self, pool, timer):
+        self.pool, self.timer = pool, timer
+
+    def map(self, fn, *its):
+        t0 = time.perf_counter()
+        out = list(self.pool.map(fn, *its))
+        if fn.__name__ in self.NAMES:
+            self.timer.add(self.NAMES[fn.__name__],
+                           time.perf_counter() - t0)
+        return out
+
+    def submit(self, *a, **k):
+        return self.pool.submit(*a, **k)
+
+
+@contextlib.contextmanager
+def phases(timer):
+    from abpoa_tpu_torch.parallel import batch as B
+    from abpoa_tpu_torch.align import export as X
+    orig, pool = B._host_pool, B._host_pool()
+    B._host_pool = lambda: TimedPool(pool, timer)
+    timer.wrap(B, "_make_aligners", "aligners")
+    timer.wrap(X, "repad_dense", "repad")
+    timer.wrap(B, "round_plan", "plan (make_pallas_inputs)")
+    timer.wrap(B._Rounds, "_collect", "fusion (_collect)")
+    timer.wrap(B._DeviceLoop, "_launch", "state build + enqueue")
+    timer.wrap(B._DeviceLoop, "_replay", "replay (+ consensus)")
+    try:
+        yield
+    finally:
+        timer.restore()
+        B._host_pool = orig
+
+
+def run_once(make_bp, insts):
+    import torch
+    bp = make_bp()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cons = bp.run_consensus(insts)
+    torch.cuda.synchronize()
+    return bp, cons, time.perf_counter() - t0
+
+
+def union(intervals):
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profile_path(name, make_bp, insts, reps, card):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _bp, cons0, warm = run_once(make_bp, insts)
+    e2e = [run_once(make_bp, insts)[2] for _ in range(reps)]
+    med = statistics.median(e2e)
+    timer = PhaseTimer()
+    with phases(timer):
+        bp, cons, t_ph = run_once(make_bp, insts)
+    if cons != cons0:
+        raise SystemExit(f"FAILED: {name}: runs disagree")
+    ph = dict(timer.s)
+    # the round path's device phases are upload + kernel + fetch; the
+    # device loop's also hold its state build and enqueue
+    ph["device phases"] = bp.dp_busy_seconds()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _b, _c, t_prof = run_once(make_bp, insts)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = {}
+    for e in dev:
+        k = kern.setdefault(e.name, [0.0, 0])
+        k[0] += (e.time_range.end - e.time_range.start) / 1e3
+        k[1] += 1
+    busy = union((e.time_range.start, e.time_range.end) for e in dev) / 1e6
+    rec = {"path": name, "card": card, "n_inst": len(insts),
+           "warmup_s": warm, "e2e_s": e2e, "e2e_median_s": med,
+           "rounds": bp.rounds, "launches": bp.launches,
+           "fallbacks": bp.fallbacks, "dp_cells": bp.dp_cells,
+           "dp_cells_per_s": bp.dp_cells / med,
+           "phase_run_s": t_ph, "phases_s": ph,
+           "profiled_run_s": t_prof, "device_busy_s": busy,
+           "device_idle_share": 1 - busy / t_prof,
+           "device_ms_by_kernel": {k: {"ms": v[0], "n": v[1]}
+                                   for k, v in sorted(
+                                       kern.items(), key=lambda kv: -kv[1][0])
+                                   if v[0] >= 0.05}}
+    say(f"{name}: e2e {med:.4f} s median of {reps} "
+        f"{[round(x, 4) for x in e2e]} (warm-up {warm:.4f} s), "
+        f"{bp.rounds} rounds, fallbacks {bp.fallbacks}, "
+        f"{bp.dp_cells / med:.1f} DP cells/s")
+    say(f"{name}: phases of one run of {t_ph:.4f} s: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])))
+    say(f"{name}: profiled run {t_prof:.4f} s, device busy {busy:.4f} s, "
+        f"idle {100 * (1 - busy / t_prof):.1f} %")
+    for k, v in list(rec["device_ms_by_kernel"].items())[:6]:
+        say(f"{name}:   {v['ms']:.3f} ms over {v['n']} x {k[:70]}")
+    return rec
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n-inst", type=int, default=64)
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("FAILED: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.alphabet import encode_table
+    from abpoa_tpu_torch.params import (Params, GLOBAL_MODE, LOCAL_MODE,
+                                        EXTEND_MODE)
+    from abpoa_tpu_torch.seqio import read_seqs
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True
+                          ).stdout.strip().splitlines()[0]
+    say(card)
+    tab = encode_table(5)
+    heter = [tab[np.frombuffer(r.seq.encode(), dtype=np.uint8)]
+             for r in read_seqs(str(HETER))]
+    insts = [heter] * args.n_inst
+
+    def maker(mode):
+        def make():
+            p = Params()
+            p.align_mode = mode
+            return BatchPOA(p.post_set(), device="cuda")
+        return make
+    recs = [profile_path(name, maker(mode), insts, args.reps, card)
+            for name, mode in (("device loop", GLOBAL_MODE),
+                               ("rounds -m 1", LOCAL_MODE),
+                               ("rounds -m 2", EXTEND_MODE))]
+    for r in recs:
+        say(json.dumps(r))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
