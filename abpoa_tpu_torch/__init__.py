@@ -17,8 +17,12 @@ by ``BatchPOA`` (``parallel/``) on two paths:
   * the round-based path (topo-mode band DP or full-width DP per round)
     for local (``-m 1``), extend (``-m 2``), unbanded (``-b -1``),
     protein (``-c``), incremental (``-i``) and 32-bit-score batches.
+The serial device engine (``align/engine_torch.py``) aligns one read at a
+time on the card for the CLI (``cli.py``) and ``pyabpoa.py``.
 """
 from .device import resolve_device
 from .parallel.batch import BatchPOA, batch_msa_from_files
+
+__version__ = "0.1.0"
 
 __all__ = ["BatchPOA", "batch_msa_from_files", "resolve_device"]

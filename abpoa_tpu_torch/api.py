@@ -184,8 +184,8 @@ class ABPOA:
             elif params.out_cons:
                 output_fx_consensus(self, params, out)
         if params.out_pog:
-            raise NotImplementedError("graph plots (-g) are not ported yet: "
-                                      "ROADMAP A8")
+            from .plot import dump_pog
+            dump_pog(self, params)
 
     def msa(self, params: Params, seqs, out=None, names=None, quals=None):
         """ref abpoa_msa (src/abpoa_align.c:373-437).

@@ -19,8 +19,10 @@ from .params import Params
 
 def params(p) -> Params:
     """A JAX-package ``Params`` -> the port's, field by field (the
-    derived score matrix is copied, so the two never share state)."""
-    kw = {f.name: getattr(p, f.name) for f in dataclasses.fields(Params)}
+    derived score matrix is copied, so the two never share state); a
+    field of the port's alone (``device``) keeps its default."""
+    kw = {f.name: getattr(p, f.name) for f in dataclasses.fields(Params)
+          if hasattr(p, f.name)}
     if kw["mat"] is not None:
         kw["mat"] = np.array(kw["mat"], copy=True)
     return Params(**kw)

@@ -41,6 +41,12 @@ SOURCES = {
     "fw_dp": {
         "fw_dp_launch": [_vp] * 22 + [_int] * 12 + [_vp],
     },
+    "tile_dp": {
+        "tile_dp_launch": [_vp] * 21 + [_int] * 12 + [_vp],
+    },
+    "topo": {
+        "topo_launch": [_vp] * 10 + [_int] * 4 + [_vp],
+    },
 }
 
 _lock = threading.Lock()

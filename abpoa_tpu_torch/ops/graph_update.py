@@ -131,22 +131,29 @@ def _scatter(flat, idx, val, valid, add=False):
 def fuse_ref(cfg: LoopConfig, st: GState, i2n, s16w, misc, qlen, qcodes):
     """Vectorized fusion of one round's wire stream into the graph state.
     Returns (GState, inst_ok [B], fusion_fail [B])."""
-    B, R, E, P, A = st.bases.shape[0], cfg.R, cfg.E, cfg.P, cfg.A
-    dev = st.bases.device
     LS = 2 * s16w.shape[1]
-    LF = LS
     halves = s16w.contiguous().view(torch.int16).to(I32) & 0xFFFF
     nst = misc[:, L.M_NSTEPS]
-    ej = misc[:, L.M_ENDJ].clamp(min=0)
-    bj = misc[:, L.M_BJ]
-    bad = (misc[:, L.M_OVFL] | misc[:, L.M_FAIL]) > 0
-    kk = torch.arange(LS, dtype=I32, device=dev)[None, :]
+    kk = torch.arange(LS, dtype=I32, device=st.bases.device)[None, :]
     # topo row of push-order step k: the walk's last row (M_LASTI) plus
     # the row decrements of the steps pushed after k
     di = torch.where(kk < nst[:, None], halves >> 3, 0)
     suffix = di.flip(1).cumsum(1).flip(1)
     rows = misc[:, L.M_LASTI:L.M_LASTI + 1] + suffix - di
-    ops = halves & 3
+    return fuse_steps_ref(cfg, st, i2n, halves & 3, rows, misc, qlen, qcodes)
+
+
+def fuse_steps_ref(cfg: LoopConfig, st: GState, i2n, ops, rows, misc, qlen,
+                   qcodes):
+    """The fusion proper, from each push-order step's op code and topo row
+    ([B, LS]). Returns (GState, inst_ok [B], fusion_fail [B])."""
+    B, R, E, P, A = st.bases.shape[0], cfg.R, cfg.E, cfg.P, cfg.A
+    dev = st.bases.device
+    LS = LF = ops.shape[1]
+    nst = misc[:, L.M_NSTEPS]
+    ej = misc[:, L.M_ENDJ].clamp(min=0)
+    bj = misc[:, L.M_BJ]
+    bad = (misc[:, L.M_OVFL] | misc[:, L.M_FAIL]) > 0
 
     lead = ej
     trail = (qlen - bj).clamp(min=0)

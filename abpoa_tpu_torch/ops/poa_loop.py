@@ -15,6 +15,11 @@ Semantics replicated bit-exactly (all orders are byte-parity-critical):
 fusion ref src/abpoa_graph.c:596-672 (native/poagraph.c pg_fuse_steps),
 Kahn FIFO with aligned grouping ref :186-231, max_remain ref :233-274.
 
+``device_round(split=True)`` runs one round in the split form instead:
+the topo-mode band DP, the vectorized fusion (``fuse_batch``), the
+standalone Kahn sort (``ops/topo.py``) and ``remain_ref``; it is the
+second implementation the packed round is held against.
+
 Scope: global mode, banded, m == 5, unit weights, any gap mode. The
 qv-weight variant (``wmode=1``) of the JAX package is not ported yet.
 """
@@ -287,7 +292,99 @@ def poa_device_loop(cfg: LoopConfig, st0: GState, i2n0, n2i0, remain0,
     return ps, misc, s16w
 
 
+# ------------------------------------------------------------------ #
+# the split form of one round: topo-mode band DP, vectorized fusion,
+# standalone Kahn sort, max_remain (the second implementation of the
+# round, held against the packed two-kernel form)
+
+def fuse_batch(cfg: LoopConfig, st: GState, i2n, steps, misc, qcodes, qlen):
+    """Fuse one round's int32 step streams (op|row<<2|col<<14 in push
+    order, rows in topo space) into the graph state, with the plain graph
+    update's vectorized fusion. Instances whose round was bad (overflow,
+    walk failure) or whose fusion overran a capacity set the sticky fail
+    flag and keep their graph."""
+    from .graph_update import fuse_steps_ref
+    steps, misc, qlen = steps.to(I32), misc.to(I32), qlen.to(I32)
+    st2, inst_ok, fusion_fail = fuse_steps_ref(
+        cfg, st, i2n.to(I32), steps & 3, (steps >> 2) & 0xFFF, misc, qlen,
+        qcodes.to(I32) & 0xFF)
+    bad = (misc[:, L.M_OVFL] | misc[:, L.M_FAIL]) > 0
+    fail = (st.fail > 0) | (inst_ok & fusion_fail) | (bad & (qlen > 0))
+    return st2._replace(fail=fail.to(I32))
+
+
+def build_dp_inputs(cfg: LoopConfig, st: GState, i2n, n2i, remain, qlen,
+                    scal_base, wb: int, wf1000: int):
+    """The topo-mode band kernel's inputs of one round, gathered from the
+    graph state in topo order (the export of ``align/export.py`` on the
+    device). Returns (scal [B, S_NSCAL + m*m], bases, pre_idx [B, R, P],
+    pre_n, remain) by topo row; rows past node_n are 0. The state is
+    int32."""
+    from .graph_update import _take
+    B, R, P = st.bases.shape[0], cfg.R, cfg.P
+    dev = st.bases.device
+    t = torch.arange(R, dtype=I32, device=dev)[None, :]
+    live = t < st.node_n[:, None]
+    nid = torch.where(live, i2n.to(I32), 0)
+    bases_row = torch.where(live, _take(st.bases, nid), 0)
+    pre_nn = torch.where(live, _take(st.n_in, nid), 0)
+    pre_raw = st.in_ids.gather(
+        1, nid.clamp(0, R - 1).long()[:, :, None].expand(B, R, P))
+    pre_top = _take(n2i.to(I32), pre_raw.reshape(B, R * P)).reshape(B, R, P)
+    p_iota = torch.arange(P, dtype=I32, device=dev)[None, None, :]
+    pre_idx = torch.where(live[:, :, None] & (p_iota < pre_nn[:, :, None]),
+                          pre_top, 0)
+    remain_row = torch.where(live, _take(remain.to(I32), nid), 0)
+    qlen = qlen.to(I32)
+    scal = scal_base.to(I32)[None, :].expand(B, -1).clone()
+    scal[:, L.S_W] = wb + (wf1000 * qlen) // 1000
+    scal[:, L.S_QLEN] = qlen
+    scal[:, L.S_NROWS] = st.node_n
+    scal[:, L.S_DPSN] = qlen // cfg.pn + 1
+    scal[:, L.S_REMEND] = _take(remain_row, st.node_n[:, None] - 1)[:, 0]
+    return scal, bases_row, pre_idx, pre_nn, remain_row
+
+
+def device_round(cfg: LoopConfig, st: GState, i2n, n2i, remain, qcodes,
+                 qlen, scal_base, wb: int, wf1000: int, split: bool = False):
+    """One POA round on the GState API. split=False runs the packed
+    two-kernel route the device loop runs (band DP in node-id mode + the
+    graph update); split=True runs the split route: topo-mode band DP
+    (fresh band state), ``fuse_batch``, the standalone Kahn sort
+    (``ops/topo.py``) and ``remain_ref``, with a failed sort setting
+    the fail flag. Returns (GState, i2n, n2i, remain, misc, steps16)."""
+    from .band_dp import band_poa_dp_batch, build_qpf
+    from .graph_update import remain_ref
+    from .topo import topo_batch
+    bc = band_config(cfg)
+    if not split:
+        ps = pack_state(cfg, st, i2n, n2i, remain)
+        qpf = build_qpf(bc, scal_base[L.S_NSCAL:], qcodes)
+        qp4 = pack_qp4(cfg, qcodes)
+        ps2, misc, s16w = device_round_packed(cfg, ps, qlen, qpf, qp4,
+                                              scal_base, wb, wf1000)
+        st2, i2n2, n2i2, remain2 = unpack_state(cfg, ps2)
+        return st2, i2n2, n2i2, remain2, misc, s16w_to_s16(s16w)
+    B, R, P = st.bases.shape[0], cfg.R, cfg.P
+    scal, bases_row, pre_idx, pre_nn, remain_row = build_dp_inputs(
+        cfg, st, i2n, n2i, remain, qlen, scal_base, wb, wf1000)
+    # fresh band state and an all-ones rowmask: the kernel synthesises
+    # them, so those inputs (and the unused out-edges) are dummies
+    dummy = torch.zeros(B, 1, dtype=torch.int8, device=bases_row.device)
+    out = band_poa_dp_batch(
+        bc._replace(nid=False), scal, bases_row.to(torch.int8),
+        pre_idx.reshape(B, R * P).to(torch.int16), pre_nn.to(torch.int8),
+        dummy, dummy, remain_row.to(torch.int16), qcodes.to(torch.int8),
+        dummy, dummy, dummy)
+    st2 = fuse_batch(cfg, st, i2n, out.steps, out.misc, qcodes, qlen)
+    i2n2, n2i2, ok = topo_batch(cfg, st2)
+    fail = (st2.fail > 0) | (~ok & (qlen.to(I32) > 0))
+    st2 = st2._replace(fail=fail.to(I32))
+    return st2, i2n2, n2i2, remain_ref(cfg, st2), out.misc, out.steps16
+
+
 __all__ = ["LoopConfig", "GState", "PackedState", "pack_state",
            "unpack_state", "s16w_to_s16", "pack_qp4", "init_state_np",
            "make_scal_base", "build_scal", "device_round_packed",
-           "poa_device_loop"]
+           "poa_device_loop", "fuse_batch", "build_dp_inputs",
+           "device_round"]

@@ -19,8 +19,9 @@ two paths, decided by eligibility alone:
   groups the instances by score width, and one DP kernel per group runs
   the DP and the walk on the device: the topo-mode band kernel
   (``ops/band_dp.py``) when the band fits a block, else the full-width
-  kernel (``ops/fw_dp.py``) when its planes fit the memory budget. The
-  host fuses the step streams.
+  kernel (``ops/fw_dp.py``) when its planes fit the memory budget, else
+  the banded-tile kernel (``ops/tile_dp.py``). The host fuses the step
+  streams.
 
 An instance whose device result is unusable (band overflow, walk dead
 end, graph capacity) is rebuilt on the bit-exact oracle: that is the
@@ -168,10 +169,11 @@ def _plane_budget(dev) -> int:
 
 class RoundPlan(NamedTuple):
     """How one round's score-width group runs on the device."""
-    band: bool        # topo-mode band kernel (else the full-width kernel)
-    name: str         # "band_dp_topo" or "fw_dp"
-    kernel: object    # band_poa_dp_batch or fw_poa_dp_batch
-    cfg: object       # its BandConfig / FWConfig
+    band: bool        # topo-mode band kernel (steps16 out; else int32 steps)
+    name: str         # "band_dp_topo", "fw_dp" or "tile_dp"
+    kernel: object    # band_poa_dp_batch, fw_poa_dp_batch or
+    #                   tile_poa_dp_batch
+    cfg: object       # its BandConfig / FWConfig / PallasDPConfig
     arrs: list        # per instance, the make_pallas_inputs tuple
     chunk: int        # instances per launch (the plane-memory budget)
     step_cap: int     # step-stream fetch cap
@@ -187,9 +189,12 @@ def round_plan(params, dgs, dev) -> RoundPlan:
     one geometry): the topo-mode band kernel when the band fits a block
     (at most 1024 lanes, 16 predecessor slots and the shared memory of
     ``band_smem_bytes``); else the full-width kernel when one instance's
-    planes fit the memory budget (``_plane_budget``); else raise."""
+    planes fit the memory budget (``_plane_budget``); else the
+    banded-tile kernel, whose [R, WB] tiles are chunked to the same
+    budget (an instance whose band outgrows its tile goes to the oracle
+    through M_OVFL)."""
     from ..align.export import make_pallas_inputs, pick_WB
-    from ..ops import band_dp, fw_dp
+    from ..ops import band_dp, fw_dp, tile_dp
     R = dgs[0].R
     P_ = max(d.P for d in dgs)
     WB = max(pick_WB(params, dg.qlen, dg.pn) for dg in dgs)
@@ -208,6 +213,7 @@ def round_plan(params, dgs, dev) -> RoundPlan:
     made = [make_pallas_inputs(dg, params, WB, force_Wq=WqB if band else Wq,
                                bt_lmax=LMAX) for dg in dgs]
     c0 = made[0][0]
+    budget = _plane_budget(dev)
     if band:
         cfg = band_dp.BandConfig(
             gap_mode=c0.gap_mode, pn=c0.pn, R=R, WB=WB, Wq=WqB, P=P_,
@@ -221,13 +227,17 @@ def round_plan(params, dgs, dev) -> RoundPlan:
                              banded=params.wb >= 0)
         per = fw_dp.fw_plane_bytes(cfg)
         kernel, name = fw_dp.fw_poa_dp_batch, "fw_dp"
-    chunk = _plane_budget(dev) // per
+        if per > budget:
+            cfg = c0
+            per = tile_dp.tile_plane_bytes(cfg)
+            kernel, name = tile_dp.tile_poa_dp_batch, "tile_dp"
+    chunk = budget // per
     if chunk < 1:
         raise NotImplementedError(
             f"a round whose band does not fit a block (WB={WB}, R={R}, "
-            f"P={P_}) and whose full-width planes ({per} bytes) exceed the "
-            "memory budget runs on the v1 banded-tile kernel, not ported "
-            "yet: ROADMAP B5 (with A8)")
+            f"P={P_}) and whose tiles ({per} bytes an instance) exceed "
+            "the memory budget needs the XLA tier of the JAX package, not "
+            "ported yet: ROADMAP A6")
     # adaptive fetch cap: the walk is bounded by rows + qlen, but the
     # typical path is ~qlen + a few deletions; the rare longer stream is
     # refetched from the device tensor
@@ -258,7 +268,8 @@ class BatchPOA:
         self.fallbacks = 0         # instances rebuilt on the oracle
         self.rounds = 0
         self.used_device_loop = False
-        self.launches = {"band_dp_topo": 0, "fw_dp": 0}  # round-path plan
+        self.launches = {"band_dp_topo": 0, "fw_dp": 0,  # round-path plan
+                         "tile_dp": 0}
         self.precompute_cons = False   # consensus inside the replay pool
         self.s16_cap = None        # forced step-stream fetch cap (tests:
         #                            exercises the over-cap refetch)

@@ -95,8 +95,13 @@ class Params:
     max_mat: int = 0
     min_mis: int = 0
 
-    # engine selection for the DP: "numpy" (exact host oracle) or "tpu"
+    # engine of the serial DP: "numpy" or "auto" (the exact host oracle)
+    # or "torch" (the device engine, align/engine_torch.py); post_set
+    # reads "jax" as "torch", so the JAX package's command lines run
     engine: str = "auto"
+    # the device engine's device: "cuda" (the kernels) or "cpu" (their
+    # plain versions)
+    device: str = "cuda"
 
     def set_gap_mode(self):
         # ref src/abpoa_align.c:87-91
@@ -153,6 +158,11 @@ class Params:
     def post_set(self):
         """ref abpoa_post_set_para (src/abpoa_align.c:143-168)."""
         self.set_gap_mode()
+        if self.engine == "jax":
+            self.engine = "torch"
+        if self.engine not in ("numpy", "torch", "auto"):
+            raise ValueError(f"unknown engine: {self.engine} "
+                             "(expected torch|jax|numpy|auto)")
         if self.out_msa or self.out_gfa or self.max_n_cons > 1:
             self.use_read_ids = True
         if self.align_mode == LOCAL_MODE:

@@ -16,6 +16,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
      the topo-mode band DP in extend mode with z-drop (heter.fa) and in
      global protein mode (prot.fa, -c), the full-width DP in local mode
      and in unbanded global mode (heter.fa); times of each
+  3c. the banded-tile DP (B5) vs plain on the serial engine's inputs:
+     heter.fa round 14 (B=1, global convex), extend mode with z-drop 100
+     (B=8), and a tile forced too narrow (M_OVFL); misc, steps, band
+     state and every tile bit-equal; times of each
   4. device loop -- BatchPOA(device="cuda").run_consensus over
      64 x heter.fa: golden consensus bytes, no oracle fallback, every
      round through both kernels (launch counts); e2e seconds, DP cells/s
@@ -28,6 +32,19 @@ Phases (each prints its own lines; any failed check exits non-zero):
   7. round-path list mode -- 4 x seq.fa with -m 1, -m 2, -b -1 and
      4 x prot.fa with -c give their goldens 4 times; -i seq.gfa equals
      the port's serial output
+  8. CLI serial engine on the card -- python -m abpoa_tpu_torch.cli's
+     main with default flags on heter.fa, seq.fa -r2, seq.fa -m 1 and
+     heter.fa -d2: golden bytes, B5 launched once per read after the
+     first on banded runs, B4 once per B5 result re-run there (M_OVFL or
+     M_FAIL) and once per read after the first with -m 1; e2e median of 3
+  9. CLI list mode -- -l over 64 x heter.fa: golden bytes 64 times
+     through the device loop (one launch of B1 and B2 per round and
+     sub-batch)
+  10. split device round -- 8 rotated heter.fa instances, every round
+     through device_round(split=True) (topo band DP, fusion, the
+     standalone Kahn sort B6, remain) and split=False (the packed
+     two-kernel round): identical graph state, topo maps and remain; then
+     B6 vs plain on each round's state, bit-equal; times
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -84,9 +101,12 @@ def wrappers():
                                              band_poa_dp_batch)
     from abpoa_tpu_torch.ops.fw_dp import fw_poa_dp_batch
     from abpoa_tpu_torch.ops.graph_update import graph_update_packed
+    from abpoa_tpu_torch.ops.tile_dp import tile_poa_dp_batch
+    from abpoa_tpu_torch.ops.topo import topo_batch
     return {"band_dp": band_poa_dp_packed,
             "graph_update": graph_update_packed,
-            "band_dp_topo": band_poa_dp_batch, "fw_dp": fw_poa_dp_batch}
+            "band_dp_topo": band_poa_dp_batch, "fw_dp": fw_poa_dp_batch,
+            "tile_dp": tile_poa_dp_batch, "topo": topo_batch}
 
 
 def reset_launches():
@@ -267,15 +287,13 @@ def kernel_phase(dev, heter):
     return rec
 
 
-def round_inputs(dev, params, insts, k):
-    """The round path's plan and stacked inputs of round k (read k
-    against the oracle-fused graph of reads < k) of each instance."""
+def round_exports(params, insts, k):
+    """The exports of round k (read k against the oracle-fused graph of
+    reads < k) of each instance, re-padded to one geometry."""
     from abpoa_tpu_torch.align.engine_np import align_sequence_to_subgraph
     from abpoa_tpu_torch.align.export import export_dense, repad_dense
     from abpoa_tpu_torch.graph import NativeGraph, POAGraph
     from abpoa_tpu_torch.params import SRC_NODE_ID, SINK_NODE_ID
-    from abpoa_tpu_torch.parallel.batch import round_plan
-    import torch
     dgs = []
     for reads in insts:
         if NativeGraph.available():
@@ -298,7 +316,14 @@ def round_inputs(dev, params, insts, k):
     W = max(d.W for d in dgs)
     P = max(d.P for d in dgs)
     O = max(d.O for d in dgs)
-    dgs = [repad_dense(d, R, W, P, O) for d in dgs]
+    return [repad_dense(d, R, W, P, O) for d in dgs]
+
+
+def round_inputs(dev, params, insts, k):
+    """The round path's plan and stacked inputs of round k of each
+    instance."""
+    from abpoa_tpu_torch.parallel.batch import round_plan
+    dgs = round_exports(params, insts, k)
     plan = round_plan(params, dgs, dev)
     return plan, plan.stack(slice(None), dev), [d.n_rows for d in dgs]
 
@@ -469,6 +494,248 @@ def round_list_phase(dev):
     say("list mode -i seq.gfa -r3: 4 x seq.fa == serial output")
 
 
+def tile_inputs(params, insts, k, WB=None):
+    """The serial engine's B5 inputs of round k of each instance
+    (align/engine_torch.py: export_dense, pick_WB, make_pallas_inputs
+    with the walk bound), stacked over the instances."""
+    import numpy as np
+    from abpoa_tpu_torch.align.export import make_pallas_inputs, pick_WB
+    dgs = round_exports(params, insts, k)
+    Wq = max((d.qlen // 128 + 1) * 128 for d in dgs)
+    lmax = (dgs[0].R + Wq + 511) // 512 * 512
+    WB = WB or max(pick_WB(params, d.qlen, d.pn) for d in dgs)
+    made = [make_pallas_inputs(d, params, WB, force_Wq=Wq, bt_lmax=lmax)
+            for d in dgs]
+    arrs = [np.stack([m[1][i] for m in made]) for i in range(10)]
+    return made[0][0], arrs, [d.n_rows for d in dgs]
+
+
+def tile_kernel_phase(dev, heter):
+    """B5 against its plain version on the serial engine's inputs."""
+    import torch
+    from abpoa_tpu_torch.params import Params, EXTEND_MODE
+    from abpoa_tpu_torch.ops import tile_dp as td
+    from abpoa_tpu_torch.ops import layout as L
+
+    def mk(**kw):
+        p = Params()
+        for key, v in kw.items():
+            setattr(p, key, v)
+        return p.post_set()
+    rot = [heter[b:] + heter[:b] for b in range(N_CMP)]
+    last = len(heter) - 1
+    cases = [("global convex, heter round 14, B=1", mk(), [heter], last,
+              None),
+             ("extend, z-drop 100, heter round 4, B=8",
+              mk(align_mode=EXTEND_MODE, zdrop=100), rot, 4, None),
+             ("tile forced to 2 segments (M_OVFL), heter round 14, B=1",
+              mk(), [heter], last, 64)]
+    rec = {"max_abs_err": 0}
+    for what, params, insts, k, WB in cases:
+        cfg, arrs, nrows = tile_inputs(params, insts, k, WB)
+        args = [torch.from_numpy(a).to(dev) for a in arrs]
+        out = td.tile_poa_dp_batch(cfg, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp = td.tile_poa_dp_batch_ref(cfg, *args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        dm = int((out.misc[:, :L.M_LASTI]
+                  - exp.misc[:, :L.M_LASTI]).abs().max())
+        for b in range(len(insts)):
+            ns = int(exp.misc[b, L.M_NSTEPS])
+            if ns:
+                dm = max(dm, int((out.steps[b, :ns]
+                                  - exp.steps[b, :ns]).abs().max()))
+        for f in ("beg_sn", "end_sn", "mpl", "mpr", "Hb", "E1b", "E2b",
+                  "F1b", "F2b"):
+            dm = max(dm, int((getattr(out, f)
+                              - getattr(exp, f)).abs().max()))
+        ovfl = int(exp.misc[:, L.M_OVFL].sum())
+        check(dm == 0, f"{what}: tile_dp kernel != plain (max |d| {dm})")
+        check((ovfl > 0) == (WB is not None),
+              f"{what}: {ovfl} overflow results")
+        check(WB is not None or not exp.misc[:, L.M_FAIL].any(),
+              f"{what}: walk failed")
+        ms = cuda_ms(lambda: (lambda: td.tile_poa_dp_batch(cfg, *args)), 20)
+        cells = int(exp.misc[:, L.M_CELLS].sum())
+        bms, bby = bound(nbytes(*args, *out),
+                         cells * OPS_PER_CELL[params.gap_mode])
+        say(f"kernels: tile_dp == plain ({what}; R={cfg.R}, WB={cfg.WB}, "
+            f"{int(exp.misc[:, L.M_NSTEPS].sum())} steps, {cells} cells, "
+            f"M_OVFL {ovfl}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bms:.6f} ms ({bby})")
+        rec["max_abs_err"] = max(rec["max_abs_err"], dm)
+        if "ms" not in rec:    # the serial engine's own case is recorded
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby)
+    return {"tile_dp": rec}
+
+
+def run_cli(args):
+    """(stdout, stderr) of the port's CLI main, in this process."""
+    import contextlib
+    from abpoa_tpu_torch.cli import main
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(list(args))
+    check(rc == 0, f"CLI {args}: exit {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def cli_serial_phase(n_reads):
+    """The CLI's default (card) run of single files: golden bytes, the
+    serial engine's launches: every align call on a kernel."""
+    import torch
+    from abpoa_tpu_torch.align import engine_torch
+    seq = str(DATA / "seq.fa")
+    n_seq = len(reads_of(DATA / "seq.fa"))
+    cases = [("heter.fa", [str(HETER)], "heter_cons.fa", n_reads, True),
+             ("seq.fa -r2", ["-r2", seq], "seq_cons_msa.out", n_seq, True),
+             ("seq.fa -m 1", ["-m", "1", seq], "seq_cons_local.fa", n_seq,
+              False),
+             ("heter.fa -d2", ["-d2", str(HETER)], "heter_d2_cons.fa",
+              n_reads, True)]
+    launches = None
+    for what, args, golden, n, banded in cases:
+        reset_launches()
+        engine_torch.reroutes.update(M_OVFL=0, M_FAIL=0)
+        out, _err = run_cli(args)
+        got = launches_now()
+        if launches is None:
+            launches = got["tile_dp"]
+        check(out == (GOLD_SAN / golden).read_text(),
+              f"CLI {what}: output != {golden}")
+        rerun = dict(engine_torch.reroutes)
+        want = {"tile_dp": n - 1 if banded else 0,
+                "fw_dp": sum(rerun.values()) if banded else n - 1}
+        check({k: got[k] for k in want} == want,
+              f"CLI {what}: launches {got}, expected {want} (B5 re-run on "
+              f"B4: {rerun})")
+        say(f"CLI {what}: {golden} bytes, launches {want} (B5 re-run on "
+            f"B4: {rerun})")
+    e2e = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _err = run_cli([str(HETER)])
+        torch.cuda.synchronize()
+        e2e.append(time.perf_counter() - t0)
+        check(out == GOLD.read_text(), "CLI heter.fa: timed run != golden")
+    say(f"CLI heter.fa (serial engine): e2e {statistics.median(e2e):.4f} s "
+        f"median of {REPS} {[round(x, 4) for x in e2e]}")
+    return launches
+
+
+def cli_list_phase(n_reads):
+    """-l over N_INST x heter.fa: the device loop through the CLI."""
+    from abpoa_tpu_torch.parallel.batch import SPLIT_MIN
+    lst = ROOT / "build" / "abpoa_tpu_torch" / "heter_list.txt"
+    lst.parent.mkdir(parents=True, exist_ok=True)
+    lst.write_text(f"{HETER}\n" * N_INST)
+    reset_launches()
+    t0 = time.perf_counter()
+    out, _err = run_cli(["-l", str(lst)])
+    secs = time.perf_counter() - t0
+    got = launches_now()
+    n_sub = 2 if N_INST >= SPLIT_MIN else 1
+    check(out == GOLD.read_text() * N_INST, "CLI -l: output != golden")
+    want = (n_reads - 1) * n_sub
+    check(got["band_dp"] == got["graph_update"] == want
+          and got["tile_dp"] == 0,
+          f"CLI -l: launches {got}, expected {want} of B1 and B2")
+    say(f"CLI -l {N_INST} x heter.fa: golden bytes {N_INST} times, "
+        f"launches B1 {got['band_dp']}, B2 {got['graph_update']}, "
+        f"{secs:.4f} s")
+
+
+def split_round_phase(dev, heter):
+    """Every round of N_CMP rotated heter.fa instances through the split
+    and the packed device round; then B6 against its plain version."""
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch import convert
+    from abpoa_tpu_torch.graph import NativeGraph, POAGraph
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.ops import poa_loop as pl
+    from abpoa_tpu_torch.ops import topo as tt
+    from abpoa_tpu_torch.parallel.batch import _loop_geometry
+    params = Params().post_set()
+    insts = [heter[b:] + heter[:b] for b in range(N_CMP)]
+    cfg = _loop_geometry(params, insts)._replace(B=N_CMP)
+    graphs = []
+    for reads in insts:
+        g = NativeGraph() if NativeGraph.available() else POAGraph()
+        g.add_graph_alignment(params, reads[0], [1] * len(reads[0]), [],
+                              None, 0, True)
+        g.topological_sort(params)
+        graphs.append(g)
+    init = pl.init_state_np(graphs, cfg)
+    state = {s: convert.loop_inputs(*init, dev) for s in (True, False)}
+    base = torch.from_numpy(pl.make_scal_base(params, cfg)).to(dev)
+    wf1000 = round(params.wf * 1000)
+    reset_launches()
+    fused = []
+    for r in range(cfg.NR):
+        qc = np.zeros((cfg.B, cfg.Wq), np.int8)
+        ql = np.zeros(cfg.B, np.int32)
+        for b, reads in enumerate(insts):
+            qc[b, 1:len(reads[r + 1]) + 1] = reads[r + 1]
+            ql[b] = len(reads[r + 1])
+        qc_d, ql_d = torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev)
+        for split in (True, False):
+            st, i2n, n2i, rem = state[split]
+            state[split] = pl.device_round(cfg, st, i2n, n2i, rem, qc_d,
+                                           ql_d, base, params.wb, wf1000,
+                                           split=split)[:4]
+        (s_st, s_i2n, s_n2i, s_rem), (p_st, p_i2n, p_n2i, p_rem) = \
+            state[True], state[False]
+        check(not s_st.fail.any() and not p_st.fail.any(),
+              f"split round {r + 1}: fail {s_st.fail.tolist()} "
+              f"{p_st.fail.tolist()}")
+        for f in s_st._fields:
+            check(torch.equal(getattr(s_st, f).int(), getattr(p_st, f).int()),
+                  f"split round {r + 1}: {f} differs")
+        live = (torch.arange(cfg.R, device=dev)[None, :]
+                < s_st.node_n[:, None])
+        for what, a, b in (("i2n", s_i2n, p_i2n), ("n2i", s_n2i, p_n2i),
+                           ("remain", s_rem, p_rem)):
+            check(torch.equal(a.int() * live, b.int() * live),
+                  f"split round {r + 1}: {what} differs")
+        fused.append(s_st)
+    launches = launches_now()
+    check(launches["topo"] == cfg.NR and launches["band_dp_topo"] == cfg.NR
+          and launches["band_dp"] == launches["graph_update"] == cfg.NR,
+          f"split rounds: launches {launches}")
+    say(f"split round: {cfg.NR} rounds x {cfg.B} instances, split == "
+        f"packed (state, topo maps, remain); launches {launches}")
+    # B6 against its plain version on each round's fused state
+    rec = {"max_abs_err": 0}
+    for r, st in enumerate(fused):
+        k = tt.topo_batch(cfg, st)
+        e = tt.topo_batch_ref(cfg, st)
+        torch.cuda.synchronize()
+        dm = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, e))
+        check(dm == 0 and bool(e[2].all()),
+              f"round {r + 1}: topo kernel != plain (max |d| {dm})")
+        rec["max_abs_err"] = max(rec["max_abs_err"], dm)
+    st = fused[-1]
+    rec["ms"] = cuda_ms(lambda: (lambda: tt.topo_batch(cfg, st)), 20)
+    rec["plain_ms"] = host_ms(lambda: (lambda: tt.topo_batch_ref(cfg, st)),
+                              1)
+    # one pop per node, one visit of each out-edge and aligned slot
+    live = (torch.arange(cfg.R, device=dev)[None, :] < st.node_n[:, None])
+    ops = int(st.node_n.sum()) + int(((st.n_out + st.n_al) * live).sum())
+    k = tt.topo_batch(cfg, st)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes(st.out_ids, st.n_out, st.al_ids, st.n_al, st.n_in,
+               st.node_n, st.fail) + nbytes(*k), ops)
+    say(f"kernels: topo == plain on {cfg.NR} rounds (B={cfg.B}, "
+        f"R={cfg.R}): kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']})")
+    return {"topo": rec}, launches["topo"]
+
+
 def main():
     try:
         import torch
@@ -511,6 +778,9 @@ def main():
     # ---- 3b. round-path kernels vs plain ----
     rec.update(round_kernel_phase(dev, heter))
 
+    # ---- 3c. banded-tile DP vs plain ----
+    rec.update(tile_kernel_phase(dev, heter))
+
     # ---- 4. device loop ----
     from abpoa_tpu_torch import BatchPOA, batch_msa_from_files
     from abpoa_tpu_torch.params import Params
@@ -532,8 +802,8 @@ def main():
         check(n == (len(heter) - 1) * n_sub,
               f"slice: {name} launched {n} times, expected "
               f"{(len(heter) - 1) * n_sub}")
-    check(got["band_dp_topo"] == 0 and got["fw_dp"] == 0,
-          f"slice: round-path kernels launched {got}")
+    check(got["band_dp_topo"] == got["fw_dp"] == got["tile_dp"]
+          == got["topo"] == 0, f"slice: other kernels launched {got}")
     say(f"slice: {N_INST} x heter.fa golden consensus, fallbacks 0, "
         f"launches {launches}, first run {first_s:.4f} s")
     e2e = []
@@ -564,6 +834,16 @@ def main():
     # ---- 7. round-path list mode ----
     round_list_phase(dev)
 
+    # ---- 8. CLI serial engine ----
+    launches["tile_dp"] = cli_serial_phase(len(heter))
+
+    # ---- 9. CLI list mode ----
+    cli_list_phase(len(heter))
+
+    # ---- 10. split device round, B6 ----
+    topo_rec, launches["topo"] = split_round_phase(dev, heter)
+    rec.update(topo_rec)
+
     src = {"band_dp": ("abpoa_tpu_torch/csrc/band_dp.cu",
                        "abpoa_tpu/ops/dp_pallas_band.py:132"),
            "graph_update": ("abpoa_tpu_torch/csrc/graph_update.cu",
@@ -571,7 +851,11 @@ def main():
            "band_dp_topo": ("abpoa_tpu_torch/csrc/band_dp.cu",
                             "abpoa_tpu/ops/dp_pallas_band.py:1247"),
            "fw_dp": ("abpoa_tpu_torch/csrc/fw_dp.cu",
-                     "abpoa_tpu/ops/dp_pallas_fw.py:746")}
+                     "abpoa_tpu/ops/dp_pallas_fw.py:746"),
+           "tile_dp": ("abpoa_tpu_torch/csrc/tile_dp.cu",
+                       "abpoa_tpu/ops/dp_pallas.py:713"),
+           "topo": ("abpoa_tpu_torch/csrc/topo.cu",
+                    "abpoa_tpu/ops/poa_loop.py:467")}
     kernels = []
     for name, (source, replaces) in src.items():
         r = rec[name]

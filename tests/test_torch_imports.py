@@ -4,7 +4,8 @@ chip_smoke.py, imports the JAX package (abpoa_tpu) or JAX.
 * An AST scan of every abpoa_tpu_torch/**/*.py and chip_smoke.py finds
   no such import statement and no importlib/__import__ call naming one.
 * A fresh interpreter that imports abpoa_tpu_torch and runs BatchPOA on
-  the CPU, through the device loop and through the round path, ends with
+  the CPU, through the device loop and through the round path, then the
+  CLI (the serial device engine, plain B5) and pyabpoa, ends with
   neither name in sys.modules.
 """
 import ast
@@ -45,8 +46,14 @@ def _bad_imports(path):
                     yield node.lineno, a.value
 
 
+NEW_IN_SLICE_3 = ["cli.py", "plot.py", "pyabpoa.py", "align/engine_torch.py",
+                  "ops/tile_dp.py", "ops/topo.py"]
+
+
 def test_no_import_of_the_jax_package_or_jax():
     assert len(SOURCES) > 20
+    for rel in NEW_IN_SLICE_3:
+        assert ROOT / "abpoa_tpu_torch" / rel in SOURCES, rel
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in SOURCES for line, mod in _bad_imports(p)]
     assert not bad, "\n".join(bad)
@@ -84,6 +91,16 @@ p.align_mode = LOCAL_MODE
 rounds = BatchPOA(p.post_set(), device="cpu")
 rounds.run([reads, reads[1:]])
 assert loop.used_device_loop and not rounds.used_device_loop
+import contextlib, io
+import abpoa_tpu_torch.pyabpoa as pa
+from abpoa_tpu_torch.cli import main
+from abpoa_tpu_torch.ops import tile_dp, topo
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert main(["--device", "cpu", sys.argv[1]]) == 0
+assert out.getvalue().startswith(">Consensus_sequence")
+res = pa.msa_aligner(device="cpu").msa([r.seq for r in read_seqs(
+    sys.argv[1])][:3], out_cons=True, out_msa=False)
+assert res.n_cons == 1
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("abpoa_tpu", "jax", "jaxlib")))
 """

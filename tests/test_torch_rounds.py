@@ -9,7 +9,9 @@ full-width DP, plain versions on the CPU) end to end.
   serial ABPOA.msa_from_file per file, as tests/test_modes.py holds the
   JAX package's batched list mode to its serial loop.
 * Routing: an eligible batch runs the device loop and launches no round
-  kernel; an ineligible one runs the rounds.
+  kernel; an ineligible one runs the rounds. A round whose band does not
+  fit a block and whose full-width planes exceed the plane budget runs
+  the banded-tile kernel (round_plan's third branch).
 * On a GPU: the same goldens through the kernels.
 Exact equality everywhere.
 """
@@ -144,10 +146,48 @@ def test_routing_by_eligibility(mode, monkeypatch):
     bp.run([reads, reads[1:]])
     if mode == "loop":
         assert bp.used_device_loop
-        assert bp.launches == {"band_dp_topo": 0, "fw_dp": 0}
+        assert bp.launches == {"band_dp_topo": 0, "fw_dp": 0, "tile_dp": 0}
     else:
         assert not bp.used_device_loop
-        assert bp.launches == {"band_dp_topo": 0, "fw_dp": 3}
+        assert bp.launches == {"band_dp_topo": 0, "fw_dp": 3, "tile_dp": 0}
+
+
+def test_round_plan_third_branch_runs_the_tile_kernel(monkeypatch):
+    """Extend mode over two rotated heter.fa instances (3 reads) with the
+    band kernel's shared memory shrunk to nothing (its band no longer
+    fits a block) and a plane budget between one instance's tiles and
+    its full-width planes: every round runs the banded-tile kernel, one
+    instance per launch, and gives the serial oracle's consensus with no
+    fallback."""
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.consensus import generate_consensus
+    from abpoa_tpu_torch.alphabet import decode_table
+    from abpoa_tpu_torch.ops import band_dp
+    from abpoa_tpu_torch.parallel import batch
+    params = _cli_params(["-m", "2"], monkeypatch)
+    reads = _reads("heter.fa")
+    instances = [reads[:3], reads[3:6]]
+    dt = decode_table(params.m)
+    exp = []
+    for inst in instances:
+        ab = ABPOA()
+        ab.n_seq = len(inst)
+        ab.names = [""] * len(inst)
+        ab.is_rc = [0] * len(inst)
+        ab.poa(params, inst, [[1] * len(q) for q in inst], 0)
+        generate_consensus(ab, params)
+        exp.append([bytes(dt[b] for b in s).decode()
+                    for s in ab.cons.cons_base[:ab.cons.n_cons]])
+    # heter.fa rounds: tiles of 5 x R x 384 x 4 bytes (R <= 832) fit 8 MiB,
+    # full-width planes of 5 x R x Wq x 4 bytes (R >= 704, Wq >= 640) do not
+    monkeypatch.setattr(band_dp, "MAX_SMEM_BYTES", 0)
+    monkeypatch.setattr(batch, "CPU_PLANE_BUDGET", 8 << 20)
+    bp = BatchPOA(params, device="cpu")
+    assert bp.run_consensus(instances) == exp
+    assert not bp.used_device_loop and bp.fallbacks == 0
+    assert bp.rounds == 2
+    assert bp.launches == {"band_dp_topo": 0, "fw_dp": 0, "tile_dp": 4}
 
 
 @pytest.mark.parametrize("what", ["qv", "seeded", "qv_list"])

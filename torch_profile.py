@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of abpoa_tpu_torch's BatchPOA goes, on one GPU.
+"""Where the time of abpoa_tpu_torch's BatchPOA and serial engine goes,
+on one GPU.
 
-    python torch_profile.py [--n-inst 64] [--reps 3]
+    python torch_profile.py [--n-inst 64] [--reps 3] [--serial-only]
 
 For each path of the port over N x tests/data/heter.fa -- the device
 loop (default parameters), the round path with -m 1 (full-width DP
@@ -18,6 +19,15 @@ run (which also builds the kernels):
   * torch.profiler over one more run: device time and launches per
     kernel, device busy time (the union of all device intervals, copies
     included) and the device's idle share of that run.
+Then the serial device engine through the CLI (``abpoa_tpu_torch.cli``
+main, default flags, tests/data/heter.fa): e2e median of --reps runs,
+and the per-read split of one run into host sort, export
+(export_dense + make_pallas_inputs), upload, the B5 launch (wrapper +
+kernel, synchronised), the misc fetch, the rest of the engine call
+(band-state write-back, step fetch), replay (steps -> cigar) and fusion
+(add_graph_alignment); each device phase ends in a synchronise, so the
+split run is slower than an unsplit one. A profiled run gives the
+device busy time and idle share.
 Prints one line per measurement, then one JSON object per path. Needs
 CUDA: exits 2 without it.
 """
@@ -178,10 +188,124 @@ def profile_path(name, make_bp, insts, reps, card):
     return rec
 
 
+def run_cli(args):
+    """Wall seconds of the port's CLI main on `args` (output dropped),
+    ending in a device synchronise."""
+    import io
+    import torch
+    from abpoa_tpu_torch.cli import main
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(list(args))
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise SystemExit(f"FAILED: CLI {args}: {err.getvalue()[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def profile_serial(reps, card):
+    """The CLI's serial device engine on heter.fa: e2e and the per-read
+    phase split."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from abpoa_tpu_torch.align import engine_torch as ET
+    from abpoa_tpu_torch.align import export as X
+    from abpoa_tpu_torch.graph import POAGraph
+    from abpoa_tpu_torch.ops import steps as S
+    from abpoa_tpu_torch.ops.fw_dp import fw_poa_dp_batch
+    from abpoa_tpu_torch.ops.tile_dp import tile_poa_dp_batch
+    wrappers = {"tile_dp": tile_poa_dp_batch, "fw_dp": fw_poa_dp_batch}
+    args = [str(HETER)]
+    warm = run_cli(args)
+    e2e = [run_cli(args) for _ in range(reps)]
+    med = statistics.median(e2e)
+    timer = PhaseTimer()
+    orig_run = ET._run
+
+    def split_run(kernel, cfg, arrs, dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ins = [torch.from_numpy(np.ascontiguousarray(a))[None].to(dev)
+               for a in arrs]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = kernel(cfg, *ins)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        misc = out.misc[0].cpu().numpy()
+        t3 = time.perf_counter()
+        timer.add("upload", t1 - t0)
+        timer.add(f"launch {kernel.__name__}", t2 - t1)
+        timer.add("fetch misc", t3 - t2)
+        return out, misc
+    ET._run = split_run
+    timer.wrap(POAGraph, "topological_sort", "host sort")
+    timer.wrap(X, "export_dense", "export")
+    timer.wrap(X, "make_pallas_inputs", "export")
+    timer.wrap(S, "replay_steps", "replay")
+    timer.wrap(POAGraph, "add_graph_alignment", "fusion")
+    timer.wrap(ET, "align_sequence_to_graph_device", "engine call")
+    for w in wrappers.values():
+        w.launches = 0
+    ET.reroutes.update(M_OVFL=0, M_FAIL=0)
+    try:
+        t_ph = run_cli(args)
+    finally:
+        timer.restore()
+        ET._run = orig_run
+    launches = {k: w.launches for k, w in wrappers.items()}
+    n = sum(launches.values())
+    ph = dict(timer.s)
+    inner = sum(v for k, v in ph.items()
+                if k in ("export", "upload", "fetch misc", "replay")
+                or k.startswith("launch"))
+    ph["engine rest (write-back, step fetch)"] = ph.pop("engine call") - inner
+    per_read = {k: v / n * 1e3 for k, v in ph.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_prof = run_cli(args)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = union((e.time_range.start, e.time_range.end) for e in dev) / 1e6
+    kern = {}
+    for e in dev:
+        k = kern.setdefault(e.name, [0.0, 0])
+        k[0] += (e.time_range.end - e.time_range.start) / 1e3
+        k[1] += 1
+    rec = {"path": "CLI serial engine, heter.fa", "card": card,
+           "warmup_s": warm, "e2e_s": e2e, "e2e_median_s": med,
+           "launches": launches, "reroutes": dict(ET.reroutes),
+           "phase_run_s": t_ph,
+           "phases_s": ph, "per_read_ms": per_read,
+           "profiled_run_s": t_prof, "device_busy_s": busy,
+           "device_idle_share": 1 - busy / t_prof,
+           "device_ms_by_kernel": {k: {"ms": v[0], "n": v[1]}
+                                   for k, v in sorted(
+                                       kern.items(), key=lambda kv: -kv[1][0])
+                                   if v[0] >= 0.05}}
+    say(f"serial: e2e {med:.4f} s median of {reps} "
+        f"{[round(x, 4) for x in e2e]} (warm-up {warm:.4f} s), "
+        f"launches of the split run {launches}, B5 re-run on B4 "
+        f"{ET.reroutes}")
+    say(f"serial: per read (ms, {n} aligned reads, split run {t_ph:.4f} s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    sorted(per_read.items(), key=lambda kv: -kv[1])))
+    say(f"serial: profiled run {t_prof:.4f} s, device busy {busy:.4f} s, "
+        f"idle {100 * (1 - busy / t_prof):.1f} %")
+    for k, v in list(rec["device_ms_by_kernel"].items())[:6]:
+        say(f"serial:   {v['ms']:.3f} ms over {v['n']} x {k[:70]}")
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-inst", type=int, default=64)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--serial-only", action="store_true",
+                    help="profile only the CLI's serial device engine")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -210,10 +334,12 @@ def main():
             p.align_mode = mode
             return BatchPOA(p.post_set(), device="cuda")
         return make
-    recs = [profile_path(name, maker(mode), insts, args.reps, card)
-            for name, mode in (("device loop", GLOBAL_MODE),
-                               ("rounds -m 1", LOCAL_MODE),
-                               ("rounds -m 2", EXTEND_MODE))]
+    recs = [] if args.serial_only else [
+        profile_path(name, maker(mode), insts, args.reps, card)
+        for name, mode in (("device loop", GLOBAL_MODE),
+                           ("rounds -m 1", LOCAL_MODE),
+                           ("rounds -m 2", EXTEND_MODE))]
+    recs.append(profile_serial(args.reps, card))
     for r in recs:
         say(json.dumps(r))
     return 0
