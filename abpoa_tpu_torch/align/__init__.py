@@ -2,11 +2,12 @@
 
 ``align_sequence_to_graph/subgraph`` dispatch between the exact NumPy host
 oracle (reference-bit-exact, see engine_np.py) and the serial device
-engine (engine_torch.py), which ``params.engine == "torch"`` selects for
-whole-graph calls (on ``params.device``). Subgraph windows stay on the
-oracle (only ``-S`` reaches them, ROADMAP A7). Batched multi-instance
-throughput runs go through the device kernels (parallel/batch.py), whose
-dense inputs ``export.py`` builds.
+engine (engine_torch.py), which ``params.engine == "torch"`` (the
+default) selects, on ``params.device``, for whole-graph calls and for
+non-empty subgraph windows (``-S``/``-p``). An empty window has no DP: it
+goes to the oracle, as in the JAX package, and the engine counts it.
+Batched multi-instance throughput runs go through the device kernels
+(parallel/batch.py), whose dense inputs ``export.py`` builds.
 """
 from __future__ import annotations
 
@@ -21,11 +22,16 @@ def align_sequence_to_subgraph(graph, params, beg_node_id, end_node_id,
         return None
     if not graph.is_topological_sorted:
         graph.topological_sort(params)
-    if (params.engine == "torch" and beg_node_id == SRC_NODE_ID
-            and end_node_id == SINK_NODE_ID):
-        from .engine_torch import align_sequence_to_graph_device
-        return align_sequence_to_graph_device(graph, params, query,
-                                              params.device)
+    if params.engine == "torch":
+        from . import engine_torch
+        if beg_node_id == SRC_NODE_ID and end_node_id == SINK_NODE_ID:
+            return engine_torch.align_sequence_to_graph_device(
+                graph, params, query, params.device)
+        if len(query) > 0:
+            return engine_torch.align_sequence_to_subgraph_device(
+                graph, params, beg_node_id, end_node_id, query,
+                params.device)
+        engine_torch.empty_windows += 1
     return _np_subgraph(graph, params, beg_node_id, end_node_id, query,
                         arena=arena)
 

@@ -1,8 +1,9 @@
-"""The serial device engine: one read against the whole graph on the
-device, per align call.
+"""The serial device engine: one read against the whole graph, or one
+seeded window against its subgraph, on the device, per align call.
 
 Counterpart of the device wrappers of ``abpoa_tpu/align/engine_jax.py``
-(``align_sequence_to_graph_device``, :509-548). Per call:
+(``align_sequence_to_graph_device``, :509-548, and
+``align_sequence_to_subgraph_device``, :458-506). Per call:
 
 * banded (``wb >= 0``) global or extend alignments run kernel B5, the
   banded-tile DP with the in-kernel walk (``ops/tile_dp.py``), on the
@@ -20,13 +21,19 @@ Counterpart of the device wrappers of ``abpoa_tpu/align/engine_jax.py``
   gives the same bytes;
 * a walk dead end of B4 is the reference's own backtrack failure, which
   it treats as fatal: ``RuntimeError``;
-* a graph past 4096 nodes or a query of 2^17 bases or more (the packed
-  step word's row and column bits) raises ``NotImplementedError``: the
-  XLA tier, ROADMAP A6.
+* a subgraph window (``-S``/``-p``: the alignment between two anchors)
+  runs B4 on the window's export (``export_dense`` with its
+  beg/end index): dead rows are gated by the reachability row mask, the
+  band state is written back for the window's live rows, and the steps
+  replay relative to the window's first row. An empty window has no DP:
+  ``align/__init__.py`` sends it where the JAX package does (the host
+  oracle) and counts it in ``empty_windows``;
+* a graph or window past 4096 rows or a query of 2^17 bases or more (the
+  packed step word's row and column bits) raises
+  ``NotImplementedError``: the XLA tier, ROADMAP A6.
 
-Subgraph windows (only ``-S`` reaches them, ROADMAP A7) stay on the
-oracle (``align/__init__.py``). The kernels' wrappers count their
-launches; ``reroutes`` counts the B5 results re-run on B4, by flag.
+The kernels' wrappers count their launches; ``reroutes`` counts the B5
+results re-run on B4, by flag.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from ..ops import layout as L
 from .engine_np import AlignResult
 
 reroutes = {"M_OVFL": 0, "M_FAIL": 0}
+empty_windows = 0   # subgraph windows with no query bases (no DP)
 
 
 def _run(kernel, cfg, arrs, dev):
@@ -48,20 +56,57 @@ def _run(kernel, cfg, arrs, dev):
     return out, out.misc[0].cpu().numpy()
 
 
+def _too_large(rows: int, qlen: int):
+    if rows > 4096 or qlen >= (1 << 17):
+        raise NotImplementedError(
+            f"a graph or window of {rows} rows or a query of {qlen} bases "
+            "needs the XLA tier of the JAX package, not ported yet: "
+            "ROADMAP A6")
+
+
+def _full_width(dg, params, dev):
+    """B4 over one export (whole graph or window): (out, misc row). A
+    walk dead end is the reference's own backtrack failure: it raises."""
+    from .export import make_pallas_inputs
+    from ..ops.fw_dp import FWConfig, fw_poa_dp_batch
+    Wq = (dg.qlen // 128 + 1) * 128
+    lmax = (dg.R + Wq + 511) // 512 * 512 if params.ret_cigar else 0
+    cfg, arrs = make_pallas_inputs(dg, params, 128, force_Wq=Wq,
+                                   bt_lmax=lmax)
+    fwc = FWConfig(cfg.gap_mode, cfg.align_mode, cfg.pn, cfg.R, Wq, cfg.P,
+                   cfg.O, cfg.m, cfg.use_zdrop, lmax,
+                   banded=params.wb >= 0)
+    out, misc = _run(fw_poa_dp_batch, fwc, arrs, dev)
+    if params.ret_cigar and misc[L.M_FAIL]:
+        raise RuntimeError("Error in backtrack: the full-width walk "
+                           "reached a dead end")
+    return out, misc
+
+
+def _result(graph, params, query, out, misc, row0=0):
+    """AlignResult of one launch: the best score, and with ret_cigar the
+    replayed cigar (rows relative to topo index row0)."""
+    from ..ops.steps import replay_steps
+    res = AlignResult()
+    res.best_score = int(misc[L.M_BEST])
+    if not params.ret_cigar:
+        return res
+    nst = int(misc[L.M_NSTEPS])
+    return replay_steps(graph, params, np.asarray(query),
+                        out.steps[0, :nst].cpu().numpy(), nst,
+                        int(misc[L.M_BI]), int(misc[L.M_BJ]),
+                        int(misc[L.M_ENDI]), int(misc[L.M_ENDJ]), res,
+                        row0=row0)
+
+
 def align_sequence_to_graph_device(graph, params, query,
                                    device) -> AlignResult:
     """Whole-graph alignment of `query` on `device` ("cuda": the kernels,
     "cpu": their plain versions); see the module doc for the routing."""
     from .export import export_dense, make_pallas_inputs, pick_WB
-    from ..ops.fw_dp import FWConfig, fw_poa_dp_batch
-    from ..ops.steps import replay_steps
     from ..ops.tile_dp import tile_poa_dp_batch
     dev = resolve_device(device)
-    if graph.node_n > 4096 or len(query) >= (1 << 17):
-        raise NotImplementedError(
-            f"a graph of {graph.node_n} nodes or a query of {len(query)} "
-            "bases needs the XLA tier of the JAX package, not ported yet: "
-            "ROADMAP A6")
+    _too_large(graph.node_n, len(query))
     dg = export_dense(graph, params, query)
     Wq = (dg.qlen // 128 + 1) * 128
     lmax = (dg.R + Wq + 511) // 512 * 512 if params.ret_cigar else 0
@@ -77,26 +122,37 @@ def align_sequence_to_graph_device(graph, params, query,
             reroutes[flag] += 1
             out = None
     if out is None:
-        cfg, arrs = make_pallas_inputs(dg, params, 128, force_Wq=Wq,
-                                       bt_lmax=lmax)
-        fwc = FWConfig(cfg.gap_mode, cfg.align_mode, cfg.pn, cfg.R, Wq,
-                       cfg.P, cfg.O, cfg.m, cfg.use_zdrop, lmax,
-                       banded=banded)
-        out, misc = _run(fw_poa_dp_batch, fwc, arrs, dev)
-        if params.ret_cigar and misc[L.M_FAIL]:
-            raise RuntimeError("Error in backtrack: the full-width walk "
-                               "reached a dead end")
+        out, misc = _full_width(dg, params, dev)
     if banded:
         n = dg.n_rows
         i2n = np.asarray(graph.index_to_node_id[:n], dtype=np.int64)
         graph.node_id_to_max_pos_left[i2n] = out.mpl[0, :n].cpu().numpy()
         graph.node_id_to_max_pos_right[i2n] = out.mpr[0, :n].cpu().numpy()
-    res = AlignResult()
-    res.best_score = int(misc[L.M_BEST])
-    if not params.ret_cigar:
-        return res
-    nst = int(misc[L.M_NSTEPS])
-    return replay_steps(graph, params, np.asarray(query),
-                        out.steps[0, :nst].cpu().numpy(), nst,
-                        int(misc[L.M_BI]), int(misc[L.M_BJ]),
-                        int(misc[L.M_ENDI]), int(misc[L.M_ENDJ]), res)
+    return _result(graph, params, query, out, misc)
+
+
+def align_sequence_to_subgraph_device(graph, params, beg_node_id,
+                                      end_node_id, query,
+                                      device) -> AlignResult:
+    """One seeded window (`query`, non-empty) against the subgraph between
+    beg_node_id and end_node_id on `device`: one B4 launch at B=1 under
+    the window's reachability row mask (see the module doc)."""
+    from .export import export_dense
+    dev = resolve_device(device)
+    beg_index = int(graph.node_id_to_index[beg_node_id])
+    end_index = int(graph.node_id_to_index[end_node_id])
+    _too_large(end_index - beg_index + 1, len(query))
+    dg = export_dense(graph, params, query, beg_index=beg_index,
+                      end_index=end_index)
+    out, misc = _full_width(dg, params, dev)
+    if params.wb >= 0:
+        # only the live rows carry band state: the oracle never touches
+        # the rows outside the row mask
+        n = dg.n_rows
+        live = dg.rowmask[:n] > 0
+        ids = np.asarray(graph.index_to_node_id[beg_index:beg_index + n],
+                         dtype=np.int64)[live]
+        graph.node_id_to_max_pos_left[ids] = out.mpl[0, :n].cpu().numpy()[live]
+        graph.node_id_to_max_pos_right[ids] = \
+            out.mpr[0, :n].cpu().numpy()[live]
+    return _result(graph, params, query, out, misc, row0=beg_index)

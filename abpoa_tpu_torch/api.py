@@ -196,6 +196,11 @@ class ABPOA:
         if not (params.out_msa or params.out_cons or params.out_gfa) \
                 or not seqs:
             return
+        if params.engine == "torch":
+            # the device must exist before any read aligns (a one-read
+            # input never reaches the DP): no silent run on the host
+            from .device import resolve_device
+            resolve_device(params.device)
         self.reset()
         if params.incr_fn:
             restore_graph(self, params)
@@ -223,8 +228,11 @@ class ABPOA:
                 or params.align_mode != GLOBAL_MODE:
             self.poa(params, enc_seqs, weights, exist_n_seq)
         else:
-            raise NotImplementedError("seeded/progressive POA (-S/-p) is "
-                                      "not ported yet: ROADMAP A7")
+            from .seed import build_guide_tree_partition
+            read_id_map, par_anchors, par_c = build_guide_tree_partition(
+                enc_seqs, seq_lens, params)
+            self.anchor_poa(params, enc_seqs, weights, seq_lens, par_anchors,
+                            par_c, read_id_map, exist_n_seq)
         if out is not None:
             self.output(params, out)
 

@@ -86,7 +86,6 @@ TAKES_ARG = set("mMXtOEbfzekwnioqrgdqV\x01\x02")
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     params = Params()
-    params.engine = "torch"
     in_list = False
     out = sys.stdout
     pos = []
@@ -259,8 +258,8 @@ def main(argv=None) -> int:
 
 def _run(params, in_list, pos, out):
     if params.engine == "torch":
-        # the device must exist before any read aligns (a one-read file
-        # never reaches the DP): no silent run on the host oracle
+        # the device must exist before any input is read (ABPOA.msa and
+        # BatchPOA check it again): no silent run on the host oracle
         from .device import resolve_device
         resolve_device(params.device)
     ab = ABPOA()

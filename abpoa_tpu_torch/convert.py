@@ -1,7 +1,7 @@
 """Carry the JAX package's objects across to the port.
 
-The device loop has no weights; its "state" is the graph state and the
-static tables. These helpers turn the JAX package's objects (its
+The device loop has no model weights; its "state" is the graph state
+and the static tables. These helpers turn the JAX package's objects (its
 ``Params``, and anything ``np.asarray`` accepts, so JAX arrays too,
 without importing JAX) into the port's own objects and tensors on a
 given device, so tests can feed both packages from one source.
@@ -36,12 +36,9 @@ def tensor(x, device) -> torch.Tensor:
 
 
 def loop_config(cfg) -> LoopConfig:
-    """A JAX ``LoopConfig`` -> the port's (the TPU packing and probe
-    fields G, GT, gk, abl, dv, gv and the unused use_zdrop have no
-    counterpart)."""
-    if getattr(cfg, "wmode", 0):
-        raise NotImplementedError("qv weights (wmode=1) are not ported "
-                                  "yet (ROADMAP A4q)")
+    """A JAX ``LoopConfig`` -> the port's, ``wmode`` included (the TPU
+    packing and probe fields G, GT, gk, abl, dv, gv and the unused
+    use_zdrop have no counterpart)."""
     return LoopConfig(**{f: getattr(cfg, f) for f in LoopConfig._fields})
 
 
@@ -51,7 +48,9 @@ def gstate(st, device) -> GState:
 
 
 def packed_state(ps, device) -> PackedState:
-    """A JAX PackedState -> the port's PackedState of tensors."""
+    """A JAX PackedState -> the port's PackedState of tensors (the
+    out-edge entries keep their layout: halves in wmode 0, full words
+    in wmode 1)."""
     return PackedState(*(tensor(x, device) for x in ps))
 
 

@@ -2,9 +2,12 @@
 step stream, Kahn FIFO re-sort with aligned grouping, max_remain.
 
 Counterpart of ``graph_update_packed`` / ``make_graph_kernel2`` in
-``abpoa_tpu/ops/poa_loop.py`` (unit weights, ``wmode=0``). The CUDA
-kernel is ``csrc/graph_update.cu``, a scalar transcription of the
-reference semantics. ``graph_update_packed_ref`` reaches the same
+``abpoa_tpu/ops/poa_loop.py``, both bodies: unit weights (``wmode=0``)
+and qv weights (``wmode=1``: full-word out-edge entries, and each
+resolving edge adds the weight of its query base, the sink edge the
+last base's). The CUDA kernel is ``csrc/graph_update.cu``, a scalar
+transcription of the reference semantics, one template instance per
+mode. ``graph_update_packed_ref`` reaches the same
 function by a second, independent route, so the two check each other:
 
   1. vectorized fusion (every node resolution depends only on the
@@ -27,7 +30,8 @@ from ..params import SRC_NODE_ID, SINK_NODE_ID
 
 from . import layout as L
 from ._build import check_launch, library
-from .poa_loop import GState, LoopConfig, PackedState, unpack_state, _pack2
+from .poa_loop import (GState, LoopConfig, PackedState, unpack_state,
+                       pack_outp, _pack2)
 
 I32 = torch.int32
 
@@ -36,24 +40,39 @@ I32 = torch.int32
 MAX_SMEM_BYTES = 232448
 
 
+def out_words(cfg: LoopConfig) -> int:
+    """Packed out-edge words per node: E/2 halves (wmode 0) or E full
+    words (wmode 1)."""
+    return cfg.E if cfg.wmode else cfg.E // 2
+
+
 def smem_bytes(cfg: LoopConfig) -> int:
     """Dynamic shared memory of one graph-update block (the formula of
     graph_update_launch): the packed state, both topo maps, in-degrees,
-    the queue, the step stream and the query."""
+    the queue, the step stream, the query and (wmode 1) its weights."""
     A2 = (cfg.A + 1) // 2
-    return 4 * (cfg.R * (4 + cfg.E // 2 + cfg.P // 2 + A2)
-                + cfg.R + cfg.A + 1 + cfg.LS // 2 + (cfg.Wq + 3) // 4)
+    qw = (cfg.Wq + 1) // 2 if cfg.wmode else 0
+    return 4 * (cfg.R * (4 + out_words(cfg) + cfg.P // 2 + A2)
+                + cfg.R + cfg.A + 1 + cfg.LS // 2 + (cfg.Wq + 3) // 4 + qw)
 
 
-def _check(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen, qp4):
+def _check(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen, qp4, qw):
     B, R = ps.ctrl.shape[0], cfg.R
-    E2, P2, A2 = cfg.E // 2, cfg.P // 2, (cfg.A + 1) // 2
-    want = {"ctrl": (ps.ctrl, (B, R)), "outp": (ps.outp, (B, R * E2)),
+    P2, A2 = cfg.P // 2, (cfg.A + 1) // 2
+    want = {"ctrl": (ps.ctrl, (B, R)),
+            "outp": (ps.outp, (B, R * out_words(cfg))),
             "inp": (ps.inp, (B, R * P2)), "alp": (ps.alp, (B, R * A2)),
             "i2nn": (ps.i2nn, (B, R)), "node_n": (ps.node_n, (B,)),
             "fail": (ps.fail, (B,)), "s16w": (s16w, (B, cfg.LS // 2)),
             "misc": (misc, (B, L.M_NMISC)), "qlen": (qlen, (B,)),
             "qp4": (qp4, (B, (cfg.Wq + 3) // 4))}
+    if cfg.wmode:
+        if qw is None:
+            raise ValueError("graph_update_packed: wmode 1 needs the "
+                             "weight stream qw")
+        want["qw"] = (qw, (B, (cfg.Wq + 1) // 2))
+    elif qw is not None:
+        raise ValueError("graph_update_packed: qw is for wmode 1 only")
     for name, (t, shape) in want.items():
         if t.dtype != I32:
             raise TypeError(f"{name}: int32 expected, got {t.dtype}")
@@ -64,24 +83,28 @@ def _check(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen, qp4):
                              f"{ps.ctrl.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
-    if cfg.E % 2 or cfg.P % 2 or R > (1 << (16 - cfg.wbits)):
+    # node ids take 16-wbits bits of a half in wmode 0, 16 bits in wmode 1
+    id_bits = 16 if cfg.wmode else 16 - cfg.wbits
+    if cfg.E % 2 or cfg.P % 2 or R > (1 << id_bits):
         raise ValueError(f"graph_update_packed: bad geometry {cfg}")
 
 
 def graph_update_packed(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen,
-                        qp4) -> PackedState:
+                        qp4, qw=None) -> PackedState:
     """Fusion + re-sort + max_remain of one round on the packed state.
     s16w [B, LS/2] and misc [B, M_NMISC] are the band DP's outputs
-    (rows rebuild from misc M_LASTI); qlen [B]; qp4 [B, ceil(Wq/4)].
+    (rows rebuild from misc M_LASTI); qlen [B]; qp4 [B, ceil(Wq/4)];
+    qw [B, ceil(Wq/2)] the packed per-base weights (``pack_qw``), wmode 1
+    only.
 
     CUDA tensors launch ``csrc/graph_update.cu``, which updates
     ps.ctrl/outp/inp/alp IN PLACE (the counterpart of the JAX kernel's
     input_output_aliases) and returns them with a new i2nn, node_n and
     fail. CPU tensors run the plain version, which returns new tensors."""
     qlen = qlen.to(I32).contiguous()
-    _check(cfg, ps, s16w, misc, qlen, qp4)
+    _check(cfg, ps, s16w, misc, qlen, qp4, qw)
     if ps.ctrl.device.type == "cpu":
-        return graph_update_packed_ref(cfg, ps, s16w, misc, qlen, qp4)
+        return graph_update_packed_ref(cfg, ps, s16w, misc, qlen, qp4, qw)
     if ps.ctrl.device.type != "cuda":
         raise ValueError(f"graph_update_packed: unsupported device "
                          f"{ps.ctrl.device}")
@@ -94,17 +117,21 @@ def graph_update_packed(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen,
         rc = lib.graph_update_launch(
             misc.data_ptr(), qlen.data_ptr(), ps.node_n.data_ptr(),
             ps.fail.data_ptr(), ps.i2nn.data_ptr(), s16w.data_ptr(),
-            qp4.data_ptr(), ps.ctrl.data_ptr(), ps.outp.data_ptr(),
-            ps.inp.data_ptr(), ps.alp.data_ptr(), i2nn.data_ptr(),
-            node_n.data_ptr(), fail.data_ptr(), B, cfg.R, cfg.E, cfg.P,
-            cfg.A, s16w.shape[1], qp4.shape[1], cfg.wbits,
-            torch.cuda.current_stream(dev).cuda_stream)
+            qp4.data_ptr(), qw.data_ptr() if cfg.wmode else None,
+            ps.ctrl.data_ptr(), ps.outp.data_ptr(), ps.inp.data_ptr(),
+            ps.alp.data_ptr(), i2nn.data_ptr(), node_n.data_ptr(),
+            fail.data_ptr(), B, cfg.R, cfg.E, cfg.P, cfg.A, s16w.shape[1],
+            qp4.shape[1], qw.shape[1] if cfg.wmode else 0, cfg.wbits,
+            cfg.wmode, torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "graph_update")
     graph_update_packed.launches += 1
+    graph_update_packed.qv_launches += int(cfg.wmode)
     return PackedState(ps.ctrl, ps.outp, ps.inp, ps.alp, i2nn, node_n, fail)
 
 
+# launches of the kernel, both modes; of its wmode-1 instance alone
 graph_update_packed.launches = 0
+graph_update_packed.qv_launches = 0
 
 
 # ------------------------------------------------------------------ #
@@ -128,8 +155,10 @@ def _scatter(flat, idx, val, valid, add=False):
     return ext[:, :n]
 
 
-def fuse_ref(cfg: LoopConfig, st: GState, i2n, s16w, misc, qlen, qcodes):
-    """Vectorized fusion of one round's wire stream into the graph state.
+def fuse_ref(cfg: LoopConfig, st: GState, i2n, s16w, misc, qlen, qcodes,
+             qweights=None):
+    """Vectorized fusion of one round's wire stream into the graph state
+    (qweights [B, >=qlen]: per-base weights, 0-based; None: unit).
     Returns (GState, inst_ok [B], fusion_fail [B])."""
     LS = 2 * s16w.shape[1]
     halves = s16w.contiguous().view(torch.int16).to(I32) & 0xFFFF
@@ -140,13 +169,17 @@ def fuse_ref(cfg: LoopConfig, st: GState, i2n, s16w, misc, qlen, qcodes):
     di = torch.where(kk < nst[:, None], halves >> 3, 0)
     suffix = di.flip(1).cumsum(1).flip(1)
     rows = misc[:, L.M_LASTI:L.M_LASTI + 1] + suffix - di
-    return fuse_steps_ref(cfg, st, i2n, halves & 3, rows, misc, qlen, qcodes)
+    return fuse_steps_ref(cfg, st, i2n, halves & 3, rows, misc, qlen, qcodes,
+                          qweights)
 
 
 def fuse_steps_ref(cfg: LoopConfig, st: GState, i2n, ops, rows, misc, qlen,
-                   qcodes):
+                   qcodes, qweights=None):
     """The fusion proper, from each push-order step's op code and topo row
-    ([B, LS]). Returns (GState, inst_ok [B], fusion_fail [B])."""
+    ([B, LS]). Each resolving edge adds the weight of its query base (1
+    when qweights is None), the edge into the sink the last base's (ref
+    weight[q], native/poagraph.c pg_add_graph_sequence). Returns
+    (GState, inst_ok [B], fusion_fail [B])."""
     B, R, E, P, A = st.bases.shape[0], cfg.R, cfg.E, cfg.P, cfg.A
     dev = st.bases.device
     LS = LF = ops.shape[1]
@@ -206,6 +239,14 @@ def fuse_steps_ref(cfg: LoopConfig, st: GState, i2n, ops, rows, misc, qlen,
     ev = torch.cat([resolved, torch.full((B, 1), SINK_NODE_ID, dtype=I32,
                                          device=dev)], 1)
     e_live = torch.cat([has_res, inst_ok[:, None]], 1)
+    # each edge's weight: the query base of its resolving step; the sink
+    # edge takes the last base's
+    if qweights is None:
+        e_w = torch.ones_like(eu)
+    else:
+        qweights = qweights.to(I32)
+        e_w = torch.cat([_take(qweights, qid),
+                         _take(qweights, (qlen - 1)[:, None])], 1)
 
     n0 = st.node_n[:, None]
     e_iota = torch.arange(E, dtype=I32, device=dev)[None, None, :]
@@ -225,11 +266,11 @@ def fuse_steps_ref(cfg: LoopConfig, st: GState, i2n, ops, rows, misc, qlen,
     euc = eu.clamp(0, R - 1)
     evc = ev.clamp(0, R - 1)
     one = torch.ones_like(eu)
-    out_w = _scatter(st.out_w.reshape(B, R * E), euc * E + slot_f, one,
+    out_w = _scatter(st.out_w.reshape(B, R * E), euc * E + slot_f, e_w,
                      bump, add=True)
     slot_n = euc * E + nout_u.clamp(0, E - 1)
     out_ids = _scatter(st.out_ids.reshape(B, R * E), slot_n, ev, newe)
-    out_w = _scatter(out_w, slot_n, one, newe)
+    out_w = _scatter(out_w, slot_n, e_w, newe)
     n_out = _scatter(st.n_out, euc, one, newe, add=True)
     in_ids = _scatter(st.in_ids.reshape(B, R * P),
                       evc * P + nin_v.clamp(0, P - 1), eu, newe)
@@ -342,14 +383,18 @@ def remain_ref(cfg: LoopConfig, st: GState):
 
 
 def graph_update_packed_ref(cfg: LoopConfig, ps: PackedState, s16w, misc,
-                            qlen, qp4) -> PackedState:
+                            qlen, qp4, qw=None) -> PackedState:
     """Plain PyTorch version of the graph kernel (see the module doc)."""
     B, R = ps.ctrl.shape[0], cfg.R
     st, i2n, _n2i, _rem = unpack_state(cfg, ps)
     qcodes = torch.stack([(qp4 >> (8 * j)) & 0xFF for j in range(4)],
                          dim=2).reshape(B, -1)
+    qweights = None
+    if cfg.wmode:
+        qweights = torch.stack([qw & 0xFFFF, (qw >> 16) & 0xFFFF],
+                               dim=2).reshape(B, -1)
     st2, inst_ok, fusion_fail = fuse_ref(cfg, st, i2n, s16w, misc, qlen,
-                                         qcodes)
+                                         qcodes, qweights)
     i2n2, n2i2, topo_ok = kahn_ref(cfg, st2)
     remain = remain_ref(cfg, st2)
     bad = (misc[:, L.M_OVFL] | misc[:, L.M_FAIL]) > 0
@@ -361,11 +406,10 @@ def graph_update_packed_ref(cfg: LoopConfig, ps: PackedState, s16w, misc,
     live = (torch.arange(R, device=ps.ctrl.device)[None, :]
             < st2.node_n[:, None])
     rem = torch.where(live, remain, ps.ctrl >> 16)
-    IDB = 16 - cfg.wbits
     ctrl = (st2.bases | (st2.n_out << 3) | (st2.n_al << 7)
             | (st2.n_in << 10) | ((rem & 0xFFFF) << 16))
-    E2, P2, A2 = cfg.E // 2, cfg.P // 2, (cfg.A + 1) // 2
-    outp = _pack2(st2.out_ids | (st2.out_w << IDB), B, R, E2)
+    P2, A2 = cfg.P // 2, (cfg.A + 1) // 2
+    outp = pack_outp(cfg, st2.out_ids, st2.out_w)
     inp = _pack2(st2.in_ids, B, R, P2)
     alp = _pack2(st2.al_ids, B, R, A2)
     i2nn = (i2n2 & 0xFFFF) | (n2i2 << 16)

@@ -20,8 +20,10 @@ the topo-mode band DP, the vectorized fusion (``fuse_batch``), the
 standalone Kahn sort (``ops/topo.py``) and ``remain_ref``; it is the
 second implementation the packed round is held against.
 
-Scope: global mode, banded, m == 5, unit weights, any gap mode. The
-qv-weight variant (``wmode=1``) of the JAX package is not ported yet.
+Scope: global mode, banded, m == 5, any gap mode; unit weights
+(``wmode=0``: out-edge entries are 16-bit halves ``id | w<<(16-wbits)``)
+or qv weights (``wmode=1``: out-edge entries are full words
+``id | w<<16`` and a per-base weight stream feeds the fusion).
 """
 from __future__ import annotations
 
@@ -47,6 +49,12 @@ class LoopConfig(NamedTuple):
     inf_min: int
     gap_mode: int
     wbits: int = 4  # out-edge weight bits above the 16-wbits id bits
+    #                 (wmode 0 only)
+    wmode: int = 0  # 0 = unit weights, out-edge halves; 1 = qv weights,
+    #                 out-edge words id | w<<16 (every edge's weight sum
+    #                 < 2^15, bounded by the dispatcher) and a per-base
+    #                 weight stream (ref weight[q] per resolving edge,
+    #                 native/poagraph.c pg_add_graph_sequence)
 
 
 class GState(NamedTuple):
@@ -66,10 +74,11 @@ class GState(NamedTuple):
 class PackedState(NamedTuple):
     """The loop carry in the packed form both kernels consume.
     ctrl: base(3)|n_out(4)<<3|n_al(3)<<7|n_in(4)<<10|remain(16,s)<<16;
-    outp: out-edge halves id|w<<(16-wbits); inp/alp: id halves;
-    i2nn: the topo maps packed as i2n | n2i<<16. All int32."""
+    outp: out-edge halves id|w<<(16-wbits) (wmode 0) or words id|w<<16
+    (wmode 1); inp/alp: id halves; i2nn: the topo maps packed as
+    i2n | n2i<<16. All int32."""
     ctrl: torch.Tensor    # [B, R]
-    outp: torch.Tensor    # [B, R*E//2]
+    outp: torch.Tensor    # [B, R*E//2] (wmode 0) or [B, R*E] (wmode 1)
     inp: torch.Tensor     # [B, R*P//2]
     alp: torch.Tensor     # [B, R*((A+1)//2)]
     i2nn: torch.Tensor    # [B, R]
@@ -97,12 +106,11 @@ def pack_state(cfg: LoopConfig, st: GState, i2n, n2i, remain) -> PackedState:
     """GState (+ topo/remain arrays, node-id indexed) -> PackedState.
     All inputs are int tensors on one device."""
     B, R = st.bases.shape[0], cfg.R
-    E2, P2, A2 = cfg.E // 2, cfg.P // 2, (cfg.A + 1) // 2
-    IDB = 16 - cfg.wbits
+    P2, A2 = cfg.P // 2, (cfg.A + 1) // 2
     st = GState(*(x.to(I32) for x in st))
     ctrl = (st.bases | (st.n_out << 3) | (st.n_al << 7) | (st.n_in << 10)
             | ((remain.to(I32) & 0xFFFF) << 16))
-    outp = _pack2(st.out_ids | (st.out_w << IDB), B, R, E2)
+    outp = pack_outp(cfg, st.out_ids, st.out_w)
     inp = _pack2(st.in_ids, B, R, P2)
     alp = _pack2(st.al_ids, B, R, A2)
     i2nn = (i2n.to(I32) & 0xFFFF) | (n2i.to(I32) << 16)
@@ -112,17 +120,37 @@ def pack_state(cfg: LoopConfig, st: GState, i2n, n2i, remain) -> PackedState:
                        st.fail.contiguous())
 
 
+def pack_outp(cfg: LoopConfig, out_ids, out_w):
+    """Out-edge ids and weights [B, R, E] -> the packed out-edge entries:
+    halves id | w<<(16-wbits) (wmode 0) or words id | w<<16 (wmode 1)."""
+    B, R = out_ids.shape[0], cfg.R
+    out_ids, out_w = out_ids.to(I32), out_w.to(I32)
+    if cfg.wmode:
+        return (out_ids | (out_w << 16)).reshape(B, R * cfg.E)
+    return _pack2(out_ids | (out_w << (16 - cfg.wbits)), B, R, cfg.E // 2)
+
+
+def unpack_outp(cfg: LoopConfig, outp):
+    """The packed out-edge entries -> (out_ids, out_w), each [B, R, E]."""
+    B, R, E = outp.shape[0], cfg.R, cfg.E
+    if cfg.wmode:
+        ow = outp.reshape(B, R, E)
+        return ow & 0xFFFF, ow >> 16
+    IDB = 16 - cfg.wbits
+    ow = _unpack2(outp, B, R, E // 2, E)
+    return ow & ((1 << IDB) - 1), ow >> IDB
+
+
 def unpack_state(cfg: LoopConfig, ps: PackedState):
     """PackedState -> (GState, i2n, n2i, remain)."""
     B, R = ps.ctrl.shape[0], cfg.R
-    E, P, A = cfg.E, cfg.P, cfg.A
-    E2, P2, A2 = E // 2, P // 2, (A + 1) // 2
-    IDB = 16 - cfg.wbits
+    P, A = cfg.P, cfg.A
+    P2, A2 = P // 2, (A + 1) // 2
     ctrl = ps.ctrl
-    ow = _unpack2(ps.outp, B, R, E2, E)
+    out_ids, out_w = unpack_outp(cfg, ps.outp)
     st = GState(
         bases=ctrl & 7,
-        out_ids=ow & ((1 << IDB) - 1), out_w=ow >> IDB,
+        out_ids=out_ids, out_w=out_w,
         n_out=(ctrl >> 3) & 15,
         in_ids=_unpack2(ps.inp, B, R, P2, P), n_in=(ctrl >> 10) & 15,
         al_ids=_unpack2(ps.alp, B, R, A2, A), n_al=(ctrl >> 7) & 7,
@@ -145,6 +173,16 @@ def pack_qp4(cfg: LoopConfig, qcodes: torch.Tensor) -> torch.Tensor:
         qb = torch.cat([qb, pad], dim=-1)
     return (qb[..., 0::4] | (qb[..., 1::4] << 8) | (qb[..., 2::4] << 16)
             | (qb[..., 3::4] << 24)).contiguous()
+
+
+def pack_qw(cfg: LoopConfig, qweights: torch.Tensor) -> torch.Tensor:
+    """Per-base weights [..., Wq] (0-based: the weight of query base i at
+    i; each < 2^15) -> 16-bit halves, two per int32 word, low half even
+    (wmode 1 only). Leading axes are free."""
+    w = qweights.to(I32) & 0xFFFF
+    if cfg.Wq % 2:
+        w = torch.cat([w, w.new_zeros(*w.shape[:-1], 1)], dim=-1)
+    return (w[..., 0::2] | (w[..., 1::2] << 16)).contiguous()
 
 
 # ------------------------------------------------------------------ #
@@ -253,9 +291,10 @@ def build_scal(cfg: LoopConfig, ps: PackedState, qlen, scal_base, wb: int,
 
 def device_round_packed(cfg: LoopConfig, ps: PackedState, qlen, qpf, qp4,
                         scal_base, wb: int, wf1000: int, misc_out=None,
-                        s16_out=None):
+                        s16_out=None, qw=None):
     """One POA round on the device: the band DP reads the packed state
-    and emits (misc, steps16 wire words); the graph update consumes them.
+    and emits (misc, steps16 wire words); the graph update consumes them
+    (with the round's packed weights qw [B, ceil(Wq/2)] in wmode 1).
     On a CUDA state the graph update rewrites ps's state arrays in
     place. Returns (PackedState, misc, s16w)."""
     from .band_dp import band_poa_dp_packed
@@ -264,18 +303,19 @@ def device_round_packed(cfg: LoopConfig, ps: PackedState, qlen, qpf, qp4,
     misc, s16w = band_poa_dp_packed(band_config(cfg), scal, ps.ctrl,
                                     ps.inp, ps.i2nn, qpf,
                                     misc_out=misc_out, s16_out=s16_out)
-    ps2 = graph_update_packed(cfg, ps, s16w, misc, qlen, qp4)
+    ps2 = graph_update_packed(cfg, ps, s16w, misc, qlen, qp4, qw=qw)
     return ps2, misc, s16w
 
 
 def poa_device_loop(cfg: LoopConfig, st0: GState, i2n0, n2i0, remain0,
                     qcodes_rounds, qlen_rounds, scal_base, wb: int,
-                    wf1000: int):
+                    wf1000: int, qw_rounds=None):
     """NR rounds on the packed carry, all enqueued on the current stream
-    with no host synchronisation. The query-profile folds and packed
-    query codes of all rounds are built before the first round. Inputs
-    are tensors on one device. Returns (final PackedState,
-    misc [NR, B, M_NMISC], s16w [NR, B, LS//2])."""
+    with no host synchronisation. The query-profile folds, packed query
+    codes and (wmode 1) packed weights of all rounds are built before
+    the first round. qw_rounds [NR, B, Wq]: the per-base weight stream,
+    wmode 1 only. Inputs are tensors on one device. Returns (final
+    PackedState, misc [NR, B, M_NMISC], s16w [NR, B, LS//2])."""
     from .band_dp import build_qpf
     ps = pack_state(cfg, st0, i2n0, n2i0, remain0)
     B = ps.ctrl.shape[0]
@@ -283,12 +323,17 @@ def poa_device_loop(cfg: LoopConfig, st0: GState, i2n0, n2i0, remain0,
     qpf_rounds = build_qpf(band_config(cfg), scal_base[L.S_NSCAL:],
                            qcodes_rounds)
     qp4_rounds = pack_qp4(cfg, qcodes_rounds)
+    if (qw_rounds is not None) != bool(cfg.wmode):
+        raise ValueError("poa_device_loop: a weight stream goes with "
+                         "wmode 1 and only with it")
+    qw2_rounds = pack_qw(cfg, qw_rounds) if cfg.wmode else None
     misc = torch.zeros(cfg.NR, B, L.M_NMISC, dtype=I32, device=dev)
     s16w = torch.zeros(cfg.NR, B, cfg.LS // 2, dtype=I32, device=dev)
     for r in range(cfg.NR):
         ps, _, _ = device_round_packed(
             cfg, ps, qlen_rounds[r], qpf_rounds[r], qp4_rounds[r],
-            scal_base, wb, wf1000, misc_out=misc[r], s16_out=s16w[r])
+            scal_base, wb, wf1000, misc_out=misc[r], s16_out=s16w[r],
+            qw=qw2_rounds[r] if cfg.wmode else None)
     return ps, misc, s16w
 
 
@@ -384,7 +429,8 @@ def device_round(cfg: LoopConfig, st: GState, i2n, n2i, remain, qcodes,
 
 
 __all__ = ["LoopConfig", "GState", "PackedState", "pack_state",
-           "unpack_state", "s16w_to_s16", "pack_qp4", "init_state_np",
+           "unpack_state", "pack_outp", "unpack_outp", "s16w_to_s16",
+           "pack_qp4", "pack_qw", "init_state_np",
            "make_scal_base", "build_scal", "device_round_packed",
            "poa_device_loop", "fuse_batch", "build_dp_inputs",
            "device_round"]

@@ -2,8 +2,8 @@
 
 Counterpart of ``abpoa_tpu/parallel/batch.py`` (``BatchPOA``,
 ``_loop_geometry``, ``_DeviceLoop``, the round-based path,
-``batch_msa_from_files``). ``BatchPOA.run`` sends a batch down one of
-two paths, decided by eligibility alone:
+``run_seeded``, ``batch_msa_from_files``). ``BatchPOA.run`` sends a
+batch down one of two paths, decided by eligibility alone:
 
 * the device-resident loop (``_DeviceLoop``), when ``_loop_geometry``
   accepts the batch: global mode, banded, nucleotides, no ``-i``
@@ -22,6 +22,16 @@ two paths, decided by eligibility alone:
   kernel (``ops/fw_dp.py``) when its planes fit the memory budget, else
   the banded-tile kernel (``ops/tile_dp.py``). The host fuses the step
   streams.
+
+``BatchPOA.run_seeded`` runs seeded/progressive POA (``-S``/``-p``):
+seeding, the guide tree and chaining per instance on the host, then
+window rounds: each instance's next window (the read between two
+anchors against the subgraph between their nodes) is exported with its
+reachability row mask, and one kernel per score-width group aligns them
+all: the topo-mode band kernel in its non-fresh mode (the window's band
+state in) when the band fits a block, else the full-width kernel. Both
+gate dead rows by the row mask; the band state is written back for the
+live rows only.
 
 An instance whose device result is unusable (band overflow, walk dead
 end, graph capacity) is rebuilt on the bit-exact oracle: that is the
@@ -46,6 +56,7 @@ from ..ops import graph_update
 from ..ops import layout as L
 from ..ops import poa_loop as pl
 from ..ops.steps import decode_steps_batch, replay_steps, unpack_steps16
+from ..align.export import repad_dense
 
 # two sub-batches pipeline the device loop against the host replay once
 # the batch has at least this many live instances
@@ -102,11 +113,6 @@ def _make_aligners(instances, params, init=None):
     return abs_, rid0
 
 
-def _unit(q):
-    """Unit per-base weights (qv weights are ROADMAP A4q)."""
-    return [1] * len(q)
-
-
 def _step_stream(pend, steps, b, nst, bi, bj):
     """Instance b's int32 step words. A stream longer than the fetch cap
     (long deletion runs) is refetched from the device tensor kept in the
@@ -118,9 +124,11 @@ def _step_stream(pend, steps, b, nst, bi, bj):
     return unpack_steps16(srow, nst, bi, bj) if pend["band"] else srow
 
 
-def _loop_geometry(params, instances):
+def _loop_geometry(params, instances, wmax=None):
     """Static LoopConfig (B unset) for a batch, or None when the batch is
-    outside the device loop's envelope."""
+    outside the device loop's envelope. wmax: with qv weights, the bound
+    on any edge's weight; it selects the wide-weight graph kernel
+    (wmode 1) when it fits 15 bits."""
     from ..align.engine_np import score_width_dispatch
     from ..align.export import pick_WB
     lens = [len(q) for reads in instances for q in reads]
@@ -144,15 +152,22 @@ def _loop_geometry(params, instances):
     # one CUDA thread per band lane
     if Wq >= 32000 or R > 4096 or WB > 1024:
         return None
-    # out-edge weights pack above the node-id bits in 16-bit halves:
-    # unit weights bound an edge's weight by the reads per instance
-    max_reads = max(len(reads) for reads in instances)
-    wbits = max(4, int(max_reads).bit_length())
-    if wbits > 6 or R > (1 << (16 - wbits)):
-        return None
+    if wmax is not None:
+        # qv weights: out-edge entries are full words id | w<<16, so
+        # every edge's weight sum must fit 15 bits
+        if wmax >= (1 << 15):
+            return None
+        wmode, wbits = 1, 4          # wbits is unused in wmode 1
+    else:
+        # out-edge weights pack above the node-id bits in 16-bit halves:
+        # unit weights bound an edge's weight by the reads per instance
+        max_reads = max(len(reads) for reads in instances)
+        wmode, wbits = 0, max(4, int(max_reads).bit_length())
+        if wbits > 6 or R > (1 << (16 - wbits)):
+            return None
     cfg = pl.LoopConfig(R=R, E=12, P=8, A=4, Wq=Wq, WB=WB, LS=LS, NR=NR,
                         B=0, pn=pn, inf_min=inf_min,
-                        gap_mode=params.gap_mode, wbits=wbits)
+                        gap_mode=params.gap_mode, wbits=wbits, wmode=wmode)
     # the graph kernel keeps an instance's state in shared memory
     if graph_update.smem_bytes(cfg) > graph_update.MAX_SMEM_BYTES:
         return None
@@ -184,7 +199,7 @@ class RoundPlan(NamedTuple):
                 .to(dev) for i in range(len(self.arrs[0]))]
 
 
-def round_plan(params, dgs, dev) -> RoundPlan:
+def round_plan(params, dgs, dev, seeded=False) -> RoundPlan:
     """The dispatch rule of one round's group of exports (re-padded to
     one geometry): the topo-mode band kernel when the band fits a block
     (at most 1024 lanes, 16 predecessor slots and the shared memory of
@@ -192,7 +207,11 @@ def round_plan(params, dgs, dev) -> RoundPlan:
     planes fit the memory budget (``_plane_budget``); else the
     banded-tile kernel, whose [R, WB] tiles are chunked to the same
     budget (an instance whose band outgrows its tile goes to the oracle
-    through M_OVFL)."""
+    through M_OVFL).
+
+    seeded: the exports are subgraph windows; the band kernel runs
+    non-fresh (band state and row mask from the export), and there is no
+    third branch: the banded-tile kernel has no row mask."""
     from ..align.export import make_pallas_inputs, pick_WB
     from ..ops import band_dp, fw_dp, tile_dp
     R = dgs[0].R
@@ -218,7 +237,7 @@ def round_plan(params, dgs, dev) -> RoundPlan:
         cfg = band_dp.BandConfig(
             gap_mode=c0.gap_mode, pn=c0.pn, R=R, WB=WB, Wq=WqB, P=P_,
             m=c0.m, bt_lmax=LMAX, align_mode=c0.align_mode,
-            use_zdrop=c0.use_zdrop, fresh=True, nid=False)
+            use_zdrop=c0.use_zdrop, fresh=not seeded, nid=False)
         per = band_dp.band_nplanes(cfg.gap_mode) * R * WB * 4
         kernel, name = band_dp.band_poa_dp_batch, "band_dp_topo"
     else:
@@ -227,6 +246,12 @@ def round_plan(params, dgs, dev) -> RoundPlan:
                              banded=params.wb >= 0)
         per = fw_dp.fw_plane_bytes(cfg)
         kernel, name = fw_dp.fw_poa_dp_batch, "fw_dp"
+        if per > budget and seeded:
+            raise NotImplementedError(
+                f"a window whose band does not fit a block (WB={WB}, "
+                f"R={R}, P={P_}) and whose full-width planes ({per} bytes) "
+                "exceed the memory budget needs the XLA tier of the JAX "
+                "package, not ported yet: ROADMAP A6")
         if per > budget:
             cfg = c0
             per = tile_dp.tile_plane_bytes(cfg)
@@ -260,19 +285,26 @@ class BatchPOA:
     """
 
     def __init__(self, params: Params, device="cuda"):
+        import dataclasses
         self.params = params
+        # the oracle rebuilds (capacity fallbacks, amb_strand retries)
+        # run on the host oracle whatever engine params names
+        self.host_params = dataclasses.replace(params, engine="numpy")
         self.device = resolve_device(device)
         self.dp_cells = 0          # DP cells computed on the device
         self.dp_seconds = 0.0      # wall time of the device phases
         self.dp_intervals = []     # (t0, t1) per device phase
         self.fallbacks = 0         # instances rebuilt on the oracle
         self.rounds = 0
+        self.windows = 0           # seeded windows aligned on the device
+        self.empty_windows = 0     # seeded windows with no bases (no DP)
         self.used_device_loop = False
         self.launches = {"band_dp_topo": 0, "fw_dp": 0,  # round-path plan
                          "tile_dp": 0}
         self.precompute_cons = False   # consensus inside the replay pool
         self.s16_cap = None        # forced step-stream fetch cap (tests:
         #                            exercises the over-cap refetch)
+        self._weights = None       # per-instance per-read qv weights
         self._rid0 = []
         self._lock = threading.Lock()
 
@@ -281,6 +313,13 @@ class BatchPOA:
         thres = (min(len(q), ab.graph.node_n - 2)
                  * self.params.max_mat * .3333)
         return score < thres
+
+    def _weight(self, k, r, q):
+        """Per-base fusion weights of instance k's read r: its qv weights
+        when given (ref abpoa_msa src/abpoa_align.c:373-437), else unit."""
+        if self._weights is not None and self._weights[k] is not None:
+            return self._weights[k][r]
+        return [1] * len(q)
 
     def _rid(self, k, r) -> int:
         """Global read id: instance k's existing reads (incremental
@@ -293,18 +332,42 @@ class BatchPOA:
         if (p.align_mode != GLOBAL_MODE or p.wb < 0 or p.rev_cigar
                 or p.m != 5 or any(r0 != 0 for r0 in self._rid0)):
             return None
-        return _loop_geometry(p, instances)
+        wmax = None
+        if self._weights is not None:
+            # qv weights: the device keeps the true edge weights (the
+            # heaviest-edge chase of max_remain moves the band), so bound
+            # any edge's weight by the per-instance sum of the per-read
+            # weight maxima
+            ws = [[self._weight(k, r, q) for r, q in enumerate(reads)]
+                  for k, reads in enumerate(instances)]
+            if any(len(w) == 0 for wk in ws for w in wk):
+                return None
+            wmax = max((sum(max(w) for w in wk) for wk in ws if wk),
+                       default=0)
+            if wmax < 0:
+                return None
+        return _loop_geometry(p, instances, wmax)
 
     def run(self, instances, weights=None, init=None) -> list[ABPOA]:
-        if weights is not None:
-            raise NotImplementedError("qv weights (wmode=1) are not "
-                                      "ported yet: ROADMAP A4q")
+        """Batched POA of `instances`; weights: per instance, per read,
+        the per-base qv weights (None: unit weights)."""
+        self._weights = weights
         abs_, self._rid0 = _make_aligners(instances, self.params, init)
         cfg = self._loop_eligible(instances)
         if cfg is not None:
             _DeviceLoop(self, abs_, instances, cfg).run()
         else:
             _Rounds(self, abs_, instances).run()
+        return abs_
+
+    def run_seeded(self, instances, weights=None, init=None) -> list[ABPOA]:
+        """Batched seeded/progressive POA (-S/-p, ref abpoa_anchor_poa
+        src/abpoa_align.c:192-299): each instance drives the serial
+        path's own request generator (``ABPOA.anchor_poa_requests``), and
+        every round of windows runs on the device across instances."""
+        self._weights = weights
+        abs_, self._rid0 = _make_aligners(instances, self.params, init)
+        _Windows(self, abs_, instances).run()
         return abs_
 
     def dp_busy_seconds(self) -> float:
@@ -320,13 +383,15 @@ class BatchPOA:
                 end = t1
         return total
 
-    def run_consensus(self, instances, weights=None):
-        """Batched POA then consensus per instance; returns the list of
-        consensus strings per instance (heaviest bundling)."""
+    def run_consensus(self, instances, weights=None, seeded=False):
+        """Batched POA (seeded: ``run_seeded``) then consensus per
+        instance; returns the list of consensus strings per instance
+        (heaviest bundling)."""
         from ..consensus import generate_consensus
         from ..alphabet import decode_table
         self.precompute_cons = True
-        abs_ = self.run(instances, weights=weights)
+        abs_ = (self.run_seeded(instances, weights=weights) if seeded
+                else self.run(instances, weights=weights))
         tab = decode_table(self.params.m)
 
         def cons_one(ab):
@@ -345,16 +410,12 @@ def batch_msa_from_files(params, fns, out, device="cuda"):
     fuse."""
     from ..seqio import read_seqs
     from ..alphabet import encode_table
-    if params.use_qv:
-        raise NotImplementedError("qv weights (-Q) are not ported yet: "
-                                  "ROADMAP A4q")
-    if not (params.disable_seeding and not params.progressive_poa) \
-            and params.align_mode == GLOBAL_MODE:
-        raise NotImplementedError("seeded windows (-S/-p) are not ported "
-                                  "yet: ROADMAP A7")
     tab = encode_table(params.m)
     instances = []
     names = []
+    # qv weights (-Q): ord(qual) - 32 per base, unit for a record without
+    # qualities (ref abpoa.c:135-138)
+    weights = [] if params.use_qv else None
     for fn in fns:
         recs = read_seqs(fn)
         if not recs:
@@ -363,6 +424,9 @@ def batch_msa_from_files(params, fns, out, device="cuda"):
         names.append([r.name for r in recs])
         instances.append([tab[np.frombuffer(r.seq.encode(), dtype=np.uint8)]
                           for r in recs])
+        if weights is not None:
+            weights.append([[ord(c) - 32 for c in r.qual] if r.qual
+                            else [1] * len(r.seq) for r in recs])
     if not instances:
         return
     init = None
@@ -371,12 +435,48 @@ def batch_msa_from_files(params, fns, out, device="cuda"):
 
         def init(ab):
             restore_graph(ab, params)
-    abs_ = BatchPOA(params, device).run(instances, init=init)
+    bp = BatchPOA(params, device)
+    # -S/-p in global mode: seeded window rounds (ref abpoa_msa)
+    seeded = (not (params.disable_seeding and not params.progressive_poa)
+              and params.align_mode == GLOBAL_MODE)
+    run = bp.run_seeded if seeded else bp.run
+    abs_ = run(instances, weights=weights, init=init)
     for ab, nm in zip(abs_, names):
         # restored reads (incremental) keep their names; new reads take
         # the input file's record names
         ab.names = list(ab.names[:ab.n_seq - len(nm)]) + nm
         ab.output(params, out)
+
+
+def _dispatch(bp, group, dgs, r, seeded=False):
+    """Launch one round's DP + walk for a score-width group (in memory
+    chunks) and fetch misc and the capped step streams (and, for seeded
+    windows, the band state of each window's rows). Yields one pending
+    handle per launch."""
+    dev = bp.device
+    plan = round_plan(bp.params, dgs, dev, seeded)
+    step_cap = plan.step_cap
+    if bp.s16_cap is not None:
+        step_cap = max(2, min(step_cap, int(bp.s16_cap)))
+    for c0 in range(0, len(dgs), plan.chunk):
+        part = slice(c0, c0 + plan.chunk)
+        t0 = time.perf_counter()
+        out = plan.kernel(plan.cfg, *plan.stack(part, dev))
+        steps_dev = out.steps16 if plan.band else out.steps
+        misc = out.misc.cpu().numpy()
+        steps = steps_dev[:, :step_cap].cpu().numpy()
+        pend = dict(group=group[part], r=r, band=plan.band, misc=misc,
+                    steps=steps, steps_dev=steps_dev)
+        if seeded:
+            nmax = max(d.n_rows for d in dgs[part])
+            pend["mpl"] = out.mpl[:, :nmax].cpu().numpy()
+            pend["mpr"] = out.mpr[:, :nmax].cpu().numpy()
+        t1 = time.perf_counter()
+        bp.launches[plan.name] += 1
+        bp.dp_seconds += t1 - t0
+        bp.dp_intervals.append((t0, t1))
+        bp.dp_cells += int(misc[:, L.M_CELLS].sum())
+        yield pend
 
 
 class _Rounds:
@@ -400,14 +500,15 @@ class _Rounds:
             for k in live:
                 ab, q = abs_[k], instances[k][r]
                 if ab.graph.node_n <= 2:
-                    ab.graph.add_graph_alignment(params, q, _unit(q), [],
+                    ab.graph.add_graph_alignment(params, q,
+                                                 bp._weight(k, r, q), [],
                                                  None, bp._rid(k, r), True)
                 else:
                     todo.append(k)
             if not todo:
                 continue
             # two-pass export: natural buckets, then re-pad to group max
-            from ..align.export import export_dense, repad_dense
+            from ..align.export import export_dense
 
             def sort_export(k):
                 g = abs_[k].graph
@@ -422,34 +523,9 @@ class _Rounds:
             for pn in sorted({d.pn for d in nat.values()}):
                 group = [k for k in todo if nat[k].pn == pn]
                 dgs = [repad_dense(nat[k], R, W, P_, O_) for k in group]
-                for pend in self._dispatch(group, dgs, r):
+                for pend in _dispatch(bp, group, dgs, r):
                     self._collect(pend)
             bp.rounds += 1
-
-    def _dispatch(self, group, dgs, r):
-        """Launch one round's DP + walk for a score-width group (in memory
-        chunks) and fetch misc and the capped step streams. Yields one
-        pending handle per launch."""
-        bp = self.bp
-        dev = bp.device
-        plan = round_plan(bp.params, dgs, dev)
-        step_cap = plan.step_cap
-        if bp.s16_cap is not None:
-            step_cap = max(2, min(step_cap, int(bp.s16_cap)))
-        for c0 in range(0, len(dgs), plan.chunk):
-            part = slice(c0, c0 + plan.chunk)
-            t0 = time.perf_counter()
-            out = plan.kernel(plan.cfg, *plan.stack(part, dev))
-            steps_dev = out.steps16 if plan.band else out.steps
-            misc = out.misc.cpu().numpy()
-            steps = steps_dev[:, :step_cap].cpu().numpy()
-            t1 = time.perf_counter()
-            bp.launches[plan.name] += 1
-            bp.dp_seconds += t1 - t0
-            bp.dp_intervals.append((t0, t1))
-            bp.dp_cells += int(misc[:, L.M_CELLS].sum())
-            yield dict(group=group[part], r=r, band=plan.band, misc=misc,
-                       steps=steps, steps_dev=steps_dev)
 
     def _collect(self, pend):
         """Fuse a launch's results into the host graphs (per instance, on
@@ -466,7 +542,7 @@ class _Rounds:
             b, k = b_k
             ab = abs_[k]
             q = instances[k][r]
-            w = _unit(q)
+            w = bp._weight(k, r, q)
             rid = bp._rid(k, r)
             mi = misc[b]
             bad = bool(mi[L.M_OVFL] or mi[L.M_FAIL])
@@ -480,7 +556,7 @@ class _Rounds:
                     bad or bp._amb_flagged(ab, q, int(mi[L.M_BEST]))):
                 # rc-retry candidate: the sequential fwd+rc body (the
                 # device fwd equals its fwd), ref abpoa_align.c:315
-                ab.poa_one(params, q, w, rid)
+                ab.poa_one(bp.host_params, q, w, rid)
                 return
             if bad:
                 with bp._lock:
@@ -491,7 +567,7 @@ class _Rounds:
             elif isinstance(ab.graph, NativeGraph) and not params.rev_cigar:
                 ab.graph.fuse_steps(params, 0, step_stream(), nst,
                                     int(mi[L.M_BJ]), int(mi[L.M_ENDJ]), q,
-                                    rid, True)
+                                    rid, True, weight=w)
                 return
             else:
                 res = AlignResult()
@@ -504,6 +580,152 @@ class _Rounds:
 
         # each instance mutates its own graph; the hot path is one C call
         list(_host_pool().map(fuse_one, enumerate(pend["group"])))
+
+
+class _Windows:
+    """One batched seeded execution: per instance the guide-tree
+    partition and its request generator; per round, every instance's
+    pending window exported (subgraph + row mask) and aligned by one
+    kernel launch per score-width group and memory chunk, then each
+    generator advanced with its window's result."""
+
+    def __init__(self, bp: BatchPOA, abs_, instances):
+        self.bp = bp
+        self.abs_ = abs_
+        self.instances = instances
+        self.gens = []
+
+    def _start(self, k):
+        """Seeding, guide tree and chaining of instance k (host); returns
+        (its request generator, the first request or None)."""
+        from ..seed import build_guide_tree_partition
+        bp, params = self.bp, self.bp.params
+        reads = self.instances[k]
+        seq_lens = [len(q) for q in reads]
+        ws = [bp._weight(k, r, q) for r, q in enumerate(reads)]
+        rmap, par_anchors, par_c = build_guide_tree_partition(
+            reads, seq_lens, params)
+        gen = self.abs_[k].anchor_poa_requests(
+            params, reads, ws, seq_lens, par_anchors, par_c, rmap,
+            bp._rid0[k])
+        return gen, next(gen, None)
+
+    def _export(self, k, req):
+        """The device export of instance k's window, or None when the
+        window has no DP on the device (an empty graph, or no bases)."""
+        from ..align.export import export_dense
+        params = self.bp.params
+        beg_id, end_id, window = req
+        g = self.abs_[k].graph
+        if g.node_n <= 2 or len(window) == 0:
+            return None
+        if not g.is_topological_sorted:
+            g.topological_sort(params)
+        bi = int(g.node_id_to_index[beg_id])
+        ei = int(g.node_id_to_index[end_id])
+        if ei - bi + 1 > 4096 or len(window) >= (1 << 17):
+            raise NotImplementedError(
+                f"a window of {ei - bi + 1} rows and {len(window)} bases "
+                "is past the packed step word and needs the XLA tier of "
+                "the JAX package, not ported yet: ROADMAP A6")
+        return export_dense(g, params, window, beg_index=bi, end_index=ei)
+
+    def _oracle(self, k, req):
+        """Instance k's window on the host oracle (None on an empty
+        graph: the first read fuses with no alignment)."""
+        from ..align.engine_np import align_sequence_to_subgraph
+        beg_id, end_id, window = req
+        ab = self.abs_[k]
+        if ab.graph.node_n <= 2:
+            return None
+        if not ab.graph.is_topological_sorted:
+            ab.graph.topological_sort(self.bp.params)
+        return align_sequence_to_subgraph(ab.graph, self.bp.host_params,
+                                          beg_id, end_id, window,
+                                          arena=ab.arena)
+
+    def run(self):
+        # the host work runs on the calling thread: it is short Python and
+        # numpy steps per window, which a thread pool only serialises on
+        # the GIL (3-4x slower per window, measured)
+        bp = self.bp
+        started = [self._start(k) for k in range(len(self.instances))]
+        self.gens = [gen for gen, _ in started]
+        reqs = {k: req for k, (_, req) in enumerate(started)
+                if req is not None}
+        while reqs:
+            todo = sorted(reqs)
+            dgs = {k: self._export(k, reqs[k]) for k in todo}
+            results = {}
+            for k in todo:
+                if dgs[k] is None:
+                    # an empty window has no DP: the oracle, as in the JAX
+                    # package (an empty graph aligns nothing)
+                    if self.abs_[k].graph.node_n > 2:
+                        bp.empty_windows += 1
+                    results[k] = self._oracle(k, reqs[k])
+            live = [k for k in todo if dgs[k] is not None]
+            if live:
+                R = max(dgs[k].R for k in live)
+                W = max(dgs[k].W for k in live)
+                P_ = max(dgs[k].P for k in live)
+                O_ = max(dgs[k].O for k in live)
+                for pn in sorted({dgs[k].pn for k in live}):
+                    group = [k for k in live if dgs[k].pn == pn]
+                    padded = [repad_dense(dgs[k], R, W, P_, O_)
+                              for k in group]
+                    for pend in _dispatch(bp, group, padded, bp.rounds,
+                                          seeded=True):
+                        results.update(self._apply(pend, reqs, dgs))
+                bp.windows += len(live)
+            bp.rounds += 1
+            reqs = {k: req for k in todo
+                    if (req := self._advance(k, results[k])) is not None}
+
+    def _advance(self, k, result):
+        """Send instance k's window result to its generator (which fuses
+        the read once its last window is in); its next request or None."""
+        try:
+            return self.gens[k].send(result)
+        except StopIteration:
+            return None
+
+    def _apply(self, pend, reqs, dgs):
+        """One launch's window results: the band state written back for
+        each window's live rows and the steps replayed into its cigar; a
+        band overflow or walk dead end goes to the oracle (counted in
+        fallbacks). Returns {instance: AlignResult}."""
+        from ..align.engine_np import AlignResult
+        bp, params = self.bp, self.bp.params
+        misc, steps = pend["misc"], pend["steps"]
+        results = {}
+        for b, k in enumerate(pend["group"]):
+            mi = misc[b]
+            if mi[L.M_FAIL] or mi[L.M_OVFL]:
+                # re-runs from the pre-call band state: nothing was
+                # written back for this window
+                bp.fallbacks += 1
+                results[k] = self._oracle(k, reqs[k])
+                continue
+            g = self.abs_[k].graph
+            dg = dgs[k]
+            n, bi = dg.n_rows, dg.beg_index
+            if params.wb >= 0:
+                live = dg.rowmask[:n] > 0
+                ids = np.asarray(g.index_to_node_id[bi:bi + n],
+                                 dtype=np.int64)[live]
+                g.node_id_to_max_pos_left[ids] = pend["mpl"][b, :n][live]
+                g.node_id_to_max_pos_right[ids] = pend["mpr"][b, :n][live]
+            res = AlignResult()
+            res.best_score = int(mi[L.M_BEST])
+            nst = int(mi[L.M_NSTEPS])
+            stp = _step_stream(pend, steps, b, nst, int(mi[L.M_BI]),
+                               int(mi[L.M_BJ]))
+            results[k] = replay_steps(
+                g, params, np.asarray(reqs[k][2]), stp, nst, int(mi[L.M_BI]),
+                int(mi[L.M_BJ]), int(mi[L.M_ENDI]), int(mi[L.M_ENDJ]), res,
+                row0=bi)
+        return results
 
 
 class _DeviceLoop:
@@ -525,10 +747,15 @@ class _DeviceLoop:
         st, i2n, n2i, remain = pl.init_state_np(graphs, cfg)
         qc = np.zeros((cfg.NR, cfg.B, cfg.Wq), np.int8)
         ql = np.zeros((cfg.NR, cfg.B), np.int32)
+        # wmode 1: the per-base weight stream, 0-based (ref weight[q])
+        qw = (np.zeros((cfg.NR, cfg.B, cfg.Wq), np.int32)
+              if cfg.wmode else None)
         for b, k in enumerate(part):
             for r, q in enumerate(self.instances[k][1:]):
                 qc[r, b, 1:len(q) + 1] = q
                 ql[r, b] = len(q)
+                if cfg.wmode:
+                    qw[r, b, :len(q)] = bp._weight(k, r + 1, q)
 
         def put(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(
@@ -537,7 +764,8 @@ class _DeviceLoop:
         psF, misc_d, s16_d = pl.poa_device_loop(
             cfg, st_d, put(i2n), put(n2i), put(remain), put(qc), put(ql),
             put(pl.make_scal_base(params, cfg)), int(params.wb),
-            int(round(params.wf * 1000)))
+            int(round(params.wf * 1000)),
+            qw_rounds=put(qw) if cfg.wmode else None)
         maxlen = int(ql.max())
         cap = min(cfg.LS, (maxlen + max(96, maxlen // 4) + 63) // 64 * 64)
         if bp.s16_cap is not None:
@@ -560,11 +788,11 @@ class _DeviceLoop:
     def run(self):
         bp, params = self.bp, self.bp.params
         abs_, instances = self.abs_, self.instances
-        for ab, reads in zip(abs_, instances):
+        for k, (ab, reads) in enumerate(zip(abs_, instances)):
             if reads:
                 ab.graph.add_graph_alignment(params, reads[0],
-                                             _unit(reads[0]), [], None, 0,
-                                             True)
+                                             bp._weight(k, 0, reads[0]), [],
+                                             None, 0, True)
                 ab.graph.topological_sort(params)
         live = [k for k, reads in enumerate(instances) if len(reads) >= 2]
         if len(live) >= SPLIT_MIN:
@@ -608,7 +836,7 @@ class _DeviceLoop:
                 # sticky device failure: rebuild on the bit-exact oracle
                 ab.graph.reset()
                 for r, q in enumerate(reads):
-                    ab.poa_one(params, q, _unit(q), r)
+                    ab.poa_one(bp.host_params, q, bp._weight(k, r, q), r)
             else:
                 g = ab.graph
                 for r, q in enumerate(reads[1:]):
@@ -619,8 +847,8 @@ class _DeviceLoop:
                         # the device ran fw-only, so from the first flagged
                         # round the sequential fwd+rc body finishes
                         for rr in range(r + 1, len(reads)):
-                            ab.poa_one(params, reads[rr], _unit(reads[rr]),
-                                       rr)
+                            ab.poa_one(bp.host_params, reads[rr],
+                                       bp._weight(k, rr, reads[rr]), rr)
                         break
                     nst = int(mi[L.M_NSTEPS])
                     if nst > s16.shape[2]:   # over the fetch cap: refetch
@@ -635,7 +863,8 @@ class _DeviceLoop:
                     if isinstance(g, NativeGraph):
                         g.fuse_steps(params, 0, steps32, nst,
                                      int(mi[L.M_BJ]), int(mi[L.M_ENDJ]),
-                                     q, r + 1, True)
+                                     q, r + 1, True,
+                                     weight=bp._weight(k, r + 1, q))
                     else:
                         from ..align.engine_np import AlignResult
                         res = AlignResult()
@@ -643,7 +872,8 @@ class _DeviceLoop:
                                      int(mi[L.M_BI]), int(mi[L.M_BJ]),
                                      int(mi[L.M_ENDI]), int(mi[L.M_ENDJ]),
                                      res)
-                        g.add_graph_alignment(params, q, _unit(q),
+                        g.add_graph_alignment(params, q,
+                                              bp._weight(k, r + 1, q),
                                               res.cigar, None, r + 1, True)
             if bp.precompute_cons:
                 from ..consensus import generate_consensus

@@ -95,10 +95,11 @@ class Params:
     max_mat: int = 0
     min_mis: int = 0
 
-    # engine of the serial DP: "numpy" or "auto" (the exact host oracle)
-    # or "torch" (the device engine, align/engine_torch.py); post_set
-    # reads "jax" as "torch", so the JAX package's command lines run
-    engine: str = "auto"
+    # engine of the serial DP: "torch" (the device engine,
+    # align/engine_torch.py, the default) or "numpy"/"auto" (the exact
+    # host oracle, only when asked); post_set reads "jax" as "torch", so
+    # the JAX package's command lines run
+    engine: str = "torch"
     # the device engine's device: "cuda" (the kernels) or "cpu" (their
     # plain versions)
     device: str = "cuda"

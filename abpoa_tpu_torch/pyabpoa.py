@@ -72,7 +72,6 @@ class msa_aligner:
         from .device import resolve_device
         resolve_device(device)
         p = Params()
-        p.engine = "torch"
         p.device = device
         modes = {'g': GLOBAL_MODE, 'l': LOCAL_MODE, 'e': EXTEND_MODE}
         if aln_mode not in modes:

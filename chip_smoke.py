@@ -20,9 +20,17 @@ Phases (each prints its own lines; any failed check exits non-zero):
      heter.fa round 14 (B=1, global convex), extend mode with z-drop 100
      (B=8), and a tile forced too narrow (M_OVFL); misc, steps, band
      state and every tile bit-equal; times of each
+  3d. B2's wmode-1 instance (qv weights) vs plain on the last round of
+     64 x heter.fa with qv weights (rng 77), bit-equal; times
+  3e. B3 non-fresh and B4 under the row mask vs plain on a real window
+     round of 64 config-5-shaped instances (-S), bit-equal; times
   4. device loop -- BatchPOA(device="cuda").run_consensus over
      64 x heter.fa: golden consensus bytes, no oracle fallback, every
      round through both kernels (launch counts); e2e seconds, DP cells/s
+  4b. qv device loop -- 64 x heter.fa with qv weights: the port's serial
+     oracle under the same weights, no fallback, one B1 and one wmode-1
+     B2 launch per round and sub-batch; e2e; then -l -Q over 64 x seq.fq
+     gives seq_fq_Q_cons.fa 64 times
   5. list mode -- batch_msa_from_files over 4 x heter.fa writes the
      golden bytes 4 times
   6. round path -- run_consensus over 64 x heter.fa with -m 1 (full-width
@@ -37,6 +45,9 @@ Phases (each prints its own lines; any failed check exits non-zero):
      heter.fa -d2: golden bytes, B5 launched once per read after the
      first on banded runs, B4 once per B5 result re-run there (M_OVFL or
      M_FAIL) and once per read after the first with -m 1; e2e median of 3
+  8b. CLI -S, -S -p, -S -n 100 on heter.fa through the serial engine:
+     golden bytes, one B4 launch per non-empty window, the oracle only
+     for the empty windows
   9. CLI list mode -- -l over 64 x heter.fa: golden bytes 64 times
      through the device loop (one launch of B1 and B2 per round and
      sub-batch)
@@ -45,6 +56,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
      standalone Kahn sort B6, remain) and split=False (the packed
      two-kernel round): identical graph state, topo maps and remain; then
      B6 vs plain on each round's state, bit-equal; times
+  11. seeded -- run_seeded over N_SEEDED config-5-shaped instances
+     (heter.fa reads, instance k trimmed by (k % 5) * 120): each equals
+     the port's serial oracle of its trim class, no fallback; e2e median,
+     windows/s, DP cells/s
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -63,6 +78,9 @@ HETER = DATA / "heter.fa"
 GOLD = GOLD_SAN / "heter_cons.fa"
 N_INST = 64      # instances of heter.fa in the slices (the bench workload)
 N_CMP = 8        # instances in the kernel-vs-plain phases
+N_SEEDED = 256   # config-5-shaped instances of the seeded phase (1024
+#                  took over 60 s a run on the host's share of the work)
+QV_SEED = 77     # seed of the qv weights (integers in [1, 60) per base)
 REPS = 3         # timed slice runs after one warm-up
 
 # the bound of a kernel: the larger of its bytes (inputs read once,
@@ -112,6 +130,7 @@ def wrappers():
 def reset_launches():
     for w in wrappers().values():
         w.launches = 0
+    wrappers()["graph_update"].qv_launches = 0
 
 
 def launches_now():
@@ -160,14 +179,51 @@ def host_ms(fn, n):
     return total / n
 
 
+def loop_inputs(dev, params, insts, cfg, ws=None):
+    """The device loop's inputs for `insts` (read 0 fused on the host,
+    per-base weights `ws` in wmode 1): (packed state, scal base, qlen,
+    query folds, packed query codes, packed weights or None), the
+    per-round ones stacked over the NR rounds."""
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch.graph import NativeGraph, POAGraph
+    from abpoa_tpu_torch.ops import poa_loop as pl
+    from abpoa_tpu_torch.ops import band_dp as bd
+    from abpoa_tpu_torch.ops import layout as L
+    graphs = []
+    for b, reads in enumerate(insts):
+        g = NativeGraph() if NativeGraph.available() else POAGraph()
+        g.add_graph_alignment(params, reads[0], ws[b][0] if ws else
+                              [1] * len(reads[0]), [], None, 0, True)
+        g.topological_sort(params)
+        graphs.append(g)
+    st, i2n, n2i, rem = pl.init_state_np(graphs, cfg)
+    ps = pl.pack_state(cfg, pl.GState(*(torch.from_numpy(x).to(dev)
+                                        for x in st)),
+                       *(torch.from_numpy(x).to(dev) for x in (i2n, n2i, rem)))
+    base = torch.from_numpy(pl.make_scal_base(params, cfg)).to(dev)
+    qc = np.zeros((cfg.NR, cfg.B, cfg.Wq), np.int8)
+    ql = np.zeros((cfg.NR, cfg.B), np.int32)
+    qw = np.zeros((cfg.NR, cfg.B, cfg.Wq), np.int32)
+    for b, reads in enumerate(insts):
+        for r, q in enumerate(reads[1:]):
+            qc[r, b, 1:len(q) + 1] = q
+            ql[r, b] = len(q)
+            if ws:
+                qw[r, b, :len(q)] = ws[b][r + 1]
+    qc_d = torch.from_numpy(qc).to(dev)
+    qpf = bd.build_qpf(pl.band_config(cfg), base[L.S_NSCAL:], qc_d)
+    qw2 = pl.pack_qw(cfg, torch.from_numpy(qw).to(dev)) if ws else None
+    return (ps, base, torch.from_numpy(ql).to(dev), qpf,
+            pl.pack_qp4(cfg, qc_d), qw2)
+
+
 def kernel_phase(dev, heter):
     """Both device-loop kernels against their plain versions on the
     inputs of real rounds: round 1 (state after read 0) and the last
     round (state after the kernels ran every earlier round, with
     mismatch bundles)."""
-    import numpy as np
     import torch
-    from abpoa_tpu_torch.graph import NativeGraph, POAGraph
     from abpoa_tpu_torch.params import Params
     from abpoa_tpu_torch.ops import poa_loop as pl
     from abpoa_tpu_torch.ops import band_dp as bd
@@ -179,29 +235,8 @@ def kernel_phase(dev, heter):
     cfg = _loop_geometry(params, insts)._replace(B=N_CMP)
     say(f"geometry: R={cfg.R} WB={cfg.WB} Wq={cfg.Wq} LS={cfg.LS} "
         f"NR={cfg.NR} pn={cfg.pn} inf_min={cfg.inf_min} B={cfg.B}")
-    graphs = []
-    for reads in insts:
-        g = NativeGraph() if NativeGraph.available() else POAGraph()
-        g.add_graph_alignment(params, reads[0], [1] * len(reads[0]), [],
-                              None, 0, True)
-        g.topological_sort(params)
-        graphs.append(g)
-    st, i2n, n2i, rem = pl.init_state_np(graphs, cfg)
-    ps = pl.pack_state(cfg, pl.GState(*(torch.from_numpy(x).to(dev)
-                                        for x in st)),
-                       *(torch.from_numpy(x).to(dev) for x in (i2n, n2i, rem)))
-    base = torch.from_numpy(pl.make_scal_base(params, cfg)).to(dev)
-    qc = np.zeros((cfg.NR, cfg.B, cfg.Wq), np.int8)
-    ql = np.zeros((cfg.NR, cfg.B), np.int32)
-    for b, reads in enumerate(insts):
-        for r, q in enumerate(reads[1:]):
-            qc[r, b, 1:len(q) + 1] = q
-            ql[r, b] = len(q)
-    qc_d = torch.from_numpy(qc).to(dev)
-    ql_d = torch.from_numpy(ql).to(dev)
+    ps, base, ql_d, qpf, qp4, _ = loop_inputs(dev, params, insts, cfg)
     bc = pl.band_config(cfg)
-    qpf = bd.build_qpf(bc, base[L.S_NSCAL:], qc_d)
-    qp4 = pl.pack_qp4(cfg, qc_d)
     wf1000 = round(params.wf * 1000)
     rec = {"band_dp": {"max_abs_err": 0}, "graph_update": {"max_abs_err": 0}}
     for r in (0, cfg.NR - 1):
@@ -398,9 +433,11 @@ def round_kernel_phase(dev, heter):
 
 def serial_consensus(params, path):
     """The port's serial oracle consensus of one input file (CPU)."""
+    import dataclasses
     from abpoa_tpu_torch.api import ABPOA
     out = io.StringIO()
-    ABPOA().msa_from_file(params, str(path), out)
+    ABPOA().msa_from_file(dataclasses.replace(params, engine="numpy"),
+                          str(path), out)
     return out.getvalue().split("\n")[1]
 
 
@@ -736,6 +773,383 @@ def split_round_phase(dev, heter):
     return {"topo": rec}, launches["topo"]
 
 
+def qv_weights(instances):
+    """The qv weights of a batch: numpy.random.default_rng(77).integers(
+    1, 60, len(q)) for each read, in instance order."""
+    import numpy as np
+    rng = np.random.default_rng(QV_SEED)
+    return [[rng.integers(1, 60, len(q)).tolist() for q in reads]
+            for reads in instances]
+
+
+def qv_kernel_phase(dev, heter):
+    """B2's wmode-1 instance against its plain version on the last round
+    of the 64 x heter.fa qv batch (the state brought there through both
+    kernels)."""
+    import torch
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.ops import poa_loop as pl
+    from abpoa_tpu_torch.ops import band_dp as bd
+    from abpoa_tpu_torch.ops import graph_update as gu
+    from abpoa_tpu_torch.ops import layout as L
+    from abpoa_tpu_torch.parallel.batch import _loop_geometry
+    params = Params().post_set()
+    insts = [heter] * N_INST
+    ws = qv_weights(insts)
+    wmax = max(sum(max(w) for w in wk) for wk in ws)
+    cfg = _loop_geometry(params, insts, wmax)._replace(B=N_INST)
+    check(cfg.wmode == 1, f"qv geometry: wmode {cfg.wmode}")
+    say(f"qv geometry: R={cfg.R} E={cfg.E} Wq={cfg.Wq} wmode=1 wmax={wmax} "
+        f"graph-kernel shared memory {gu.smem_bytes(cfg)} bytes "
+        f"(unit weights {gu.smem_bytes(cfg._replace(wmode=0))})")
+    ps, base, ql_d, qpf, qp4, qw2 = loop_inputs(dev, params, insts, cfg, ws)
+    bc = pl.band_config(cfg)
+    wf1000 = round(params.wf * 1000)
+    r = cfg.NR - 1
+    for rr in range(r):
+        ps, _, _ = pl.device_round_packed(cfg, ps, ql_d[rr], qpf[rr],
+                                          qp4[rr], base, params.wb, wf1000,
+                                          qw=qw2[rr])
+    scal = pl.build_scal(cfg, ps, ql_d[r], base, params.wb, wf1000)
+    km, ks = bd.band_poa_dp_packed(bc, scal, ps.ctrl, ps.inp, ps.i2nn, qpf[r])
+    args = (ks, km, ql_d[r], qp4[r])
+    gk = gu.graph_update_packed(
+        cfg, pl.PackedState(*(x.clone() for x in ps)), *args, qw=qw2[r])
+    gr = gu.graph_update_packed_ref(cfg, ps, *args, qw=qw2[r])
+    torch.cuda.synchronize()
+    check(not gr.fail.any() and torch.equal(gk.fail, gr.fail),
+          f"qv round {r + 1}: fail flags {gk.fail.tolist()} "
+          f"{gr.fail.tolist()}")
+    check(torch.equal(gk.node_n, gr.node_n), f"qv round {r + 1}: node_n")
+    sk, i2k, n2k, remk = pl.unpack_state(cfg, gk)
+    sr, i2r, n2r, remr = pl.unpack_state(cfg, gr)
+    dm = max((a - b_).abs().max().item() for a, b_ in zip(sk, sr))
+    live = torch.arange(cfg.R, device=dev)[None, :] < gr.node_n[:, None]
+    for a, b_ in ((i2k, i2r), (n2k, n2r), (remk, remr)):
+        dm = max(dm, ((a - b_).abs() * live).max().item())
+    check(dm == 0, f"qv round {r + 1}: graph kernel (wmode 1) != plain "
+          f"(max |d| {dm})")
+    rec = {"max_abs_err": dm}
+
+    def fresh_kernel():
+        c = pl.PackedState(*(x.clone() for x in ps))
+        return lambda: gu.graph_update_packed(cfg, c, *args, qw=qw2[r])
+    rec["ms"] = cuda_ms(fresh_kernel, 20)
+    rec["plain_ms"] = host_ms(lambda: (lambda: gu.graph_update_packed_ref(
+        cfg, ps, *args, qw=qw2[r])), 1)
+    ops = (int(km[:, L.M_NSTEPS].sum())
+           + int(gr.node_n.sum()) * (cfg.E + cfg.P))
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * nbytes(*ps) + nbytes(*args, qw2[r]), ops)
+    say(f"kernels: graph_update (wmode 1) == plain on round {r + 1} of "
+        f"{N_INST} x heter.fa with qv weights (node_n max "
+        f"{int(gr.node_n.max())}, max edge weight {int(sr.out_w.max())}): "
+        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    return {"graph_update_qv": rec}
+
+
+def weighted_oracle(params, insts, ws):
+    """The port's serial oracle consensus per instance under weights."""
+    import dataclasses
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.consensus import generate_consensus
+    from abpoa_tpu_torch.alphabet import decode_table
+    p = dataclasses.replace(params, engine="numpy")
+    dt = decode_table(p.m)
+    out = []
+    for reads, w in zip(insts, ws):
+        ab = ABPOA()
+        ab.n_seq, ab.names, ab.is_rc = len(reads), [""] * len(reads), \
+            [0] * len(reads)
+        ab.poa(p, reads, w, 0)
+        generate_consensus(ab, p)
+        out.append([bytes(dt[b] for b in s).decode()
+                    for s in ab.cons.cons_base[:ab.cons.n_cons]])
+    return out
+
+
+def qv_loop_phase(dev, heter):
+    """64 x heter.fa with qv weights through the device loop (wmode 1):
+    the serial oracle's consensus under the same weights, no fallback,
+    one launch of B1 and of B2's wmode-1 instance per round and
+    sub-batch; e2e median of REPS. Then -l -Q over 64 x seq.fq."""
+    import torch
+    from abpoa_tpu_torch import BatchPOA, batch_msa_from_files
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.parallel.batch import SPLIT_MIN
+    from abpoa_tpu_torch.ops.graph_update import graph_update_packed
+    insts = [heter] * N_INST
+    ws = qv_weights(insts)
+    exp = weighted_oracle(Params().post_set(), insts, ws)
+    n_sub = 2 if N_INST >= SPLIT_MIN else 1
+    want = (len(heter) - 1) * n_sub
+    e2e = []
+    for rep in range(REPS + 1):
+        bp = BatchPOA(Params().post_set(), device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cons = bp.run_consensus(insts, weights=ws)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launches_now()
+        check(cons == exp, "qv loop: consensus != serial oracle")
+        check(bp.used_device_loop and bp.fallbacks == 0,
+              f"qv loop: device loop {bp.used_device_loop}, fallbacks "
+              f"{bp.fallbacks}")
+        check(got["band_dp"] == got["graph_update"] == want
+              and graph_update_packed.qv_launches == want
+              and got["band_dp_topo"] == got["fw_dp"] == got["tile_dp"] == 0,
+              f"qv loop: launches {got}, wmode-1 "
+              f"{graph_update_packed.qv_launches}, expected {want}")
+        if rep == 0:
+            launches = graph_update_packed.qv_launches
+            say(f"qv loop: {N_INST} x heter.fa (rng 77 weights) == serial "
+                f"oracle, fallbacks 0, launches B1 {got['band_dp']}, B2 "
+                f"wmode 1 {launches}, first run {secs:.4f} s")
+        else:
+            e2e.append(secs)
+    med = statistics.median(e2e)
+    say(f"qv loop: e2e {med:.4f} s median of {REPS} "
+        f"{[round(x, 4) for x in e2e]}, device-loop phase "
+        f"{bp.dp_busy_seconds():.4f} s, dp_cells {bp.dp_cells}, dp_cells/s "
+        f"{bp.dp_cells / med:.1f}")
+    p = Params()
+    p.use_qv = True
+    p.post_set()
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    batch_msa_from_files(p, [str(DATA / "seq.fq")] * N_INST, out,
+                         device=dev)
+    secs = time.perf_counter() - t0
+    n_fq = len(reads_of(DATA / "seq.fq"))
+    check(out.getvalue() == (GOLD_SAN / "seq_fq_Q_cons.fa").read_text()
+          * N_INST, "-l -Q: output != seq_fq_Q_cons.fa")
+    check(graph_update_packed.qv_launches == (n_fq - 1) * n_sub,
+          f"-l -Q: {graph_update_packed.qv_launches} wmode-1 launches")
+    say(f"list mode -Q: {N_INST} x seq.fq == seq_fq_Q_cons.fa, wmode-1 "
+        f"launches {graph_update_packed.qv_launches}, {secs:.4f} s")
+    return launches
+
+
+def config5(reads, n):
+    """bench.py's config-5 shape: instance k's reads trimmed at the end
+    by (k % 5) * 120 bases (at least 64 kept)."""
+    return [[q[:max(64, len(q) - (k % 5) * 120)] for q in reads]
+            for k in range(n)]
+
+
+def seeded_params():
+    from abpoa_tpu_torch.params import Params
+    p = Params()
+    p.disable_seeding = False
+    return p.post_set()
+
+
+def window_kernel_phase(dev, heter):
+    """B3 in its non-fresh mode and B4 under the row mask against their
+    plain versions, on the inputs of a real window round of 64
+    config-5-shaped instances (the round with the most partial row
+    masks, then the most windows; heter.fa's windows reach every row
+    between their anchors, so its masks are full), at the dispatch's
+    shapes (the band plan, and the full-width plan forced on the same
+    exports)."""
+    import torch
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.ops import band_dp as bd, fw_dp as fw
+    from abpoa_tpu_torch.ops import layout as L
+    from abpoa_tpu_torch.parallel import batch
+    params = seeded_params()
+    rounds = []
+    plan0 = batch.round_plan
+
+    def capture(params_, dgs, dev_, seeded=False):
+        if seeded:
+            rounds.append(list(dgs))
+        return plan0(params_, dgs, dev_, seeded)
+    batch.round_plan = capture
+    try:
+        BatchPOA(params, device=dev).run_seeded(config5(heter, N_INST))
+    finally:
+        batch.round_plan = plan0
+
+    def partial(dgs):
+        return sum(int((d.rowmask[:d.n_rows] == 0).any()) for d in dgs)
+    dgs = max(rounds, key=lambda d: (partial(d), len(d)))
+    rec = {}
+    smem0 = bd.MAX_SMEM_BYTES
+    for name, what in (("band_dp_topo", "non-fresh, row mask"),
+                       ("fw_dp", "row mask")):
+        if name == "fw_dp":
+            bd.MAX_SMEM_BYTES = 0      # the band no longer fits a block
+        try:
+            plan = batch.round_plan(params, dgs, dev, seeded=True)
+        finally:
+            bd.MAX_SMEM_BYTES = smem0
+        check(plan.name == name and (not plan.band or not plan.cfg.fresh),
+              f"window round: dispatch picked {plan.name}")
+        args = plan.stack(slice(None), dev)
+        ref = (bd.band_poa_dp_batch_ref if plan.band
+               else fw.fw_poa_dp_batch_ref)
+        out = plan.kernel(plan.cfg, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp = ref(plan.cfg, *args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        dm = int((out.misc[:, :L.M_LASTI]
+                  - exp.misc[:, :L.M_LASTI]).abs().max())
+        fields = ["steps"] + (["steps16"] if plan.band else [])
+        for b, d in enumerate(dgs):
+            ns = int(exp.misc[b, L.M_NSTEPS])
+            for f in fields:
+                if ns:
+                    dm = max(dm, int((getattr(out, f)[b, :ns].int()
+                                      - getattr(exp, f)[b, :ns].int())
+                                     .abs().max()))
+            for f in ("beg_sn", "end_sn", "mpl", "mpr"):
+                dm = max(dm, int((getattr(out, f)[b, :d.n_rows]
+                                  - getattr(exp, f)[b, :d.n_rows])
+                                 .abs().max()))
+        check(dm == 0, f"window round: {name} ({what}) != plain "
+              f"(max |d| {dm})")
+        check(not (exp.misc[:, L.M_FAIL] | exp.misc[:, L.M_OVFL]).any(),
+              f"window round: {name} walk failed or overflowed")
+        ms = cuda_ms(lambda: (lambda: plan.kernel(plan.cfg, *args)), 20)
+        cells = int(exp.misc[:, L.M_CELLS].sum())
+        outs = [t for t in out if isinstance(t, torch.Tensor)]
+        bms, bby = bound(nbytes(*args, *outs),
+                         cells * OPS_PER_CELL[params.gap_mode])
+        rec[name] = dict(max_abs_err=dm, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=bby)
+        say(f"kernels: {name} ({what}) == plain on a window round (B="
+            f"{len(dgs)}, {partial(dgs)} partial masks, R={plan.cfg.R}, "
+            f"{'WB=%d' % plan.cfg.WB if plan.band else 'Wq=%d' % plan.cfg.Wq}"
+            f", {int(exp.misc[:, L.M_NSTEPS].sum())} steps, {cells} cells): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} "
+            f"ms ({bby})")
+    return rec
+
+
+def cli_seeded_phase():
+    """The three -S goldens through the CLI's serial engine on the card:
+    one B4 launch per non-empty window (plus one per B5 result re-run
+    there), one B5 launch per whole-graph call (a read without anchors),
+    and the oracle only for the empty windows."""
+    from abpoa_tpu_torch import align
+    from abpoa_tpu_torch.align import engine_torch
+    calls = {}
+    saved = {n: getattr(engine_torch, n) for n in
+             ("align_sequence_to_subgraph_device",
+              "align_sequence_to_graph_device")}
+    oracle0 = align._np_subgraph
+
+    def counted(name, fn):
+        def run(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return run
+    for n, fn in saved.items():
+        setattr(engine_torch, n, counted(n, fn))
+    align._np_subgraph = counted("oracle", oracle0)
+    total = {"fw_dp": 0, "tile_dp": 0}
+    try:
+        for golden, args in (("heter_S_cons.fa", ["-S"]),
+                             ("heter_Sp_cons.fa", ["-S", "-p"]),
+                             ("heter_S_n100_cons.fa", ["-S", "-n", "100"])):
+            calls.clear()
+            reset_launches()
+            engine_torch.reroutes.update(M_OVFL=0, M_FAIL=0)
+            engine_torch.empty_windows = 0
+            t0 = time.perf_counter()
+            out, _err = run_cli(args + [str(HETER)])
+            secs = time.perf_counter() - t0
+            got = launches_now()
+            win = calls.get("align_sequence_to_subgraph_device", 0)
+            whole = calls.get("align_sequence_to_graph_device", 0)
+            rerun = sum(engine_torch.reroutes.values())
+            check(out == (GOLD_SAN / golden).read_text(),
+                  f"CLI {' '.join(args)}: output != {golden}")
+            check(got["fw_dp"] == win + rerun and got["tile_dp"] == whole
+                  and win > 0
+                  and calls.get("oracle", 0) == engine_torch.empty_windows,
+                  f"CLI {' '.join(args)}: launches {got}, windows {win}, "
+                  f"whole-graph calls {whole}, B5 re-run on B4 {rerun}, "
+                  f"oracle calls {calls.get('oracle', 0)}, empty windows "
+                  f"{engine_torch.empty_windows}")
+            total["fw_dp"] += got["fw_dp"]
+            total["tile_dp"] += got["tile_dp"]
+            say(f"CLI {' '.join(args)} heter.fa: {golden} bytes, B4 "
+                f"{got['fw_dp']} launches for {win} windows (+{rerun} B5 "
+                f"re-runs), B5 {got['tile_dp']} for {whole} whole-graph "
+                f"calls, oracle only for the {engine_torch.empty_windows} "
+                f"empty windows, {secs:.4f} s")
+    finally:
+        for n, fn in saved.items():
+            setattr(engine_torch, n, fn)
+        align._np_subgraph = oracle0
+    return total
+
+
+def seeded_phase(dev, heter):
+    """run_seeded over N_SEEDED config-5-shaped instances: each
+    instance's consensus equals the port's serial oracle of its trim
+    class, no fallback, the window kernels' launches equal the dispatch
+    plan; e2e median of REPS, windows/s, DP cells/s."""
+    import dataclasses
+    import torch
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.consensus import generate_consensus
+    from abpoa_tpu_torch.alphabet import decode_table
+    params = seeded_params()
+    insts = config5(heter, N_SEEDED)
+    host = dataclasses.replace(params, engine="numpy")
+    dt = decode_table(5)
+    exp = []
+    for inst in insts[:5]:
+        ab = ABPOA()
+        ab.msa(host, [bytes(dt[b] for b in q).decode() for q in inst])
+        generate_consensus(ab, host)
+        exp.append([bytes(dt[b] for b in s).decode()
+                    for s in ab.cons.cons_base[:ab.cons.n_cons]])
+    e2e = []
+    for rep in range(REPS + 1):
+        bp = BatchPOA(params, device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cons = bp.run_consensus(insts, seeded=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launches_now()
+        check(all(c == exp[k % 5] for k, c in enumerate(cons)),
+              "seeded: consensus != serial oracle of its trim class")
+        check(bp.fallbacks == 0, f"seeded: {bp.fallbacks} oracle fallbacks")
+        round_got = {k: got[k] for k in bp.launches}
+        check(round_got == bp.launches and got["band_dp_topo"] > 0
+              and got["tile_dp"] == 0 and got["band_dp"] == 0
+              and got["graph_update"] == 0,
+              f"seeded: launches {got}, dispatch plan {bp.launches}")
+        if rep == 0:
+            launches = round_got
+            say(f"seeded: {N_SEEDED} config-5 instances == serial oracle "
+                f"(5 trim classes), fallbacks 0, {bp.rounds} window rounds, "
+                f"{bp.windows} windows on the device + {bp.empty_windows} "
+                f"empty, launches {round_got}, first run {secs:.4f} s")
+        else:
+            e2e.append(secs)
+    med = statistics.median(e2e)
+    busy = bp.dp_busy_seconds()
+    say(f"seeded: e2e {med:.4f} s median of {REPS} "
+        f"{[round(x, 4) for x in e2e]}, windows/s {bp.windows / med:.1f}, "
+        f"device phases {busy:.4f} s, host {med - busy:.4f} s, dp_cells "
+        f"{bp.dp_cells}, dp_cells/s {bp.dp_cells / med:.1f}")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -781,6 +1195,12 @@ def main():
     # ---- 3c. banded-tile DP vs plain ----
     rec.update(tile_kernel_phase(dev, heter))
 
+    # ---- 3d. graph kernel, wmode 1 (qv weights), vs plain ----
+    rec.update(qv_kernel_phase(dev, heter))
+
+    # ---- 3e. window-round kernels (B3 non-fresh, B4 row mask) ----
+    window_kernel_phase(dev, heter)
+
     # ---- 4. device loop ----
     from abpoa_tpu_torch import BatchPOA, batch_msa_from_files
     from abpoa_tpu_torch.params import Params
@@ -821,6 +1241,9 @@ def main():
         f", device-loop phase {bp.dp_busy_seconds():.4f} s, dp_cells "
         f"{bp.dp_cells}, dp_cells/s {bp.dp_cells / med:.1f}")
 
+    # ---- 4b. qv device loop, -l -Q ----
+    launches["graph_update_qv"] = qv_loop_phase(dev, heter)
+
     # ---- 5. list mode ----
     out = io.StringIO()
     batch_msa_from_files(Params().post_set(), [str(HETER)] * 4, out,
@@ -837,6 +1260,9 @@ def main():
     # ---- 8. CLI serial engine ----
     launches["tile_dp"] = cli_serial_phase(len(heter))
 
+    # ---- 8b. CLI -S through the serial engine's window path ----
+    cli_seeded_phase()
+
     # ---- 9. CLI list mode ----
     cli_list_phase(len(heter))
 
@@ -844,10 +1270,15 @@ def main():
     topo_rec, launches["topo"] = split_round_phase(dev, heter)
     rec.update(topo_rec)
 
+    # ---- 11. seeded window rounds ----
+    seeded_phase(dev, heter)
+
     src = {"band_dp": ("abpoa_tpu_torch/csrc/band_dp.cu",
                        "abpoa_tpu/ops/dp_pallas_band.py:132"),
            "graph_update": ("abpoa_tpu_torch/csrc/graph_update.cu",
                             "abpoa_tpu/ops/poa_loop.py:840"),
+           "graph_update_qv": ("abpoa_tpu_torch/csrc/graph_update.cu",
+                               "abpoa_tpu/ops/poa_loop.py:840"),
            "band_dp_topo": ("abpoa_tpu_torch/csrc/band_dp.cu",
                             "abpoa_tpu/ops/dp_pallas_band.py:1247"),
            "fw_dp": ("abpoa_tpu_torch/csrc/fw_dp.cu",

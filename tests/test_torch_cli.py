@@ -4,9 +4,9 @@ golden bytes, and the same bytes as the JAX package's CLI for the same
 arguments: the default consensus, -r2, -r3, -m 1, -m 2, -b -1, -c on
 prot.fa, -Q on seq.fq, -s, -g (the .dot file), --engine numpy, and -l
 with 2 files (serial) and 4 files (batched through BatchPOA); on a GPU
-also the list golden over heter.fa and seq.fa. -S exits 1
-naming its ROADMAP item; without a GPU the default device exits 1 with
-the device error. pyabpoa's msa and msa_batch give the golden consensus.
+also the list golden over heter.fa and seq.fa. -S on seq.fa (the
+window path of the serial engine) equals the JAX package's CLI; without
+a GPU the default device exits 1 with the device error. pyabpoa's msa and msa_batch give the golden consensus.
 Exact byte equality.
 """
 import contextlib
@@ -118,11 +118,20 @@ def test_cli_list_mode_golden_on_gpu(tmp_path, cuda_device):
         == (GOLDEN_SAN / "list_cons.fa").read_text()
 
 
-def test_cli_seeded_exits_naming_its_item():
-    from abpoa_tpu_torch.cli import main
-    rc, out, err = run(main, ["--device", "cpu", "-S", SEQ])
-    assert rc == 1 and out == ""
-    assert "NotImplementedError" in err and "ROADMAP A7" in err
+def test_cli_seeded_exits_naming_its_item(monkeypatch):
+    """-S, once refused, now runs: every window of seq.fa through the
+    serial engine's full-width kernel (plain version) gives the JAX
+    package's CLI bytes, with no window on the oracle but the empty
+    ones."""
+    from abpoa_tpu_torch import align
+    from abpoa_tpu_torch.align import engine_torch
+    oracle = []
+    np_sub = align._np_subgraph
+    monkeypatch.setattr(align, "_np_subgraph",
+                        lambda *a, **k: oracle.append(1) or np_sub(*a, **k))
+    monkeypatch.setattr(engine_torch, "empty_windows", 0)
+    assert port(["-S", SEQ]) == jax_cli(["-S", SEQ])
+    assert len(oracle) == engine_torch.empty_windows
 
 
 @pytest.mark.parametrize("name,engine", [("jax", "torch"), ("torch", "torch"),
@@ -150,6 +159,27 @@ def test_cli_default_device_without_gpu_exits():
     rc, out, err = run(main, [SEQ])
     assert rc == 1 and out == ""
     assert "torch.cuda.is_available() is False" in err
+
+
+def test_api_runs_on_the_card_unless_asked():
+    """The library entry points run the serial device engine on the card
+    by default: without a GPU, ABPOA.msa and msa_from_file raise the
+    device error before any read aligns; engine="numpy" asks for the
+    host oracle and gives the golden."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device runs")
+    import dataclasses
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.params import Params
+    p = Params().post_set()
+    assert (p.engine, p.device) == ("torch", "cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        ABPOA().msa(p, _seqs("seq.fa"), out=io.StringIO())
+    with pytest.raises(RuntimeError, match="is_available"):
+        ABPOA().msa_from_file(p, SEQ, io.StringIO())
+    out = io.StringIO()
+    ABPOA().msa_from_file(dataclasses.replace(p, engine="numpy"), SEQ, out)
+    assert out.getvalue() == (GOLDEN_SAN / "seq_cons.fa").read_text()
 
 
 def test_cli_module_entry():

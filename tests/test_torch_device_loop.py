@@ -6,7 +6,9 @@
 * BatchPOA.run_consensus on the CPU equals the serial oracle on a mixed
   batch (capacity fallback, forced step-stream refetch, amb_strand) and
   reproduces the golden consensus of heter.fa; list mode reproduces the
-  golden bytes; out-of-scope batches raise NotImplementedError.
+  golden bytes; a qv-weighted batch runs the loop (wmode 1) and equals
+  the oracle under its weights; a round past the packed step word raises
+  NotImplementedError.
 * On a GPU: the loop through the kernels equals the plain loop.
 Exact equality everywhere.
 """
@@ -46,16 +48,17 @@ def _reads(fn, n=None):
             for r in read_seqs(str(DATA / fn))][:n]
 
 
-def _serial_oracle(instances, params):
+def _serial_oracle(instances, params, weights=None):
     """The JAX package's serial consensus per instance (after restoring
-    params.incr_fn, as its msa does, when that is set)."""
+    params.incr_fn, as its msa does, when that is set), under the
+    per-read qv weights when given."""
     from abpoa_tpu.api import ABPOA
     from abpoa_tpu.consensus import generate_consensus
     from abpoa_tpu.alphabet import decode_table
     from abpoa_tpu.gfa import restore_graph
     dt = decode_table(params.m)
     out = []
-    for reads in instances:
+    for k, reads in enumerate(instances):
         ab = ABPOA()
         if params.incr_fn:
             restore_graph(ab, params)
@@ -63,7 +66,8 @@ def _serial_oracle(instances, params):
         ab.n_seq = n0 + len(reads)
         ab.names = list(ab.names) + [""] * len(reads)
         ab.is_rc = list(ab.is_rc) + [0] * len(reads)
-        ab.poa(params, reads, [[1] * len(q) for q in reads], n0)
+        ab.poa(params, reads, (weights[k] if weights is not None
+                               else [[1] * len(q) for q in reads]), n0)
         generate_consensus(ab, params)
         out.append([bytes(dt[b] for b in s).decode()
                     for s in ab.cons.cons_base[:ab.cons.n_cons]])
@@ -286,19 +290,23 @@ def test_slice_mixed_batch_on_gpu(cuda_device):
 
 @pytest.mark.parametrize("what", ["qv", "long"])
 def test_out_of_scope_raises(what):
-    """qv weights (A4q) and a round beyond the packed step word (the XLA
-    tier, A6) still raise."""
+    """qv weights run the device loop in wmode 1 and give the serial
+    oracle's consensus under the same weights; a round beyond the packed
+    step word (the XLA tier, A6) still raises."""
     from abpoa_tpu_torch import BatchPOA
-    params = Params()
-    kw = {}
+    params = Params().post_set()
     reads = _reads("seq.fa", 3)
     if what == "qv":
-        kw["weights"] = [[[1] * len(q) for q in reads]]
-    else:
-        reads = [np.zeros(40000, np.uint8)] * 2
-    params.post_set()
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        BatchPOA(convert.params(params), device="cpu").run([reads], **kw)
+        rng = np.random.default_rng(3)
+        weights = [[rng.integers(1, 60, len(q)).tolist() for q in reads]]
+        bp = BatchPOA(convert.params(params), device="cpu")
+        assert bp.run_consensus([reads], weights=weights) \
+            == _serial_oracle([reads], params, weights)
+        assert bp.used_device_loop and bp.fallbacks == 0
+        return
+    reads = [np.zeros(40000, np.uint8)] * 2
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        BatchPOA(convert.params(params), device="cpu").run([reads])
 
 
 TURNED_AWAY = ["local", "unbanded", "incremental", "scores32"]

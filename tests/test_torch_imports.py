@@ -4,9 +4,10 @@ chip_smoke.py, imports the JAX package (abpoa_tpu) or JAX.
 * An AST scan of every abpoa_tpu_torch/**/*.py and chip_smoke.py finds
   no such import statement and no importlib/__import__ call naming one.
 * A fresh interpreter that imports abpoa_tpu_torch and runs BatchPOA on
-  the CPU, through the device loop and through the round path, then the
-  CLI (the serial device engine, plain B5) and pyabpoa, ends with
-  neither name in sys.modules.
+  the CPU, through the device loop, the round path, the qv device loop
+  and the seeded window rounds (the port's seed.py), then the CLI (the
+  serial device engine, plain B5; -S on its window engine) and pyabpoa,
+  ends with neither name in sys.modules.
 """
 import ast
 import os
@@ -46,13 +47,13 @@ def _bad_imports(path):
                     yield node.lineno, a.value
 
 
-NEW_IN_SLICE_3 = ["cli.py", "plot.py", "pyabpoa.py", "align/engine_torch.py",
-                  "ops/tile_dp.py", "ops/topo.py"]
+NEW_IN_SLICES = ["cli.py", "plot.py", "pyabpoa.py", "align/engine_torch.py",
+                 "ops/tile_dp.py", "ops/topo.py", "seed.py"]
 
 
 def test_no_import_of_the_jax_package_or_jax():
     assert len(SOURCES) > 20
-    for rel in NEW_IN_SLICE_3:
+    for rel in NEW_IN_SLICES:
         assert ROOT / "abpoa_tpu_torch" / rel in SOURCES, rel
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in SOURCES for line, mod in _bad_imports(p)]
@@ -91,12 +92,23 @@ p.align_mode = LOCAL_MODE
 rounds = BatchPOA(p.post_set(), device="cpu")
 rounds.run([reads, reads[1:]])
 assert loop.used_device_loop and not rounds.used_device_loop
+qv = BatchPOA(Params().post_set(), device="cpu")
+qv.run([reads[:3]], weights=[[[7] * len(q) for q in reads[:3]]])
+assert qv.used_device_loop
+p = Params()
+p.disable_seeding = False
+seeded = BatchPOA(p.post_set(), device="cpu")
+seeded.run_seeded([reads[:3], reads[1:3]])
+assert seeded.windows > 0
 import contextlib, io
 import abpoa_tpu_torch.pyabpoa as pa
 from abpoa_tpu_torch.cli import main
 from abpoa_tpu_torch.ops import tile_dp, topo
 with contextlib.redirect_stdout(io.StringIO()) as out:
     assert main(["--device", "cpu", sys.argv[1]]) == 0
+assert out.getvalue().startswith(">Consensus_sequence")
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert main(["--device", "cpu", "-S", sys.argv[1]]) == 0
 assert out.getvalue().startswith(">Consensus_sequence")
 res = pa.msa_aligner(device="cpu").msa([r.seq for r in read_seqs(
     sys.argv[1])][:3], out_cons=True, out_msa=False)

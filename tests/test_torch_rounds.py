@@ -12,10 +12,14 @@ full-width DP, plain versions on the CPU) end to end.
   kernel; an ineligible one runs the rounds. A round whose band does not
   fit a block and whose full-width planes exceed the plane budget runs
   the banded-tile kernel (round_plan's third branch).
+* qv weights on a batch the loop turns away (-m 1) run the round path
+  with the weights in the host fusion; -S list mode runs the seeded
+  window rounds; -l -Q runs the device loop with qv weights.
 * On a GPU: the same goldens through the kernels.
 Exact equality everywhere.
 """
 import contextlib
+import dataclasses
 import io
 import pathlib
 
@@ -45,7 +49,8 @@ def cuda_device():
 
 def _cli_params(args, monkeypatch):
     """The port's Params for the JAX package CLI's parse of `args` (its
-    run step intercepted), carried across by convert.params."""
+    run step intercepted), carried across by convert.params, with the
+    serial DP on the host oracle (the expected values' engine)."""
     import abpoa_tpu.cli as cli
     from abpoa_tpu_torch import convert
     got = {}
@@ -56,7 +61,7 @@ def _cli_params(args, monkeypatch):
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(io.StringIO()):
         cli.main(list(args) + [str(DATA / "seq.fa")])
-    return convert.params(got["params"])
+    return dataclasses.replace(convert.params(got["params"]), engine="numpy")
 
 
 def _reads(fn, m=5):
@@ -192,21 +197,42 @@ def test_round_plan_third_branch_runs_the_tile_kernel(monkeypatch):
 
 @pytest.mark.parametrize("what", ["qv", "seeded", "qv_list"])
 def test_still_out_of_scope_raises(what, monkeypatch):
-    from abpoa_tpu_torch import BatchPOA, batch_msa_from_files
-    reads = _reads("seq.fa")[:3]
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        if what == "qv":
-            params = _cli_params([], monkeypatch)
-            BatchPOA(params, device="cpu").run(
-                [reads], weights=[[[1] * len(q) for q in reads]])
-        elif what == "seeded":
-            params = _cli_params(["-S"], monkeypatch)
-            batch_msa_from_files(params, [str(DATA / "seq.fa")],
-                                 io.StringIO(), device="cpu")
-        else:
-            params = _cli_params(["-Q"], monkeypatch)
-            batch_msa_from_files(params, [str(DATA / "seq.fq")],
-                                 io.StringIO(), device="cpu")
+    """The batches that were out of scope before qv weights and seeded
+    windows were ported, now served: a qv batch in local mode (the round
+    path, weights in the host fusion) equals the port's serial oracle
+    under the same weights; -S list mode over 2 x seq.fa equals the
+    port's serial oracle per file; -l -Q over 4 x seq.fq (the device
+    loop in wmode 1) gives seq_fq_Q_cons.fa per file."""
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.consensus import generate_consensus
+    from abpoa_tpu_torch.alphabet import decode_table
+    if what == "qv":
+        params = _cli_params(["-m", "1"], monkeypatch)
+        reads = _reads("seq.fa")[:3]
+        rng = np.random.default_rng(11)
+        weights = [[rng.integers(1, 60, len(q)).tolist() for q in reads]]
+        ab = ABPOA()
+        ab.n_seq, ab.names, ab.is_rc = 3, [""] * 3, [0] * 3
+        ab.poa(params, reads, weights[0], 0)
+        generate_consensus(ab, params)
+        dt = decode_table(params.m)
+        exp = [[bytes(dt[b] for b in s).decode()
+                for s in ab.cons.cons_base[:ab.cons.n_cons]]]
+        bp = BatchPOA(params, device="cpu")
+        assert bp.run_consensus([reads], weights=weights) == exp
+        assert not bp.used_device_loop and bp.fallbacks == 0
+        return
+    args, fn, n = ((["-S"], "seq.fa", 2) if what == "seeded"
+                   else (["-Q"], "seq.fq", 4))
+    got = _list_mode(args, fn, n, "cpu", monkeypatch)
+    if what == "seeded":
+        out = io.StringIO()
+        ABPOA().msa_from_file(_cli_params(args, monkeypatch),
+                              str(DATA / fn), out)
+        assert got == out.getvalue() * n
+    else:
+        assert got == (GOLDEN_SAN / "seq_fq_Q_cons.fa").read_text() * n
 
 
 @pytest.mark.gpu

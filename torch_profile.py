@@ -3,11 +3,13 @@
 on one GPU.
 
     python torch_profile.py [--n-inst 64] [--reps 3] [--serial-only]
+                            [--seeded] [--n-seeded 1024]
 
 For each path of the port over N x tests/data/heter.fa -- the device
-loop (default parameters), the round path with -m 1 (full-width DP
-kernel) and with -m 2 (topo-mode band DP kernel) -- after one warm-up
-run (which also builds the kernels):
+loop (default parameters), the device loop with qv weights (rng 77,
+wmode 1), the round path with -m 1 (full-width DP kernel) and with -m 2
+(topo-mode band DP kernel) -- after one warm-up run (which also builds
+the kernels):
   * e2e seconds of run_consensus, median of --reps runs (host clock
     around a run that ends in torch.cuda.synchronize());
   * the wall seconds of each host phase of one more run, timed on the
@@ -19,6 +21,14 @@ run (which also builds the kernels):
   * torch.profiler over one more run: device time and launches per
     kernel, device busy time (the union of all device intervals, copies
     included) and the device's idle share of that run.
+With --seeded, instead, run_seeded over --n-seeded config-5-shaped
+instances (heter.fa reads, instance k trimmed by (k % 5) * 120): the
+same e2e, phases and profile, the host phases being seeding and chaining
+(per instance), window export (export_dense of each pending window, on
+the host pool), dispatch (round_plan: make_pallas_inputs), the device
+phases, the window results (band-state write-back, step replay into the
+cigar) and fusion (the request generators' advance, which fuses each
+finished read), plus windows/s.
 Then the serial device engine through the CLI (``abpoa_tpu_torch.cli``
 main, default flags, tests/data/heter.fa): e2e median of --reps runs,
 and the per-read split of one run into host sort, export
@@ -108,6 +118,11 @@ def phases(timer):
     timer.wrap(B._Rounds, "_collect", "fusion (_collect)")
     timer.wrap(B._DeviceLoop, "_launch", "state build + enqueue")
     timer.wrap(B._DeviceLoop, "_replay", "replay (+ consensus)")
+    timer.wrap(B._Windows, "_start", "seeding + chaining")
+    timer.wrap(B._Windows, "_export", "window export")
+    timer.wrap(B._Windows, "_apply", "window results (write-back, replay)")
+    timer.wrap(B._Windows, "_advance", "fusion (generator advance)")
+    timer.wrap(B._Windows, "_oracle", "empty windows (oracle)")
     try:
         yield
     finally:
@@ -115,12 +130,12 @@ def phases(timer):
         B._host_pool = orig
 
 
-def run_once(make_bp, insts):
+def run_once(make_bp, insts, **kw):
     import torch
     bp = make_bp()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cons = bp.run_consensus(insts)
+    cons = bp.run_consensus(insts, **kw)
     torch.cuda.synchronize()
     return bp, cons, time.perf_counter() - t0
 
@@ -137,16 +152,15 @@ def union(intervals):
     return total
 
 
-def profile_path(name, make_bp, insts, reps, card):
-    import torch
+def profile_path(name, make_bp, insts, reps, card, **kw):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _bp, cons0, warm = run_once(make_bp, insts)
-    e2e = [run_once(make_bp, insts)[2] for _ in range(reps)]
+    _bp, cons0, warm = run_once(make_bp, insts, **kw)
+    e2e = [run_once(make_bp, insts, **kw)[2] for _ in range(reps)]
     med = statistics.median(e2e)
     timer = PhaseTimer()
     with phases(timer):
-        bp, cons, t_ph = run_once(make_bp, insts)
+        bp, cons, t_ph = run_once(make_bp, insts, **kw)
     if cons != cons0:
         raise SystemExit(f"FAILED: {name}: runs disagree")
     ph = dict(timer.s)
@@ -155,7 +169,7 @@ def profile_path(name, make_bp, insts, reps, card):
     ph["device phases"] = bp.dp_busy_seconds()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _b, _c, t_prof = run_once(make_bp, insts)
+        _b, _c, t_prof = run_once(make_bp, insts, **kw)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     kern = {}
     for e in dev:
@@ -167,6 +181,7 @@ def profile_path(name, make_bp, insts, reps, card):
            "warmup_s": warm, "e2e_s": e2e, "e2e_median_s": med,
            "rounds": bp.rounds, "launches": bp.launches,
            "fallbacks": bp.fallbacks, "dp_cells": bp.dp_cells,
+           "windows": bp.windows, "windows_per_s": bp.windows / med,
            "dp_cells_per_s": bp.dp_cells / med,
            "phase_run_s": t_ph, "phases_s": ph,
            "profiled_run_s": t_prof, "device_busy_s": busy,
@@ -178,7 +193,8 @@ def profile_path(name, make_bp, insts, reps, card):
     say(f"{name}: e2e {med:.4f} s median of {reps} "
         f"{[round(x, 4) for x in e2e]} (warm-up {warm:.4f} s), "
         f"{bp.rounds} rounds, fallbacks {bp.fallbacks}, "
-        f"{bp.dp_cells / med:.1f} DP cells/s")
+        f"{bp.dp_cells / med:.1f} DP cells/s, {bp.windows} windows "
+        f"({bp.windows / med:.1f}/s)")
     say(f"{name}: phases of one run of {t_ph:.4f} s: " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])))
     say(f"{name}: profiled run {t_prof:.4f} s, device busy {busy:.4f} s, "
@@ -306,6 +322,9 @@ def main():
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--serial-only", action="store_true",
                     help="profile only the CLI's serial device engine")
+    ap.add_argument("--seeded", action="store_true",
+                    help="profile only run_seeded on the config-5 shape")
+    ap.add_argument("--n-seeded", type=int, default=1024)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -328,18 +347,32 @@ def main():
              for r in read_seqs(str(HETER))]
     insts = [heter] * args.n_inst
 
-    def maker(mode):
+    def maker(mode, seeded=False):
         def make():
             p = Params()
             p.align_mode = mode
+            p.disable_seeding = not seeded
             return BatchPOA(p.post_set(), device="cuda")
         return make
-    recs = [] if args.serial_only else [
-        profile_path(name, maker(mode), insts, args.reps, card)
-        for name, mode in (("device loop", GLOBAL_MODE),
-                           ("rounds -m 1", LOCAL_MODE),
-                           ("rounds -m 2", EXTEND_MODE))]
-    recs.append(profile_serial(args.reps, card))
+    if args.seeded:
+        seeded = [[q[:max(64, len(q) - (k % 5) * 120)] for q in heter]
+                  for k in range(args.n_seeded)]
+        recs = [profile_path("seeded (config 5)", maker(GLOBAL_MODE, True),
+                             seeded, args.reps, card, seeded=True)]
+    elif args.serial_only:
+        recs = [profile_serial(args.reps, card)]
+    else:
+        rng = np.random.default_rng(77)
+        qv = [[rng.integers(1, 60, len(q)).tolist() for q in reads]
+              for reads in insts]
+        recs = [profile_path(name, maker(mode), insts, args.reps, card,
+                             **kw)
+                for name, mode, kw in (
+                    ("device loop", GLOBAL_MODE, {}),
+                    ("device loop qv", GLOBAL_MODE, {"weights": qv}),
+                    ("rounds -m 1", LOCAL_MODE, {}),
+                    ("rounds -m 2", EXTEND_MODE, {}))]
+        recs.append(profile_serial(args.reps, card))
     for r in recs:
         say(json.dumps(r))
     return 0
