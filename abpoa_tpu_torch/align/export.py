@@ -340,11 +340,13 @@ def make_pallas_inputs(dg: DenseGraph, params, WB: int, force_Wq=None,
         rowmask = dg.rowmask.astype(np.int8)
     else:
         rowmask = np.ones(dg.R, dtype=np.int8)
+    # edge counts travel as `narrow` too: a node can have more than 127
+    # in- or out-edges (the sink of a batch of reads ending apart)
     return cfg, (scal, dg.bases.astype(np.int8),
                  dg.pre_idx.reshape(-1).astype(narrow),
-                 dg.pre_n.astype(np.int8),
+                 dg.pre_n.astype(narrow),
                  dg.out_idx.reshape(-1).astype(narrow),
-                 dg.out_n.astype(np.int8), dg.remain.astype(narrow),
+                 dg.out_n.astype(narrow), dg.remain.astype(narrow),
                  qcodes, dg.mpl.astype(narrow), dg.mpr.astype(narrow),
                  rowmask)
 

@@ -17,25 +17,39 @@
 //
 // What bounds it on an H100: the DP is row-sequential (row t reads the
 // rows of its predecessors), so one instance is one block and the work
-// per row is one WB-lane vector (WB = 384 at the heter geometry):
-// latency-bound on block barriers and the L2 round trips of the
-// predecessor rows, not on bandwidth or arithmetic. The design keeps the
-// per-instance control words (ctrl, i2n|n2i, predecessor halves) and the
-// band bounds (bsn, rms) in shared memory, one band lane per thread,
-// the planes (H, E1, E2, backtrack bits: 6.3 MB per instance at
-// R=1024) in device memory where they stay L2-resident between the
-// write of a row and the reads of its successors. The prefix-max
-// recurrences of the F (insertion) scores are block-wide Hillis-Steele
-// scans in shared memory; the row max is two warp-shuffle reductions.
-// Instances run in parallel as independent blocks; nothing carries from
-// one block to another. The walk reads one backtrack word per step on one
-// thread.
+// per row is one WB-lane vector (WB = 384 at the heter geometry). Bytes
+// and operations are 3-4 orders below the time: it is latency-bound on
+// one row's chain of dependent instructions (the pulled band, the
+// predecessor values, a prefix max and a row maximum across the block,
+// the backtrack bits) with a few warps an SM. Planes (H, E1, E2,
+// backtrack bits) live in device memory at lane c mod WB, L2-resident
+// between a row's write and its successors' reads. The design shortens
+// the chain:
+// - each thread owns CPT adjacent band positions (rel) in registers; the
+//   predecessor values are loaded once (the first slot's kept for the
+//   backtrack bits), the row before's from registers when the band did
+//   not move, and the query profile's load overlaps the merge;
+// - the F (insertion) prefix maxes are a serial max over the thread's
+//   positions, a warp-shuffle scan and one warp reduction across warps;
+//   the row maximum and its tie-break are one 64-bit key, two warp
+//   reductions in each warp and across warps: two block barriers a row;
+// - the band state and bounds of a row are pulled from its predecessors'
+//   row maxima and bounds in shared memory, the row just finished from
+//   registers, so no barrier ends a row;
+// - control words, predecessor halves, band bounds and row maxima live in
+//   shared memory; each mode and gap mode is its own instance of the
+//   kernel; pn is a power of two and the division by WB a multiply (no
+//   division on a row's path); the walk reads one backtrack word per step
+//   on one thread.
 #include <cuda_runtime.h>
 
 #include "layout.cuh"
 
 namespace abpoa {
 namespace {
+
+constexpr int CPT = 2;        // band positions a thread owns
+constexpr int MAX_NT = 1024 / CPT;
 
 struct BandArgs {
   const int* scal;   // [B, S_NSCAL]
@@ -53,7 +67,8 @@ struct BandArgs {
   int* E1;
   int* E2;
   int* BT;
-  int R, WB, Wq, P, pn, gm, LS, m, extend, zdrop_on;
+  int R, WB, Wq, P, pn, pn_sh, gm, LS, m, extend, zdrop_on;
+  unsigned wb_inv;   // ceil(2^32 / WB)
 };
 
 __device__ __forceinline__ int pre_at(const int* s_pre, int P2, int R,
@@ -63,56 +78,32 @@ __device__ __forceinline__ int pre_at(const int* s_pre, int P2, int R,
   return v < R - 1 ? v : R - 1;
 }
 
-// block-wide max / min of one int per thread; every thread gets the result
-__device__ int block_max(int v, int* s_red) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(~0u, v, o));
-  int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_red[w] = v;
-  __syncthreads();
-  int r = s_red[0];
-  for (int i = 1; i < nw; ++i) r = max(r, s_red[i]);
-  return r;
-}
-
-__device__ int block_min(int v, int* s_red) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(~0u, v, o));
-  int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_red[w] = v;
-  __syncthreads();
-  int r = s_red[0];
-  for (int i = 1; i < nw; ++i) r = min(r, s_red[i]);
-  return r;
-}
-
-// inclusive prefix max over s[0..n) (one element per thread), in place;
-// two arrays at once (convex gaps scan F1 and F2 together)
-__device__ void scan_max2(int* s1, int* s2, int n) {
-  int i = threadIdx.x;
-  for (int d = 1; d < n; d <<= 1) {
-    int a1 = s1[i], a2 = s2 ? s2[i] : 0;
-    int b1 = i >= d ? s1[i - d] : NEG;
-    int b2 = (s2 && i >= d) ? s2[i - d] : NEG;
-    __syncthreads();
-    s1[i] = max(a1, b1);
-    if (s2) s2[i] = max(a2, b2);
-    __syncthreads();
-  }
+// the row maximum and its tie-break as one key: the larger value, then
+// the smaller (signed) key
+__device__ __forceinline__ u64 best_key(int v, int key) {
+  return ((u64)((unsigned)v ^ 0x80000000u) << 32)
+         | (u64)(~((unsigned)key ^ 0x80000000u));
 }
 
 // band state of a row pulled from its predecessors' row maxima (the
 // reference scatters each row's max position to its out-nodes; every
-// predecessor completes first, so the pull is the same value)
+// predecessor completes first, so the pull is the same value), and the
+// first band segment of its predecessors; the row just finished (prev)
+// comes from registers
 __device__ __forceinline__ void pull_band(const int* s_pre, const int* s_rms,
-                                          int P2, int R, int row, int npre,
-                                          int iw, int& mpl, int& mpr) {
+                                          const int* s_bsn, int P2, int R,
+                                          int row, int npre, int iw,
+                                          int prev, int prev_rms,
+                                          int prev_bsn, int& mpl, int& mpr,
+                                          int& min_pb) {
   mpl = 1 << 29;
   mpr = -(1 << 29);
+  min_pb = 1 << 30;
   bool has_src = false;
   for (int p = 0; p < npre; ++p) {
     int pred = pre_at(s_pre, P2, R, row, p);
-    int wr = s_rms[pred];
+    int wr = pred == prev ? prev_rms : s_rms[pred];
+    min_pb = min(min_pb, (pred == prev ? prev_bsn : s_bsn[pred]) & H16);
     if (wr >= RM_OK) {
       int v = wr & (RM_OK - 1);
       mpl = min(mpl, v);
@@ -124,33 +115,211 @@ __device__ __forceinline__ void pull_band(const int* s_pre, const int* s_rms,
   mpr = max(mpr, has_src ? -(1 << 29) : (iw >> 16));
 }
 
-// up to 1024 band lanes: cap registers at 64 a thread
-template <bool NID>
-__global__ void __launch_bounds__(1024) band_dp_kernel(BandArgs a) {
+// a predecessor's band as the row body reads it: valid, first and last
+// segment (10-bit fields of the JAX kernel's packed staging word)
+struct PBand {
+  bool pvc;
+  int begc, endc;
+};
+
+__device__ __forceinline__ PBand pband(int pw, bool pv) {
+  int pbel = (int)(((unsigned)pw & 0xFFFFu) | (((unsigned)(pw >> 16)) << 10)
+                   | ((unsigned)pv << 20));
+  PBand b;
+  b.pvc = (pbel >> 20) > 0;
+  b.begc = b.pvc ? (pbel & 1023) : (1 << 29);
+  b.endc = b.pvc ? ((pbel >> 10) & 1023) : -(1 << 29);
+  return b;
+}
+
+// what the row body reads of one predecessor row at the thread's lanes
+struct PredVals {
+  int h[CPT];    // H[pred][l]
+  int hm[CPT];   // H[pred][l - 1 mod WB]
+  int e1[CPT];
+  int e2[CPT];
+};
+
+__device__ __forceinline__ void load_pred(PredVals& v, const int* H,
+                                          const int* E1, const int* E2,
+                                          int pred, const int* lane,
+                                          bool vec, int WB, int gm) {
+  const size_t ro = (size_t)pred * WB;
+  if (vec) {
+    const int l0 = lane[0];
+    ld_run<CPT>(H + ro + l0, v.h);
+    v.hm[0] = H[ro + (l0 == 0 ? WB - 1 : l0 - 1)];
+#pragma unroll
+    for (int u = 1; u < CPT; ++u) v.hm[u] = v.h[u - 1];
+    if (gm != LINEAR_GAP) ld_run<CPT>(E1 + ro + l0, v.e1);
+    if (gm == CONVEX_GAP) ld_run<CPT>(E2 + ro + l0, v.e2);
+  } else {
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      const int l = lane[u];
+      v.h[u] = H[ro + l];
+      v.hm[u] = H[ro + (l == 0 ? WB - 1 : l - 1)];
+      v.e1[u] = gm != LINEAR_GAP ? E1[ro + l] : 0;
+      v.e2[u] = gm == CONVEX_GAP ? E2[ro + l] : 0;
+    }
+  }
+}
+
+// a predecessor that is the row before at the same lanes, from the
+// registers that hold it
+__device__ __forceinline__ void from_regs(PredVals& v, const int* ph,
+                                          const int* pe1, const int* pe2,
+                                          int ph_left) {
+#pragma unroll
+  for (int u = 0; u < CPT; ++u) {
+    v.h[u] = ph[u];
+    v.hm[u] = u > 0 ? ph[u - 1] : ph_left;
+    v.e1[u] = pe1[u];
+    v.e2[u] = pe2[u];
+  }
+}
+
+// the row's scalars, alike in every thread
+struct Row {
+  int begc, endc, capc, dpsn, pn, inf, e1;
+};
+
+// one predecessor slot's step of the merge at the thread's positions
+__device__ __forceinline__ void merge_pred(
+    const Row& r, const PredVals& v, bool first, const PBand& pb,
+    const int* c, const int* seg, const int* qrow, int gm, int* h,
+    int* e1v, int* e2v) {
+  const int begc = r.begc, endc = r.endc;
+  const int _begc = max(begc, pb.begc);
+  const int _endc = min(min(pb.endc + 1, endc), r.dpsn - 1);
+  const int _ende = min(pb.endc, endc);
+  const int cb = mulw(_begc, r.pn);
+#pragma unroll
+  for (int u = 0; u < CPT; ++u) {
+    const int s = seg[u];
+    int cand = c[u] == 0 ? NEG : v.hm[u];
+    const int boundary = pb.begc < begc ? cand : r.inf;
+    if (c[u] == cb) cand = boundary;
+    if (gm == LINEAR_GAP) cand = max(cand + qrow[u], v.h[u] - r.e1);
+    const bool mmask = s >= _begc && s <= _endc && pb.pvc;
+    if (first) {
+      const bool fill = (s >= begc && s < _begc) || (s > _endc && s <= r.capc);
+      h[u] = mmask ? cand : (fill ? r.inf : 0);
+    } else if (mmask) {
+      h[u] = max(h[u], cand);
+    }
+    if (gm != LINEAR_GAP) {
+      const bool emask = s >= _begc && s <= _ende && pb.pvc;
+      if (first) {
+        const bool efill = (s >= begc && s < _begc) || (s > _ende && s <= endc);
+        const int ef = efill ? r.inf : 0;
+        e1v[u] = emask ? v.e1[u] : ef;
+        e2v[u] = emask ? (gm == CONVEX_GAP ? v.e2[u] : 0) : ef;
+      } else if (emask) {
+        e1v[u] = max(e1v[u], v.e1[u]);
+        if (gm == CONVEX_GAP) e2v[u] = max(e2v[u], v.e2[u]);
+      }
+    }
+  }
+}
+
+// one predecessor slot p's part of the backtrack bits at the thread's
+// positions (4-bit fields, 15 = none: the first slot of each condition)
+__device__ __forceinline__ void bt_pred(
+    const PredVals& v, int p, const PBand& pb, int pn, const int* c,
+    const int* qrow, const int* hrow, const int* e1row, const int* e2row,
+    int gm, int e1, int oe1, int e2, int oe2, int (*acc)[9]) {
+  const int plo = mulw(pb.begc, pn);
+  const int phi = mulw(pb.endc + 1, pn) - 1;
+#pragma unroll
+  for (int u = 0; u < CPT; ++u) {
+    const bool m_in = pb.pvc && c[u] - 1 >= plo && c[u] - 1 <= phi;
+    const bool okp = pb.pvc && c[u] >= plo && c[u] <= phi;
+    const int bm = m_in ? v.hm[u] : NEG;
+    const int bh = okp ? v.h[u] : NEG;
+    const bool mh = bm + qrow[u] == hrow[u];
+    bool e1m, e1x, e1o, e2m = false, e2x = false, e2o = false;
+    if (gm == LINEAR_GAP) {
+      e1m = e1x = (bh - e1) == hrow[u];
+      e1o = false;
+    } else {
+      const int be1 = okp ? v.e1[u] : NEG;
+      e1m = hrow[u] == be1;
+      e1x = e1row[u] == be1 - e1;
+      e1o = (bh - oe1) == be1;
+      if (gm == CONVEX_GAP) {
+        const int be2 = okp ? v.e2[u] : NEG;
+        e2m = hrow[u] == be2;
+        e2x = e2row[u] == be2 - e2;
+        e2o = (bh - oe2) == be2;
+      }
+    }
+    int* a = acc[u];
+    if (p == 0) {
+      a[0] = mh ? 0 : 15;
+      a[1] = e1m ? 0 : 15;
+      a[2] = e1x ? 0 : 15;
+      a[3] = e1m && e1o;
+      a[4] = e1x && e1o;
+      a[5] = e2m ? 0 : 15;
+      a[6] = e2x ? 0 : 15;
+      a[7] = e2m && e2o;
+      a[8] = e2x && e2o;
+    } else {
+      if (mh && a[0] == 15) a[0] = p;
+      if (e1m && a[1] == 15) { a[3] = e1o; a[1] = p; }
+      if (e1x && a[2] == 15) { a[4] = e1o; a[2] = p; }
+      if (gm == CONVEX_GAP) {
+        if (e2m && a[5] == 15) { a[7] = e2o; a[5] = p; }
+        if (e2x && a[6] == 15) { a[8] = e2o; a[6] = p; }
+      }
+    }
+  }
+}
+
+// the F bits of one cell from its own and its left lane's values (0 at
+// the band start)
+__device__ __forceinline__ int f_bits(int gm, int rel, int hh, int f1,
+                                      int f2, int hprev, int f1prev,
+                                      int f2prev, int e1, int oe1, int e2,
+                                      int oe2) {
+  if (rel == 0) hprev = f1prev = f2prev = 0;
+  if (gm == LINEAR_GAP) return ((hprev - e1) == hh) << 24;
+  int fb = (((hprev - oe1) == f1) << 24) | (((f1prev - e1) == f1) << 25)
+           | ((hh == f1) << 26);
+  if (gm == CONVEX_GAP)
+    fb |= (((hprev - oe2) == f2) << 27) | (((f2prev - e2) == f2) << 28)
+          | ((hh == f2) << 29);
+  return fb;
+}
+
+// one instance per mode and gap mode (GM): the code of a launch holds
+// only the branches it runs
+template <bool NID, int GM>
+__global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
   extern __shared__ int smem[];
-  const int R = a.R, WB = a.WB, P = a.P, pn = a.pn, gm = a.gm;
+  constexpr int gm = GM;
+  const int R = a.R, WB = a.WB, P = a.P, pn = a.pn;
   const int P2 = P / 2, NSEG = WB / pn, KW1 = a.Wq / WB + 1;
-  const int b = blockIdx.x, l = threadIdx.x;
-  int* s_ctrl = smem;
+  const int b = blockIdx.x, tid = threadIdx.x, NT = blockDim.x;
+  const int lane_id = tid & 31, wid = tid >> 5, NW = NT >> 5;
+  u64* s_red = reinterpret_cast<u64*>(smem);   // [32]
+  int* s_ws1 = smem + 64;                      // [32] warp scan totals
+  int* s_ws2 = s_ws1 + 32;
+  int* s_edge = s_ws2 + 32;                    // [3 * 33] last positions
+  int* s_ctrl = s_edge + 99;
   int* s_i2nn = s_ctrl + R;                    // node-id mode only
   int* s_pre = s_i2nn + (NID ? R : 0);
   int* s_bsn = s_pre + R * P2;
   int* s_rms = s_bsn + R;
-  int* s_scan1 = s_rms + R;
-  int* s_scan2 = s_scan1 + WB;
-  int* s_h = s_scan2 + WB;
-  int* s_f1 = s_h + WB;
-  int* s_f2 = s_f1 + WB;
-  int* s_red = s_f2 + WB;      // 32 ints
-  int* s_bcast = s_red + 32;   // 4 ints
 
   const int* ctrl = a.ctrl + (size_t)b * R;
   const int* inp = a.inp + (size_t)b * R * P2;
-  for (int i = l; i < R; i += blockDim.x) {
+  for (int i = tid; i < R; i += NT) {
     s_ctrl[i] = ctrl[i];
     if (NID) s_i2nn[i] = a.i2nn[(size_t)b * R + i];
   }
-  for (int i = l; i < R * P2; i += blockDim.x) s_pre[i] = inp[i];
+  for (int i = tid; i < R * P2; i += NT) s_pre[i] = inp[i];
   const size_t plane = (size_t)R * WB;
   int* H = a.H + b * plane;
   int* E1 = a.E1 + b * plane;
@@ -165,6 +334,10 @@ __global__ void __launch_bounds__(1024) band_dp_kernel(BandArgs a) {
   const int e1 = sc[S_E1], o1 = sc[S_O1], oe1 = sc[S_OE1];
   const int e2 = sc[S_E2], o2 = sc[S_O2], oe2 = sc[S_OE2];
   const int zdrop = sc[S_ZDROP];
+  // the thread's band positions (scan order) and the last one's owner
+  const int r0 = tid * CPT;
+  const bool owns = r0 < WB;
+  const bool last_owner = r0 + CPT == WB;
   __syncthreads();
 
   // ---- first row: its window is [0, WB), lane l holds col l ----
@@ -172,23 +345,25 @@ __global__ void __launch_bounds__(1024) band_dp_kernel(BandArgs a) {
   {
     int rem0 = (s_ctrl[0] >> 16) - remend - 1;
     int end0 = min(qlen, max(0, qlen - rem0) + w);
-    int end_sn0 = floordiv(end0, pn);
+    int end_sn0 = end0 >> a.pn_sh;
     int cap0 = min(end_sn0 + 1, dpsn - 1);
     ovfl = cap0 + 2 > NSEG;
-    bool hi_mask = (l / pn) <= cap0;
-    bool de_mask = l <= (end_sn0 + 1) * pn - 1;
-    int fill0 = hi_mask ? inf : 0;
-    if (gm == LINEAR_GAP) {
-      H[l] = de_mask ? mulw(-e1, l) : fill0;
-    } else {
-      int hv = -o1 - mulw(e1, l);
-      if (gm == CONVEX_GAP) hv = max(hv, -o2 - mulw(e2, l));
-      int h0 = (de_mask && l >= 1) ? hv : fill0;
-      H[l] = l == 0 ? 0 : h0;
-      E1[l] = l == 0 ? -oe1 : fill0;
-      if (gm == CONVEX_GAP) E2[l] = l == 0 ? -oe2 : fill0;
+    for (int l = tid; l < WB; l += NT) {
+      bool hi_mask = (l >> a.pn_sh) <= cap0;
+      bool de_mask = l <= (end_sn0 + 1) * pn - 1;
+      int fill0 = hi_mask ? inf : 0;
+      if (gm == LINEAR_GAP) {
+        H[l] = de_mask ? mulw(-e1, l) : fill0;
+      } else {
+        int hv = -o1 - mulw(e1, l);
+        if (gm == CONVEX_GAP) hv = max(hv, -o2 - mulw(e2, l));
+        int h0 = (de_mask && l >= 1) ? hv : fill0;
+        H[l] = l == 0 ? 0 : h0;
+        E1[l] = l == 0 ? -oe1 : fill0;
+        if (gm == CONVEX_GAP) E2[l] = l == 0 ? -oe2 : fill0;
+      }
     }
-    if (l == 0) {
+    if (tid == 0) {
       s_rms[0] = RM_OK | 1;
       s_bsn[0] = shlw(end_sn0, 16);
       if (!NID) mplr_out[0] = 0;
@@ -196,252 +371,329 @@ __global__ void __launch_bounds__(1024) band_dp_kernel(BandArgs a) {
   }
   __syncthreads();
 
-  // extend-mode best cell and z-drop state: every thread keeps the same
-  // copy (all inputs are block-uniform)
+  // extend-mode best cell and z-drop state and the row just finished:
+  // every thread keeps the same copy (all inputs are block-uniform)
   int bs = inf, bi = 0, bj = 0, brem = s_ctrl[0] >> 16;
   bool stop = false;
+  int prev = -1, prev_rms = 0, prev_bsn = 0;
+  // the row before's H, E1, E2 at the thread's lanes (and H at the lane
+  // before them) and its lane offset: a predecessor that is the row
+  // before, at the same lanes, is read from there
+  int ph[CPT], pe1[CPT], pe2[CPT], ph_left = 0, prev_lomod = -1;
+  int iw_next = (NID || !mplr0 || R < 2) ? nrows : mplr0[1];
+  DP_PROBE_INIT
   const int limit = min(nrows - 1, R - 1);
   for (int t = 1; t < limit; ++t) {
     // ---- per-row scalars (every thread computes them from shared) ----
-    int rid = NID ? min(max(s_i2nn[t] & H16, 0), R - 1) : t;
-    int cw = s_ctrl[rid];
-    int npre = min(NID ? (cw >> 10) & 15 : (cw >> 5) & 31, P);
-    bool active = NID || (((cw >> 10) & 1) && !stop);
-    int iw = (NID || !mplr0) ? nrows : mplr0[t];
-    int mpl, mpr, min_pb = 1 << 30;
-    for (int p = 0; p < npre; ++p)
-      min_pb = min(min_pb, s_bsn[pre_at(s_pre, P2, R, rid, p)] & H16);
-    pull_band(s_pre, s_rms, P2, R, rid, npre, iw, mpl, mpr);
-    if (!NID && l == 0) mplr_out[t] = (int)((unsigned)mpl | shlw(mpr, 16));
-    int rem = (cw >> 16) - remend - 1;
-    int beg = max(0, min(mpl, qlen - rem) - w);
-    int end = min(qlen, max(mpr, qlen - rem) + w);
-    int beg_sn = max(floordiv(beg, pn), min_pb);
-    int end_sn = floordiv(end, pn);
-    if (l == 0 && active) {
+    const int rid = NID ? min(max(s_i2nn[t] & H16, 0), R - 1) : t;
+    const int cw = s_ctrl[rid];
+    const int npre = min(NID ? (cw >> 10) & 15 : (cw >> 5) & 31, P);
+    const bool active = NID || (((cw >> 10) & 1) && !stop);
+    // the band-state init of this row, loaded during the row before
+    const int iw = iw_next;
+    iw_next = (NID || !mplr0 || t + 1 >= R) ? nrows : mplr0[t + 1];
+    int mpl, mpr, min_pb;
+    pull_band(s_pre, s_rms, s_bsn, P2, R, rid, npre, iw, prev, prev_rms,
+              prev_bsn, mpl, mpr, min_pb);
+    if (!NID && tid == 0) mplr_out[t] = (int)((unsigned)mpl | shlw(mpr, 16));
+    const int rem = (cw >> 16) - remend - 1;
+    const int beg = max(0, min(mpl, qlen - rem) - w);
+    const int end = min(qlen, max(mpr, qlen - rem) + w);
+    const int beg_sn = max(beg >> a.pn_sh, min_pb);
+    const int end_sn = end >> a.pn_sh;
+    if (tid == 0 && active) {
       cells += (end_sn - beg_sn + 1) * pn;
       int capg = min(end_sn + 1, dpsn - 1);
       ovfl |= capg - beg_sn + 2 > NSEG;
     }
-    int lo_g = mulw(beg_sn, pn);
-    int k0 = floordiv(lo_g, WB);
+    const int lo_g = mulw(beg_sn, pn);
+    // floor(lo_g / WB): a multiply by ceil(2^32 / WB), exact below 2^18
+    const int k0 = (unsigned)lo_g < (1u << 18)
+                       ? (int)__umulhi((unsigned)lo_g, a.wb_inv)
+                       : floordiv(lo_g, WB);
     // the packed staging word of the JAX kernel: beg|end<<10|lomod<<20
-    int bel = (int)((unsigned)beg_sn | ((unsigned)end_sn << 10)
-                    | ((unsigned)(lo_g - k0 * WB) << 20));
-    int begc = bel & 1023, endc = (bel >> 10) & 1023, lomodc = bel >> 20;
-    int capc = min(endc + 1, dpsn - 1);
-    int base = cw & (NID ? 7 : 31);
-    int fold = min(max(base * KW1 + k0, 0), a.m * KW1 - 2);
-    int qwin = 0;
-    if (base < a.m)
-      qwin = qpf[(size_t)(l >= lomodc ? fold : fold + 1) * WB + l];
-    int dlo = l - lomodc;
-    int rel = dlo >= 0 ? dlo : dlo + WB;
-    // rel is in [0, WB) on every swept row; a row with no valid
-    // predecessor (padding, unreachable) has a garbage band whose rel is
-    // only wrapped back into range to index the scan arrays
-    const int ri = floormod(rel, WB);
-    int c = begc * pn + rel;
-    int seg = floordiv(c, pn);
-    bool band = seg >= begc && seg <= endc;
-    int qrow = (c >= 1 && c <= qlen) ? qwin : 0;
-    int lm1 = l == 0 ? WB - 1 : l - 1;
-
-    // ---- predecessor merges ----
-    int hacc = 0, e1acc = 0, e2acc = 0;
-    const int np = max(npre, 1);
-    for (int p = 0; p < np; ++p) {
-      int pred = pre_at(s_pre, P2, R, rid, p);
-      int pv = p < npre;
-      int pw = s_bsn[pred];
-      int pbel = (int)(((unsigned)pw & 0xFFFFu) | (((unsigned)(pw >> 16)) << 10)
-                       | ((unsigned)pv << 20));
-      bool pvc = (pbel >> 20) > 0;
-      int pbegc = pvc ? (pbel & 1023) : (1 << 29);
-      int pendc = pvc ? ((pbel >> 10) & 1023) : -(1 << 29);
-      int _begc = max(begc, pbegc);
-      int _endc = min(min(pendc + 1, endc), dpsn - 1);
-      const int* prow = H + (size_t)pred * WB;
-      int preH = prow[l];
-      int rollH = prow[lm1];
-      int cand = c == 0 ? NEG : rollH;
-      int boundary = pbegc < begc ? cand : inf;
-      if (c == mulw(_begc, pn)) cand = boundary;
-      if (gm == LINEAR_GAP) cand = max(cand + qrow, preH - e1);
-      bool mmask = seg >= _begc && seg <= _endc && pvc;
-      if (p == 0) {
-        bool fill = (seg >= begc && seg < _begc)
-                    || (seg > _endc && seg <= capc);
-        hacc = mmask ? cand : (fill ? inf : 0);
-      } else if (mmask) {
-        hacc = max(hacc, cand);
-      }
-      if (gm != LINEAR_GAP) {
-        int preE1 = E1[(size_t)pred * WB + l];
-        int preE2 = gm == CONVEX_GAP ? E2[(size_t)pred * WB + l] : 0;
-        int _ende = min(pendc, endc);
-        bool emask = seg >= _begc && seg <= _ende && pvc;
-        if (p == 0) {
-          bool efill = (seg >= begc && seg < _begc)
-                       || (seg > _ende && seg <= endc);
-          int ef = efill ? inf : 0;
-          e1acc = emask ? preE1 : ef;
-          e2acc = emask ? preE2 : ef;
-        } else if (emask) {
-          e1acc = max(e1acc, preE1);
-          e2acc = max(e2acc, preE2);
-        }
-      }
+    const int bel = (int)((unsigned)beg_sn | ((unsigned)end_sn << 10)
+                          | ((unsigned)(lo_g - k0 * WB) << 20));
+    Row r;
+    r.begc = bel & 1023;
+    r.endc = (bel >> 10) & 1023;
+    r.capc = min(r.endc + 1, dpsn - 1);
+    r.dpsn = dpsn;
+    r.pn = pn;
+    r.inf = inf;
+    r.e1 = e1;
+    const int lomodc = bel >> 20;
+    const int base = cw & (NID ? 7 : 31);
+    const int fold = min(max(base * KW1 + k0, 0), a.m * KW1 - 2);
+    // position ri of the scan is lane (ri + lomodc) mod WB; rel is the
+    // lane's offset from the band start (== ri on every swept row; a row
+    // with no valid predecessor has a garbage band whose lanes wrap)
+    const bool sane = lomodc >= 0 && lomodc < WB;
+    const bool vec = sane && (lomodc & (CPT - 1)) == 0;
+    const bool regs = lomodc == prev_lomod;
+    int lane[CPT], rel[CPT], c[CPT], seg[CPT], qraw[CPT], qrow[CPT];
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      const int ri = owns ? r0 + u : 0;
+      int l = ri + lomodc;
+      if (sane) l -= l >= WB ? WB : 0;
+      else l = floormod(l, WB);
+      const int dlo = l - lomodc;
+      lane[u] = l;
+      rel[u] = dlo >= 0 ? dlo : dlo + WB;
+      c[u] = r.begc * pn + rel[u];
+      seg[u] = c[u] >> a.pn_sh;
+      qraw[u] = base < a.m
+                    ? qpf[(size_t)(l >= lomodc ? fold : fold + 1) * WB + l]
+                    : 0;
     }
-    int h = hacc;
-    int e1v = gm != LINEAR_GAP ? e1acc : h;
-    int e2v = gm == CONVEX_GAP ? e2acc : h;
+    // the query profile of the row's columns, masked where it is first
+    // used (the merge with linear gaps, the F scan otherwise), so its load
+    // overlaps the merge
+    auto mask_q = [&]() {
+#pragma unroll
+      for (int u = 0; u < CPT; ++u)
+        qrow[u] = (c[u] >= 1 && c[u] <= qlen) ? qraw[u] : 0;
+    };
+    if (gm == LINEAR_GAP) mask_q();
+
+    DP_PROBE(0)
+    // ---- predecessor merges; the first slot's values stay for the
+    // backtrack bits ----
+    int h[CPT], e1v[CPT], e2v[CPT];
+    PredVals first;
+    PBand fb;
+    {
+      const int pred = pre_at(s_pre, P2, R, rid, 0);
+      fb = pband(pred == prev ? prev_bsn : s_bsn[pred], npre > 0);
+      if (regs && pred == prev)
+        from_regs(first, ph, pe1, pe2, ph_left);
+      else
+        load_pred(first, H, E1, E2, pred, lane, vec, WB, gm);
+    }
+    merge_pred(r, first, true, fb, c, seg, qrow, gm, h, e1v, e2v);
+    for (int p = 1; p < npre; ++p) {
+      const int pred = pre_at(s_pre, P2, R, rid, p);
+      const PBand pb = pband(pred == prev ? prev_bsn : s_bsn[pred], true);
+      PredVals v;
+      if (regs && pred == prev)
+        from_regs(v, ph, pe1, pe2, ph_left);
+      else
+        load_pred(v, H, E1, E2, pred, lane, vec, WB, gm);
+      merge_pred(r, v, false, pb, c, seg, qrow, gm, h, e1v, e2v);
+    }
+    if (gm == LINEAR_GAP) {
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) e1v[u] = e2v[u] = h[u];
+    } else if (gm != CONVEX_GAP) {
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) e2v[u] = h[u];
+    }
+
+    DP_PROBE(1)
+    if (gm != LINEAR_GAP) mask_q();
 
     // ---- F (insertion) recurrences as prefix maxes in band order ----
-    int hrow, e1row = 0, e2row = 0, f1row = 0, f2row = 0;
-    if (gm == LINEAR_GAP) {
-      s_scan1[ri] = band ? max(h, inf) + rel * e1 : NEG;
-      __syncthreads();
-      scan_max2(s_scan1, nullptr, WB);
-      int hfin = max(s_scan1[ri] - rel * e1, inf);
-      hrow = band ? hfin : h;
-    } else {
-      int h0 = h + (band ? qrow : 0);
-      if (rel == 0) s_bcast[0] = h0;
-      int src;
-      if (gm == CONVEX_GAP) {
-        src = band ? max(max(h0, e1v), e2v) : NEG;
-        s_scan1[ri] = band ? max(src, inf) + rel * e1 : NEG;
-        s_scan2[ri] = band ? max(src, inf) + rel * e2 : NEG;
-      } else {
-        src = band ? h0 : NEG;
-        s_scan1[ri] = band ? max(src, inf) + rel * e1 : NEG;
-      }
-      __syncthreads();
-      scan_max2(s_scan1, gm == CONVEX_GAP ? s_scan2 : nullptr, WB);
-      int seed = s_bcast[0];
-      int pm1 = ri >= 1 ? s_scan1[ri - 1] : NEG;
-      int f1 = rel == 0 ? seed - oe1 : pm1 - oe1 - (rel - 1) * e1;
-      f1 = max(f1, inf);
-      if (gm == CONVEX_GAP) {
-        int pm2 = ri >= 1 ? s_scan2[ri - 1] : NEG;
-        int f2 = rel == 0 ? seed - oe2 : pm2 - oe2 - (rel - 1) * e2;
-        f2 = max(f2, inf);
-        int hh = max(max(src, f1), f2);
-        hrow = band ? hh : h0;
-        e1row = band ? max(e1v - e1, hh - oe1) : e1v;
-        e2row = band ? max(e2v - e2, hh - oe2) : e2v;
-        f2row = band ? f2 : 0;
-      } else {
-        int h1 = max(h0, e1v);
-        int hh = max(h1, f1);
-        int e1n = max(e1v - e1, hh - oe1);
-        hrow = band ? hh : h0;
-        e1row = band ? (hh == h1 ? e1n : inf) : e1v;
-      }
-      f1row = band ? f1 : 0;
-    }
-    H[(size_t)rid * WB + l] = hrow;
-    if (gm != LINEAR_GAP) E1[(size_t)rid * WB + l] = e1row;
-    if (gm == CONVEX_GAP) E2[(size_t)rid * WB + l] = e2row;
-
-    // ---- backtrack bits: every comparison the walk makes, per cell ----
-    int acc[9];
-    for (int p = 0; p < np; ++p) {
-      int pred = pre_at(s_pre, P2, R, rid, p);
-      int pv = p < npre;
-      int pw = s_bsn[pred];
-      int pbel = (int)(((unsigned)pw & 0xFFFFu) | (((unsigned)(pw >> 16)) << 10)
-                       | ((unsigned)pv << 20));
-      bool pvc = (pbel >> 20) > 0;
-      int pbegc = pvc ? (pbel & 1023) : (1 << 29);
-      int pendc = pvc ? ((pbel >> 10) & 1023) : -(1 << 29);
-      int plo = mulw(pbegc, pn);
-      int phi = mulw(pendc + 1, pn) - 1;
-      bool m_in = pvc && c - 1 >= plo && c - 1 <= phi;
-      bool okp = pvc && c >= plo && c <= phi;
-      const int* prow = H + (size_t)pred * WB;
-      int bm = m_in ? prow[lm1] : NEG;
-      int bh = okp ? prow[l] : NEG;
-      bool mh = bm + qrow == hrow;
-      bool e1m, e1x, e1o, e2m = false, e2x = false, e2o = false;
+    int band[CPT], h0[CPT], src[CPT];
+    int cmax1 = NEG, cmax2 = NEG;
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      band[u] = seg[u] >= r.begc && seg[u] <= r.endc;
       if (gm == LINEAR_GAP) {
-        e1m = e1x = (bh - e1) == hrow;
-        e1o = false;
+        h0[u] = h[u];
+        src[u] = h[u];
+        cmax1 = max(cmax1, band[u] ? max(h[u], inf) + rel[u] * e1 : NEG);
       } else {
-        int be1 = okp ? E1[(size_t)pred * WB + l] : NEG;
-        e1m = hrow == be1;
-        e1x = e1row == be1 - e1;
-        e1o = (bh - oe1) == be1;
-        if (gm == CONVEX_GAP) {
-          int be2 = okp ? E2[(size_t)pred * WB + l] : NEG;
-          e2m = hrow == be2;
-          e2x = e2row == be2 - e2;
-          e2o = (bh - oe2) == be2;
-        }
-      }
-      if (p == 0) {
-        acc[0] = mh ? 0 : 15;
-        acc[1] = e1m ? 0 : 15;
-        acc[2] = e1x ? 0 : 15;
-        acc[3] = e1m && e1o;
-        acc[4] = e1x && e1o;
-        acc[5] = e2m ? 0 : 15;
-        acc[6] = e2x ? 0 : 15;
-        acc[7] = e2m && e2o;
-        acc[8] = e2x && e2o;
-      } else {
-        if (mh && acc[0] == 15) acc[0] = p;
-        if (e1m && acc[1] == 15) { acc[3] = e1o; acc[1] = p; }
-        if (e1x && acc[2] == 15) { acc[4] = e1o; acc[2] = p; }
-        if (gm == CONVEX_GAP) {
-          if (e2m && acc[5] == 15) { acc[7] = e2o; acc[5] = p; }
-          if (e2x && acc[6] == 15) { acc[8] = e2o; acc[6] = p; }
-        }
+        h0[u] = h[u] + (band[u] ? qrow[u] : 0);
+        src[u] = !band[u] ? NEG
+                 : gm == CONVEX_GAP ? max(max(h0[u], e1v[u]), e2v[u])
+                                    : h0[u];
+        cmax1 = max(cmax1, band[u] ? max(src[u], inf) + rel[u] * e1 : NEG);
+        if (gm == CONVEX_GAP)
+          cmax2 = max(cmax2, band[u] ? max(src[u], inf) + rel[u] * e2 : NEG);
       }
     }
-    s_h[l] = hrow;
-    s_f1[l] = f1row;
-    s_f2[l] = f2row;
+    if (!owns) cmax1 = cmax2 = NEG;
+    int in1 = cmax1, in2 = cmax2;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x1 = __shfl_up_sync(~0u, in1, d);
+      const int x2 = __shfl_up_sync(~0u, in2, d);
+      if (lane_id >= d) {
+        in1 = max(in1, x1);
+        in2 = max(in2, x2);
+      }
+    }
+    int pm1 = __shfl_up_sync(~0u, in1, 1);
+    int pm2 = __shfl_up_sync(~0u, in2, 1);
+    if (lane_id == 0) pm1 = pm2 = NEG;
+    if (lane_id == 31) {
+      s_ws1[wid] = in1;
+      s_ws2[wid] = in2;
+    }
     __syncthreads();
-    int hprev = rel == 0 ? 0 : s_h[lm1];
-    int fb;
-    if (gm == LINEAR_GAP) {
-      fb = ((hprev - e1) == hrow) << 24;
-    } else {
-      int f1prev = rel == 0 ? 0 : s_f1[lm1];
-      fb = (((hprev - oe1) == f1row) << 24) | (((f1prev - e1) == f1row) << 25)
-           | ((hrow == f1row) << 26);
-      if (gm == CONVEX_GAP) {
-        int f2prev = rel == 0 ? 0 : s_f2[lm1];
-        fb |= (((hprev - oe2) == f2row) << 27)
-              | (((f2prev - e2) == f2row) << 28) | ((hrow == f2row) << 29);
+    DP_PROBE(2)
+    // across warps: lane k holds warp k's total; the warps before this
+    // one, by a warp reduction
+    {
+      pm1 = max(pm1, __reduce_max_sync(
+                         ~0u, lane_id < wid ? s_ws1[lane_id] : NEG));
+      pm2 = max(pm2, __reduce_max_sync(
+                         ~0u, lane_id < wid ? s_ws2[lane_id] : NEG));
+    }
+    int hrow[CPT], e1row[CPT], e2row[CPT], f1row[CPT], f2row[CPT];
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      e1row[u] = e2row[u] = f1row[u] = f2row[u] = 0;
+      const int ru = rel[u];
+      if (gm == LINEAR_GAP) {
+        pm1 = max(pm1, band[u] ? max(h[u], inf) + ru * e1 : NEG);
+        const int hfin = max(pm1 - ru * e1, inf);
+        hrow[u] = band[u] ? hfin : h[u];
+      } else {
+        // pm1/pm2: the prefix max before this position (exclusive)
+        int f1 = ru == 0 ? h0[u] - oe1 : pm1 - oe1 - (ru - 1) * e1;
+        f1 = max(f1, inf);
+        pm1 = max(pm1, band[u] ? max(src[u], inf) + ru * e1 : NEG);
+        if (gm == CONVEX_GAP) {
+          int f2 = ru == 0 ? h0[u] - oe2 : pm2 - oe2 - (ru - 1) * e2;
+          f2 = max(f2, inf);
+          pm2 = max(pm2, band[u] ? max(src[u], inf) + ru * e2 : NEG);
+          const int hh = max(max(src[u], f1), f2);
+          hrow[u] = band[u] ? hh : h0[u];
+          e1row[u] = band[u] ? max(e1v[u] - e1, hh - oe1) : e1v[u];
+          e2row[u] = band[u] ? max(e2v[u] - e2, hh - oe2) : e2v[u];
+          f2row[u] = band[u] ? f2 : 0;
+        } else {
+          const int h1 = max(h0[u], e1v[u]);
+          const int hh = max(h1, f1);
+          const int e1n = max(e1v[u] - e1, hh - oe1);
+          hrow[u] = band[u] ? hh : h0[u];
+          e1row[u] = band[u] ? (hh == h1 ? e1n : inf) : e1v[u];
+        }
+        f1row[u] = band[u] ? f1 : 0;
       }
     }
-    BT[(size_t)rid * WB + l] = acc[0] | (acc[1] << 4) | (acc[2] << 8)
-                               | (acc[3] << 12) | (acc[4] << 13)
-                               | (acc[5] << 14) | (acc[6] << 18)
-                               | (acc[7] << 22) | (acc[8] << 23) | fb;
+    if (owns) {
+      int* Hr = H + (size_t)rid * WB;
+      int* E1r = E1 + (size_t)rid * WB;
+      int* E2r = E2 + (size_t)rid * WB;
+      if (vec) {
+        st_run<CPT>(Hr + lane[0], hrow);
+        if (gm != LINEAR_GAP) st_run<CPT>(E1r + lane[0], e1row);
+        if (gm == CONVEX_GAP) st_run<CPT>(E2r + lane[0], e2row);
+      } else {
+#pragma unroll
+        for (int u = 0; u < CPT; ++u) {
+          Hr[lane[u]] = hrow[u];
+          if (gm != LINEAR_GAP) E1r[lane[u]] = e1row[u];
+          if (gm == CONVEX_GAP) E2r[lane[u]] = e2row[u];
+        }
+      }
+    }
 
+    DP_PROBE(3)
+    // ---- backtrack bits: every comparison the walk makes, per cell ----
+    int acc[CPT][9];
+    bt_pred(first, 0, fb, pn, c, qrow, hrow, e1row, e2row, gm, e1, oe1, e2,
+            oe2, acc);
+    for (int p = 1; p < npre; ++p) {
+      const int pred = pre_at(s_pre, P2, R, rid, p);
+      const PBand pb = pband(pred == prev ? prev_bsn : s_bsn[pred], true);
+      PredVals v;
+      if (regs && pred == prev)
+        from_regs(v, ph, pe1, pe2, ph_left);
+      else
+        load_pred(v, H, E1, E2, pred, lane, vec, WB, gm);
+      bt_pred(v, p, pb, pn, c, qrow, hrow, e1row, e2row, gm, e1, oe1, e2,
+              oe2, acc);
+    }
+    int bt[CPT];
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      const int* q = acc[u];
+      bt[u] = q[0] | (q[1] << 4) | (q[2] << 8) | (q[3] << 12) | (q[4] << 13)
+              | (q[5] << 14) | (q[6] << 18) | (q[7] << 22) | (q[8] << 23);
+      if (u > 0)
+        bt[u] |= f_bits(gm, rel[u], hrow[u], f1row[u], f2row[u],
+                        hrow[u - 1], f1row[u - 1], f2row[u - 1], e1, oe1, e2,
+                        oe2);
+    }
+    // the first position's left lane: the thread before, else (after the
+    // barrier) the last position of the warp before or, for position 0,
+    // of the row
+    const int nh = __shfl_up_sync(~0u, hrow[CPT - 1], 1);
+    const int nf1 = __shfl_up_sync(~0u, f1row[CPT - 1], 1);
+    const int nf2 = __shfl_up_sync(~0u, f2row[CPT - 1], 1);
+    if (lane_id > 0)
+      bt[0] |= f_bits(gm, rel[0], hrow[0], f1row[0], f2row[0], nh, nf1, nf2,
+                      e1, oe1, e2, oe2);
+    if (lane_id == 31) {
+      s_edge[wid] = hrow[CPT - 1];
+      s_edge[33 + wid] = f1row[CPT - 1];
+      s_edge[66 + wid] = f2row[CPT - 1];
+    }
+    if (last_owner) {
+      s_edge[32] = hrow[CPT - 1];
+      s_edge[33 + 32] = f1row[CPT - 1];
+      s_edge[66 + 32] = f2row[CPT - 1];
+    }
+
+    DP_PROBE(4)
     // ---- row max with the reference tie-breaks: among maximal in-band
     // cells the lowest lane-in-segment, then the last segment, then the
-    // first ----
-    int lseg = seg - begc;
-    int nseg = endc - begc + 1;
-    int vv = (band && c <= qlen) ? hrow : inf;
-    int prio = lseg == nseg - 1 ? -1 : lseg;
-    int key = (rel % pn) * (1 << 15) + (prio * 1024 + lseg + 1024);
-    int gmax = block_max(vv, s_red);
-    int kpick = block_min(vv == gmax ? key : (1 << 30), s_red);
-    int aux_pick = (kpick & 0x7FFF) - 1024;
-    int wseg = aux_pick - floordiv(aux_pick, 1024) * 1024;
-    int maxi = gmax > inf ? (begc + wseg) * pn + (kpick >> 15) : -1;
+    // first: one key ----
+    u64 kbest = 0;
+    if (owns) {
+      const int nseg = r.endc - r.begc + 1;
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) {
+        const int lseg = seg[u] - r.begc;
+        const int vv = (band[u] && c[u] <= qlen) ? hrow[u] : inf;
+        const int prio = lseg == nseg - 1 ? -1 : lseg;
+        const int lis = rel[u] >= 0 ? rel[u] & (pn - 1) : rel[u] % pn;
+        const int key = lis * (1 << 15) + (prio * 1024 + lseg + 1024);
+        const u64 k = best_key(vv, key);
+        kbest = k > kbest ? k : kbest;
+      }
+    }
+    kbest = warp_max64(kbest);
+    if (lane_id == 0) s_red[wid] = kbest;
+    __syncthreads();
+    DP_PROBE(5)
+    const int e = wid > 0 ? wid - 1 : 32;
+    if (lane_id == 0)
+      bt[0] |= f_bits(gm, rel[0], hrow[0], f1row[0], f2row[0], s_edge[e],
+                      s_edge[33 + e], s_edge[66 + e], e1, oe1, e2, oe2);
+    ph_left = lane_id > 0 ? nh : s_edge[e];
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      ph[u] = hrow[u];
+      pe1[u] = e1row[u];
+      pe2[u] = e2row[u];
+    }
+    prev_lomod = lomodc;
+    if (owns) {
+      int* BTr = BT + (size_t)rid * WB;
+      if (vec) {
+        st_run<CPT>(BTr + lane[0], bt);
+      } else {
+#pragma unroll
+        for (int u = 0; u < CPT; ++u) BTr[lane[u]] = bt[u];
+      }
+    }
+    const u64 g = warp_max64(lane_id < NW ? s_red[lane_id] : 0);
+    const int gmax = (int)((unsigned)(g >> 32) ^ 0x80000000u);
+    const int kpick = (int)(~(unsigned)(g & 0xFFFFFFFFu) ^ 0x80000000u);
+    const int aux_pick = (kpick & 0x7FFF) - 1024;
+    const int wseg = aux_pick - floordiv(aux_pick, 1024) * 1024;
+    const int maxi = gmax > inf ? (r.begc + wseg) * pn + (kpick >> 15) : -1;
     bool stop_now = false;
     if (!NID && a.extend) {
-      bool better = gmax > bs;
+      const bool better = gmax > bs;
       if (a.zdrop_on) {
-        int delta = brem - (cw >> 16);
-        int zlim = zdrop + mulw(e1, abs(delta - (maxi - bj)));
+        const int delta = brem - (cw >> 16);
+        const int zlim = zdrop + mulw(e1, abs(delta - (maxi - bj)));
         stop_now = !better && bs - gmax > zlim;
       }
       if (active && better) {
@@ -453,28 +705,33 @@ __global__ void __launch_bounds__(1024) band_dp_kernel(BandArgs a) {
       stop_now = active && stop_now;
       stop = stop || stop_now;
     }
-    if (l == 0) {
-      s_rms[rid] = (active && !stop_now) ? (RM_OK | (maxi + 1)) : 0;
-      s_bsn[rid] = (int)((unsigned)beg_sn | ((unsigned)end_sn << 16));
+    DP_PROBE(6)
+    prev = rid;
+    prev_rms = (active && !stop_now) ? (RM_OK | (maxi + 1)) : 0;
+    prev_bsn = (int)((unsigned)beg_sn | ((unsigned)end_sn << 16));
+    if (tid == 0) {
+      s_rms[rid] = prev_rms;
+      s_bsn[rid] = prev_bsn;
     }
-    __syncthreads();
   }
+  __syncthreads();
 
   if (!NID) {
     // band bounds out; the sink row is never swept: pin its bsn and pull
     // its band state
-    for (int i = l; i < limit; i += blockDim.x)
+    for (int i = tid; i < limit; i += NT)
       a.bsn_out[(size_t)b * R + i] = s_bsn[i];
-    if (l == 0 && limit >= 0) {
+    if (tid == 0 && limit >= 0) {
       int npre_l = min((s_ctrl[limit] >> 5) & 31, P);
       int iw = mplr0 ? mplr0[limit] : nrows;
-      int mpl, mpr;
-      pull_band(s_pre, s_rms, P2, R, limit, npre_l, iw, mpl, mpr);
+      int mpl, mpr, min_pb;
+      pull_band(s_pre, s_rms, s_bsn, P2, R, limit, npre_l, iw, -1, 0, 0, mpl,
+                mpr, min_pb);
       mplr_out[limit] = (int)((unsigned)mpl | shlw(mpr, 16));
       s_bsn[limit] = 0;
     }
   }
-  if (l != 0) return;
+  if (tid != 0) return;
   int* misc = a.misc + (size_t)b * M_NMISC;
   if (!a.extend) {
     // ---- best cell over the sink's predecessors ----
@@ -503,6 +760,7 @@ __global__ void __launch_bounds__(1024) band_dp_kernel(BandArgs a) {
   misc[M_CELLS] = cells;
   misc[M_OVFL] = ovfl;
   if (a.LS == 0) return;
+  DP_PROBE_MARK
 
   // ---- the walk: one backtrack word per step; node-id mode emits the
   // steps16 deltas (op | dj<<2 | di<<3 in topo space), two halves per
@@ -604,6 +862,8 @@ __global__ void __launch_bounds__(1024) band_dp_kernel(BandArgs a) {
     done = fail || new_i <= 0 || new_j <= 0 || nst >= a.LS;
   }
   if (NID && (nst & 1)) s16[nst >> 1] = (int)(half & 0xFFFFu);
+  DP_PROBE(7)
+  DP_PROBE_SAVE(limit, nst)
   misc[M_NSTEPS] = nst;
   misc[M_FAIL] = fail;
   misc[M_ENDI] = NID ? s_i2nn[I] >> 16 : I;
@@ -612,23 +872,44 @@ __global__ void __launch_bounds__(1024) band_dp_kernel(BandArgs a) {
 }
 
 // the same number as ops/band_dp.py band_smem_bytes
-size_t band_smem_bytes(bool nid, int R, int P, int WB) {
-  return sizeof(int) * ((size_t)(3 + (nid ? 1 : 0) + P / 2) * R + 5 * WB + 36);
+size_t band_smem_bytes(bool nid, int R, int P) {
+  return sizeof(int) * ((size_t)(3 + (nid ? 1 : 0) + P / 2) * R + 227);
 }
 
-template <bool NID>
-int launch(const BandArgs& a, int B, void* stream) {
-  size_t smem = band_smem_bytes(NID, a.R, a.P, a.WB);
+template <bool NID, int GM>
+int launch_gm(const BandArgs& a, int B, void* stream) {
+  size_t smem = band_smem_bytes(NID, a.R, a.P);
   cudaError_t err = cudaFuncSetAttribute(
-      band_dp_kernel<NID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      band_dp_kernel<NID, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  band_dp_kernel<NID><<<B, a.WB, smem, (cudaStream_t)stream>>>(a);
+  const int NT = (a.WB / CPT + 31) / 32 * 32;
+  band_dp_kernel<NID, GM><<<B, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the gap mode's instance (a mode neither linear nor convex is affine)
+template <bool NID>
+int launch(const BandArgs& a, int B, void* stream) {
+  if (a.gm == LINEAR_GAP) return launch_gm<NID, LINEAR_GAP>(a, B, stream);
+  if (a.gm == CONVEX_GAP) return launch_gm<NID, CONVEX_GAP>(a, B, stream);
+  return launch_gm<NID, AFFINE_GAP>(a, B, stream);
+}
+
+unsigned wb_inv(int WB) {
+  return (unsigned)(((1ull << 32) + WB - 1) / WB);
+}
+
+// the geometry both entries take: WB a multiple of 32 up to 1024, pn a
+// power of two (divisions by it are shifts)
+bool bad_geometry(int WB, int pn) {
+  return WB % 32 || WB > 1024 || pn <= 0 || (pn & (pn - 1)) || WB % pn;
 }
 
 }  // namespace
 }  // namespace abpoa
+
+DP_PROBE_EXPORT
 
 // C entry points (bound with ctypes). Each enqueues its kernel on
 // `stream` and returns the cudaError_t of the launch.
@@ -642,11 +923,12 @@ extern "C" int band_dp_launch(const int* scal, const int* ctrl,
                               int LS, void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
-  if (WB % 32 || WB > 1024 || WB % pn || P % 2 || P > 15)
+  if (bad_geometry(WB, pn) || P % 2 || P > 15)
     return (int)cudaErrorInvalidValue;
   BandArgs a{scal, ctrl, inp, i2nn, nullptr, qpf, misc, s16w, nullptr,
              nullptr, nullptr, H, E1, E2, BT,
-             R, WB, Wq, P, pn, gap_mode, LS, 5, 0, 0};
+             R, WB, Wq, P, pn, __builtin_ctz(pn), gap_mode, LS, 5, 0, 0,
+             wb_inv(WB)};
   return launch<true>(a, B, stream);
 }
 
@@ -662,11 +944,12 @@ extern "C" int band_dp_topo_launch(const int* scal, const int* ctrl,
                                    void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
-  if (WB % 32 || WB > 1024 || WB % pn || P % 2 || P > 16 || m > 31
+  if (bad_geometry(WB, pn) || P % 2 || P > 16 || m > 31
       || (align_mode != 0 && align_mode != 2))
     return (int)cudaErrorInvalidValue;
   BandArgs a{scal, ctrl, pre, nullptr, mplr0, qpf, misc, nullptr, steps,
              bsn_out, mplr_out, H, E1, E2, BT,
-             R, WB, Wq, P, pn, gap_mode, LS, m, align_mode == 2, zdrop_on};
+             R, WB, Wq, P, pn, __builtin_ctz(pn), gap_mode, LS, m,
+             align_mode == 2, zdrop_on, wb_inv(WB)};
   return launch<false>(a, B, stream);
 }

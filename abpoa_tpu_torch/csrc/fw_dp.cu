@@ -6,29 +6,49 @@
 // abpoa_tpu_torch/ops/fw_dp.py fw_poa_dp_batch_ref; the two are held
 // bit-equal on misc, the steps, the band bounds and the band state.
 //
-// What it computes: rows in topological order over planes H, E1, E2, F1,
-// F2 [R, Wq] (1, 3 or 5 by gap mode) at absolute columns; banded rows
+// What it computes: rows in topological order over planes H, E1, E2
+// [R, Wq] (H; E1 affine; E1, E2 convex) at absolute columns; banded rows
 // take the band kernel's fill/merge masks, unbanded rows (-b -1) span
 // [0, qlen]; local mode clamps at 0 and keeps the best cell of every row,
-// extend mode the best row maximum with z-drop; the band state is
-// scattered to the out-nodes. The walk re-derives every backtrack
-// condition from the planes. Full rows cannot overflow: no M_OVFL.
+// extend mode the best row maximum with z-drop; the band state goes to
+// the out-nodes. Full rows cannot overflow: no M_OVFL.
 //
 // What bounds it on an H100: rows are sequential (row t reads its
 // predecessors' rows), so one instance is one block and a row is a
-// Wq-wide vector (Wq = 768-896 at the heter geometry, several thousand
-// for long reads): latency-bound on block barriers and the L2 round trips
-// of the predecessor rows, like the band kernel, with Wq/WB times its
-// cells. The design: up to 1024 threads, each owning a contiguous chunk
-// of ceil(Wq / threads) columns; a row is two passes over the chunk. The
-// first merges the predecessor rows (a shift by one column plus a max,
-// read from device memory, L2-resident) and parks the merged values in
-// the row's own plane slots; between the passes a block-wide
-// Hillis-Steele scan of the chunk maxima gives each thread the prefix max
-// of the F (insertion) recurrence up to its chunk (the counterpart of
-// kscan_max); the second pass finishes F, H and E and the row maximum.
-// Band bounds and band state live in shared memory; the walk runs on one
-// thread.
+// Wq-wide vector (Wq = 768-896 at the heter geometry). Bytes and
+// operations are 3-4 orders below the time: it is latency-bound on one
+// row's chain of dependent instructions (predecessor values, the F prefix
+// max across the block, the row maximum across the block, the backtrack
+// word) with a few warps an SM, and on the walk, one dependent step at a
+// time on one thread. The design shortens that chain:
+// - each thread owns CPT adjacent columns of a tile (NT * CPT columns,
+//   NT <= 512; wider rows take several tiles, the scan carried across)
+//   in registers; the merge over the predecessors is a loop bounded by
+//   pre_n, and the first predecessor's values stay in registers for the
+//   backtrack word;
+// - on one-tile rows the row before stays in registers, so a predecessor
+//   that is the row before (a chain) needs no load;
+// - the F (insertion) prefix max is a serial max inside the thread's
+//   columns, a warp-shuffle scan and one warp reduction across warps; the
+//   row maximum and its tie-break are one 64-bit key, two warp
+//   reductions in each warp and across warps: two block barriers a row
+//   (one more per extra tile);
+// - a backtrack word per cell (32 bits for linear and affine gaps, 64
+//   for convex: the first predecessor slot of each M/E condition, the
+//   open bits, the F bits, H == 0), written in the sweep, so the walk
+//   reads one word per step and the predecessor ids from shared memory;
+//   F1/F2 are not stored, so the planes are those of the kernel before
+//   the word for affine and convex gaps (one more for linear). A slot
+//   field holds up to 253; on a row with more predecessors a field that
+//   says "254 or later" sends the walk back to the planes for that step;
+// - the band state is pushed to the out-nodes by one thread per out-edge
+//   with shared-memory atomics, and the next row adds the push of the
+//   row before it itself (a per-row flag says whether it is an out-node
+//   of it), so no barrier waits for the push;
+// - per-row control (predecessor count, out count, base, row mask, the
+//   flag), remain, the band bounds and state, and the predecessor ids
+//   (when R * P fits) live in shared memory; each gap mode is its own
+//   instance of the kernel, pn a power of two (its divisions shifts).
 #include <cuda_runtime.h>
 
 #include "layout.cuh"
@@ -37,6 +57,36 @@ namespace abpoa {
 namespace {
 
 constexpr int LOCAL_MODE = 1, EXTEND_MODE = 2;
+constexpr int CPT = 2;               // columns a thread owns in a tile
+constexpr int MAX_NT = 512;          // threads of a block
+constexpr int FB = 8;                // bits of a predecessor field
+constexpr int NONE = (1 << FB) - 1;  // no slot meets the condition
+// the first slot that meets it is SPILL or past it (a row with more
+// predecessors than a field holds): the walk finds it from the planes
+constexpr int SPILL = NONE - 1;
+// The backtrack word: 32 bits (linear and affine gaps) or 64 (convex).
+// Fields of FB bits: the first predecessor slot that meets M (H[pre][j-1]
+// + s == H), E1 from M (H == E1[pre]), E1 extended (E1 == E1[pre] - e1),
+// E2 from M, E2 extended (convex); linear gaps: the E1-from-M field holds
+// H[pre][j] - e1 == H. Then the open bits of the slots picked (H[pre][j]
+// - oe == E[pre]; O1M, O1X, O2M, O2X from bit O); the F bits (H[j-1] - oe
+// == F, F[j-1] - e == F, H == F for F1, then F2, from bit F; linear gaps:
+// H[j-1] - e1 == H at bit F); H == 0 (local mode's stop) at bit HZ.
+template <int GM> struct Bt {
+  typedef unsigned W;
+  static constexpr int MP = 0, E1M = FB, E1X = 2 * FB, E2M = 3 * FB,
+                       E2X = 4 * FB, O = 3 * FB, F = O + 2, HZ = F + 3;
+};
+template <> struct Bt<CONVEX_GAP> {
+  typedef u64 W;
+  static constexpr int MP = 0, E1M = FB, E1X = 2 * FB, E2M = 3 * FB,
+                       E2X = 4 * FB, O = 5 * FB, F = O + 4, HZ = F + 6;
+};
+// per-row control word in shared memory: predecessor count, out count
+// (clamped to [0, P] / [0, O]; rows are at most 4096, so a count fits 12
+// bits), base, row mask, and whether row t+1 is an out-node of row t
+constexpr int C_NOUT = 12, C_BASE = 24, C_LIVE = 29, C_NEXT = 30;
+constexpr int CMASK = 4095, MAX_R = 4096;
 
 struct FwArgs {
   const int* scal;     // [B, S_NSCAL]
@@ -59,357 +109,668 @@ struct FwArgs {
   int* H;              // [B, R, Wq] planes (scratch)
   int* E1;
   int* E2;
-  int* F1;
-  int* F2;
-  int R, Wq, P, O, m, pn, gm, mode, zdrop_on, banded, LS;
+  void* BT;            // [B, R, Wq] backtrack words (scratch)
+  int R, Wq, P, O, m, pn, pn_sh, gm, mode, zdrop_on, banded, LS, pre_smem;
 };
 
-__device__ int block_max(int v, int* s_red) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(~0u, v, o));
-  int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_red[w] = v;
-  __syncthreads();
-  int r = s_red[0];
-  for (int i = 1; i < nw; ++i) r = max(r, s_red[i]);
-  return r;
+// the row maximum and its tie-break as one key: the larger value, then
+// the lower (lane-in-segment, aux), aux = prio * 1024 + segment + 1024
+// (< 2^26 on rows below 2^17 columns)
+__device__ __forceinline__ u64 best_key(int v, int lane, int aux) {
+  unsigned lo = ~(((unsigned)lane << 26) | ((unsigned)aux & 0x3FFFFFFu));
+  return ((u64)((unsigned)v ^ 0x80000000u) << 32) | lo;
 }
 
-__device__ long long block_min64(long long v, long long* s_red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    long long u = __shfl_xor_sync(~0u, v, o);
-    v = u < v ? u : v;
-  }
-  int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_red[w] = v;
-  __syncthreads();
-  long long r = s_red[0];
-  for (int i = 1; i < nw; ++i) r = s_red[i] < r ? s_red[i] : r;
-  return r;
-}
+// what the merge keeps of one predecessor row at the thread's columns
+struct PredVals {
+  int h[CPT + 1];  // H[pred][c0 - 1 + u]
+  int e1[CPT];
+  int e2[CPT];
+};
 
-// inclusive prefix max over s[0..blockDim) in place, two arrays at once
-__device__ void scan_max2(int* s1, int* s2) {
-  int i = threadIdx.x, n = blockDim.x;
-  for (int d = 1; d < n; d <<= 1) {
-    int a1 = s1[i], a2 = s2[i];
-    int b1 = i >= d ? s1[i - d] : NEG;
-    int b2 = i >= d ? s2[i - d] : NEG;
-    __syncthreads();
-    s1[i] = max(a1, b1);
-    s2[i] = max(a2, b2);
-    __syncthreads();
+__device__ __forceinline__ void load_pred(PredVals& v, const int* H,
+                                          const int* E1, const int* E2,
+                                          int pred, int c0, int Wq, int gm) {
+  const size_t ro = (size_t)pred * Wq;
+  v.h[0] = (c0 >= 1 && c0 <= Wq) ? H[ro + c0 - 1] : NEG;
+  if (c0 + CPT <= Wq && (Wq & (CPT - 1)) == 0) {
+    ld_run<CPT>(H + ro + c0, v.h + 1);
+    if (gm != LINEAR_GAP) ld_run<CPT>(E1 + ro + c0, v.e1);
+    if (gm == CONVEX_GAP) ld_run<CPT>(E2 + ro + c0, v.e2);
+  } else {
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      bool ok = c0 + u < Wq;
+      v.h[u + 1] = ok ? H[ro + c0 + u] : 0;
+      v.e1[u] = (ok && gm != LINEAR_GAP) ? E1[ro + c0 + u] : 0;
+      v.e2[u] = (ok && gm == CONVEX_GAP) ? E2[ro + c0 + u] : 0;
+    }
   }
 }
 
-__global__ void __launch_bounds__(1024) fw_dp_kernel(FwArgs a) {
+// a predecessor that is the row before, from the registers that hold it
+__device__ __forceinline__ void from_regs(PredVals& v, const int* ph,
+                                          const int* pe1, const int* pe2,
+                                          int ph_left) {
+  v.h[0] = ph_left;
+#pragma unroll
+  for (int u = 0; u < CPT; ++u) {
+    v.h[u + 1] = ph[u];
+    v.e1[u] = pe1[u];
+    v.e2[u] = pe2[u];
+  }
+}
+
+// the row's scalars, alike in every thread
+struct Row {
+  int begc, endc, capc, lo, qlen, dpsn, pn, inf, e1;
+  bool local;
+};
+
+// one predecessor slot's step of the merge at the thread's columns
+// c0 + u: H (the shifted diagonal; linear gaps also the vertical move)
+// and E1/E2, with the band kernel's fill rules on slot 0
+__device__ __forceinline__ void merge_pred(
+    const Row& r, const PredVals& v, bool first, bool pvc, int pbegc,
+    int pendc, int c0, const int* segs, const int* qrow, int gm, int* h,
+    int* e1v, int* e2v) {
+  const int begc = r.begc, endc = r.endc;
+  const int _begc = r.local ? begc : max(begc, pbegc);
+  const int _endc = r.local ? endc
+                            : min(min(pendc + 1, endc), r.dpsn - 1);
+  const int _ende = min(pendc, endc);
+  const int cb = mulw(_begc, r.pn);
+#pragma unroll
+  for (int u = 0; u < CPT; ++u) {
+    const int c = c0 + u;
+    const int seg = segs[u];
+    int cand = c >= 1 ? v.h[u] : NEG;
+    const int boundary = r.local ? 0 : (pbegc < begc ? cand : r.inf);
+    if (c == cb) cand = boundary;
+    if (gm == LINEAR_GAP) cand = max(cand + qrow[u], v.h[u + 1] - r.e1);
+    const bool mmask = seg >= _begc && seg <= _endc && pvc;
+    if (first) {
+      if (!r.local && ((seg >= begc && seg < _begc)
+                       || (seg > _endc && seg <= r.capc)))
+        h[u] = r.inf;
+      if (mmask) h[u] = cand;
+    } else if (mmask) {
+      h[u] = max(h[u], cand);
+    }
+    if (gm != LINEAR_GAP) {
+      const bool emask = seg >= _begc && seg <= _ende && pvc;
+      if (first) {
+        if (!r.local && ((seg >= begc && seg < _begc)
+                         || (seg > _ende && seg <= endc))) {
+          e1v[u] = r.inf;
+          e2v[u] = r.inf;
+        }
+        if (emask) {
+          e1v[u] = v.e1[u];
+          e2v[u] = gm == CONVEX_GAP ? v.e2[u] : 0;
+        }
+      } else if (emask) {
+        e1v[u] = max(e1v[u], v.e1[u]);
+        if (gm == CONVEX_GAP) e2v[u] = max(e2v[u], v.e2[u]);
+      }
+    }
+  }
+}
+
+// a cell's predecessor fields while the slots are visited: the first
+// slot that meets M, E1 from M, E1 extended, E2 from M, E2 extended
+// (NONE: none yet; SPILL for any slot from SPILL on), and the open
+// bits of the slots picked (bit k of o for field k + 1)
+struct Fields {
+  int f[5];
+  int o;
+};
+
+// one predecessor slot p's part of the backtrack words at the thread's
+// columns: the first slot of each condition, its open bit
+__device__ __forceinline__ void bt_pred(
+    const PredVals& v, int p, int plo, int phi, int c0, const int* qrow,
+    const int* hrow, const int* e1row, const int* e2row, int gm, int e1,
+    int oe1, int e2, int oe2, Fields* fl) {
+#pragma unroll
+  for (int u = 0; u < CPT; ++u) {
+    const int c = c0 + u;
+    const bool m_in = c - 1 >= plo && c - 1 <= phi;
+    const bool okp = c >= plo && c <= phi;
+    Fields& w = fl[u];
+    if (m_in && v.h[u] + qrow[u] == hrow[u] && w.f[0] == NONE)
+      w.f[0] = min(p, SPILL);
+    if (!okp) continue;
+    const int bh = v.h[u + 1];
+    if (gm == LINEAR_GAP) {
+      if (bh - e1 == hrow[u] && w.f[1] == NONE)
+        w.f[1] = min(p, SPILL);
+      continue;
+    }
+    const int be1 = v.e1[u];
+    const int o1 = bh - oe1 == be1;
+    if (hrow[u] == be1 && w.f[1] == NONE) {
+      w.f[1] = min(p, SPILL);
+      w.o |= o1;
+    }
+    if (e1row[u] == be1 - e1 && w.f[2] == NONE) {
+      w.f[2] = min(p, SPILL);
+      w.o |= o1 << 1;
+    }
+    if (gm == CONVEX_GAP) {
+      const int be2 = v.e2[u];
+      const int o2 = bh - oe2 == be2;
+      if (hrow[u] == be2 && w.f[3] == NONE) {
+        w.f[3] = min(p, SPILL);
+        w.o |= o2 << 2;
+      }
+      if (e2row[u] == be2 - e2 && w.f[4] == NONE) {
+        w.f[4] = min(p, SPILL);
+        w.o |= o2 << 3;
+      }
+    }
+  }
+}
+
+// the F bits of one cell from its own and its left neighbour's values
+template <int GM>
+__device__ __forceinline__ u64 f_bits(int hh, int f1, int f2, int hprev,
+                                      int f1prev, int f2prev, int e1,
+                                      int oe1, int e2, int oe2) {
+  constexpr int F = Bt<GM>::F;
+  if (GM == LINEAR_GAP) return (u64)(hprev - e1 == hh) << F;
+  u64 w = ((u64)(hprev - oe1 == f1) << F)
+          | ((u64)(f1prev - e1 == f1) << (F + 1))
+          | ((u64)(hh == f1) << (F + 2));
+  if (GM == CONVEX_GAP)
+    w |= ((u64)(hprev - oe2 == f2) << (F + 3))
+         | ((u64)(f2prev - e2 == f2) << (F + 4)) | ((u64)(hh == f2) << (F + 5));
+  return w;
+}
+
+// one instance per gap mode (GM): the code of a launch holds only the
+// branches it runs
+template <int GM>
+__global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
   extern __shared__ int smem[];
-  const int R = a.R, Wq = a.Wq, P = a.P, O = a.O, pn = a.pn, gm = a.gm;
+  constexpr int gm = GM;
+  typedef Bt<GM> BL;
+  typedef typename BL::W W;
+  const int R = a.R, Wq = a.Wq, P = a.P, O = a.O, pn = a.pn;
   const bool local = a.mode == LOCAL_MODE, extend = a.mode == EXTEND_MODE;
   const int b = blockIdx.x, tid = threadIdx.x, NT = blockDim.x;
-  const int CPT = (Wq + NT - 1) / NT;
-  const int c0 = tid * CPT, c1 = min(c0 + CPT, Wq);
-  long long* s_red64 = reinterpret_cast<long long*>(smem);  // 32
-  int* s_red = smem + 64;                                   // 32
-  int* s_beg = s_red + 32;
+  const int lane = tid & 31, wid = tid >> 5, NW = NT >> 5;
+  u64* s_red = reinterpret_cast<u64*>(smem);  // [32]
+  int* s_ws1 = smem + 64;                     // [32] warp scan totals
+  int* s_ws2 = s_ws1 + 32;
+  int* s_edge = s_ws2 + 32;                   // [3 * 32] last columns
+  int* s_beg = s_edge + 96;
   int* s_end = s_beg + R;
   int* s_mpl = s_end + R;
   int* s_mpr = s_mpl + R;
-  int* s_scan1 = s_mpr + R;
-  int* s_scan2 = s_scan1 + NT;
+  int* s_ctrl = s_mpr + R;
+  int* s_rem = s_ctrl + R;
+  int* s_pre = s_rem + R;                     // [R * P] when pre_smem
 
   const size_t ro = (size_t)b * R;
-  const int* bases = a.bases + ro;
-  const int* pre_idx = a.pre_idx + ro * P;
-  const int* pre_n = a.pre_n + ro;
-  const int* out_idx = a.out_idx + ro * O;
-  const int* out_n = a.out_n + ro;
-  const int* remain = a.remain + ro;
-  const int* rowmask = a.rowmask + ro;
   const int* qp = a.qp + (size_t)b * a.m * Wq;
   const size_t plane = (size_t)R * Wq;
   int* H = a.H + b * plane;
   int* E1 = a.E1 + b * plane;
   int* E2 = a.E2 + b * plane;
-  int* F1 = a.F1 + b * plane;
-  int* F2 = a.F2 + b * plane;
+  W* BT = static_cast<W*>(a.BT) + b * plane;
+  const int* out_idx = a.out_idx + ro * O;
   const int* sc = a.scal + (size_t)b * S_NSCAL;
   const int qlen = sc[S_QLEN], nrows = sc[S_NROWS], w = sc[S_W];
   const int inf = sc[S_INF], remend = sc[S_REMEND], dpsn = sc[S_DPSN];
   const int e1 = sc[S_E1], o1 = sc[S_O1], oe1 = sc[S_OE1];
   const int e2 = sc[S_E2], o2 = sc[S_O2], oe2 = sc[S_OE2];
   const int zdrop = sc[S_ZDROP];
+  const int* pre = a.pre_smem ? s_pre : a.pre_idx + ro * P;
   for (int i = tid; i < R; i += NT) {
-    bool live = i < nrows;
+    const bool live = i < nrows;
     s_beg[i] = 0;
     s_end[i] = 0;
     s_mpl[i] = live ? a.mpl0[ro + i] : 0;
     s_mpr[i] = live ? a.mpr0[ro + i] : 0;
+    s_rem[i] = a.remain[ro + i];
+    const int npre = max(min(min(a.pre_n[ro + i], P), CMASK), 0);
+    const int nout = max(min(min(a.out_n[ro + i], O), CMASK), 0);
+    const int base = min(max(a.bases[ro + i], 0), a.m - 1);
+    bool next = false;
+    for (int o = 0; o < nout; ++o)
+      next |= out_idx[(size_t)i * O + o] == i + 1;
+    s_ctrl[i] = npre | (nout << C_NOUT) | (base << C_BASE)
+                | ((a.rowmask[ro + i] > 0) << C_LIVE) | (next << C_NEXT);
   }
+  if (a.pre_smem)
+    for (int i = tid; i < R * P; i += NT) s_pre[i] = a.pre_idx[ro * P + i];
   __syncthreads();
 
-  // ---- first row (ref :553-662) ----
+  // ---- first row (ref :553-662): every column, band state to its
+  // out-nodes ----
   if (tid == 0) {
     s_mpl[0] = 0;
     s_mpr[0] = 0;
-    for (int o = 0; o < min(out_n[0], O); ++o) {
+    const int nout0 = (s_ctrl[0] >> C_NOUT) & CMASK;
+    for (int o = 0; o < nout0; ++o) {
       int tgt = out_idx[o];
       s_mpl[tgt] = 1;
       s_mpr[tgt] = 1;
     }
   }
   __syncthreads();
+  // the row before's H, E1, E2 at the thread's columns (and H at the
+  // column before them), kept in registers when a row is one tile: a
+  // predecessor that is the row before is read from there
+  const int TILE = NT * CPT;
+  const bool single = TILE >= Wq;
+  int ph[CPT], pe1[CPT], pe2[CPT], ph_left;
   {
     int end0 = qlen;
     if (a.banded) {
-      int rem = remain[0] - remend - 1;
+      int rem = s_rem[0] - remend - 1;
       end0 = min(qlen, max(s_mpr[0], qlen - rem) + w);
     }
-    int end_sn0 = floordiv(end0, pn);
+    const int end_sn0 = end0 >> a.pn_sh;
     if (tid == 0) s_end[0] = end_sn0;
-    int esn = min(end_sn0 + 1, dpsn - 1);
-    for (int c = c0; c < c1; ++c) {
-      if (local) {
-        H[c] = 0;
-        if (gm != LINEAR_GAP) E1[c] = F1[c] = 0;
-        if (gm == CONVEX_GAP) E2[c] = F2[c] = 0;
-        continue;
-      }
-      bool hi_mask = floordiv(c, pn) <= esn;
-      bool de_mask = c <= (end_sn0 + 1) * pn - 1;
-      int fill0 = hi_mask ? inf : 0;
+    const int esn = min(end_sn0 + 1, dpsn - 1);
+    auto row0 = [&](int c, int& hv, int& ev1, int& ev2) {
+      hv = ev1 = ev2 = 0;
+      if (local) return;
+      const bool hi_mask = (c >> a.pn_sh) <= esn;
+      const bool de_mask = c <= (end_sn0 + 1) * pn - 1;
+      const int fill0 = hi_mask ? inf : 0;
       if (gm == LINEAR_GAP) {
-        H[c] = de_mask ? mulw(-e1, c) : fill0;
+        hv = de_mask ? mulw(-e1, c) : fill0;
       } else {
-        int f1v = -o1 - mulw(e1, c);
-        int f2v = -o2 - mulw(e2, c);
-        int hv = gm == CONVEX_GAP ? max(f1v, f2v) : f1v;
-        H[c] = c == 0 ? 0 : ((de_mask && c >= 1) ? hv : fill0);
-        E1[c] = c == 0 ? -oe1 : fill0;
-        F1[c] = (de_mask && c >= 1) ? f1v : (c == 0 ? inf : 0);
-        if (gm == CONVEX_GAP) {
-          E2[c] = c == 0 ? -oe2 : fill0;
-          F2[c] = (de_mask && c >= 1) ? f2v : (c == 0 ? inf : 0);
-        }
+        int f = -o1 - mulw(e1, c);
+        if (gm == CONVEX_GAP) f = max(f, -o2 - mulw(e2, c));
+        hv = c == 0 ? 0 : ((de_mask && c >= 1) ? f : fill0);
+        ev1 = c == 0 ? -oe1 : fill0;
+        ev2 = c == 0 ? -oe2 : fill0;
+      }
+    };
+    for (int T0 = 0; T0 < Wq; T0 += TILE) {
+      const int c0 = T0 + tid * CPT;
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) {
+        const int c = c0 + u;
+        row0(c, ph[u], pe1[u], pe2[u]);
+        if (c >= Wq) continue;
+        H[c] = ph[u];
+        if (gm != LINEAR_GAP) E1[c] = pe1[u];
+        if (gm == CONVEX_GAP) E2[c] = pe2[u];
       }
     }
+    int x1, x2;
+    ph_left = NEG;
+    if (tid > 0) row0(tid * CPT - 1, ph_left, x1, x2);
   }
   __syncthreads();
 
-  // best cell / z-drop / cells: thread 0's copies
-  int bs = inf, bi = 0, bj = 0, brem = remain[0], cells = 0;
-  bool stop = false;
+  // best cell, z-drop state, cells and the previous row's push: every
+  // thread keeps the same copy (all inputs are block-uniform)
+  int bs = inf, bi = 0, bj = 0, brem = s_rem[0], cells = 0;
+  bool stop = false, prev_push = false;
+  int prev_mi1 = 0;
+  DP_PROBE_INIT
   const int limit = min(nrows - 1, R - 1);
   for (int t = 1; t < limit; ++t) {
-    // ---- per-row scalars (every thread, from shared) ----
+    // ---- the row's scalars ----
+    const int cw = s_ctrl[t];
+    const int npre = cw & CMASK, nout = (cw >> C_NOUT) & CMASK;
+    const int base = (cw >> C_BASE) & 31;
+    // this thread's out-edge of the row (pushed after the row maximum)
+    const int my_tgt = tid < nout ? out_idx[(size_t)t * O + tid] : 0;
     int beg = 0, end = qlen;
     if (a.banded) {
-      int rem = remain[t] - remend - 1;
-      beg = max(0, min(s_mpl[t], qlen - rem) - w);
-      end = min(qlen, max(s_mpr[t], qlen - rem) + w);
+      int mplt = s_mpl[t], mprt = s_mpr[t];
+      if (prev_push && ((s_ctrl[t - 1] >> C_NEXT) & 1)) {
+        mplt = min(mplt, prev_mi1);
+        mprt = max(mprt, prev_mi1);
+      }
+      const int rem = s_rem[t] - remend - 1;
+      beg = max(0, min(mplt, qlen - rem) - w);
+      end = min(qlen, max(mprt, qlen - rem) + w);
     }
-    const int npre = min(pre_n[t], P);
-    const int* prow_ids = pre_idx + (size_t)t * P;
+    const int* prow_ids = pre + (size_t)t * P;
     int min_pb = 1 << 30;
     for (int p = 0; p < npre; ++p) min_pb = min(min_pb, s_beg[prow_ids[p]]);
-    const int beg_sn = max(floordiv(beg, pn), min_pb);
-    const int end_sn = floordiv(end, pn);
-    const int begc = beg_sn, endc = end_sn;
-    const int capc = min(endc + 1, dpsn - 1);
-    const int lo = mulw(begc, pn);
-    const int base = min(max(bases[t], 0), a.m - 1);
+    const int beg_sn = max(beg >> a.pn_sh, min_pb);
+    const int end_sn = end >> a.pn_sh;
+    if (tid == 0) {
+      s_beg[t] = beg_sn;
+      s_end[t] = end_sn;
+    }
+    Row r;
+    r.begc = beg_sn;
+    r.endc = end_sn;
+    r.capc = min(end_sn + 1, dpsn - 1);
+    r.lo = mulw(beg_sn, pn);
+    r.qlen = qlen;
+    r.dpsn = dpsn;
+    r.pn = pn;
+    r.inf = inf;
+    r.e1 = e1;
+    r.local = local;
+    const int lo = r.lo;
     const int* qrow_p = qp + (size_t)base * Wq;
     int* Ht = H + (size_t)t * Wq;
     int* E1t = E1 + (size_t)t * Wq;
     int* E2t = E2 + (size_t)t * Wq;
-    int* F1t = F1 + (size_t)t * Wq;
-    int* F2t = F2 + (size_t)t * Wq;
+    W* BTt = BT + (size_t)t * Wq;
 
-    // ---- pass 1: predecessor merges, parked in the row's plane slots
-    // (H: h, or h0 = h + qrow; E1/E2: the merged E), chunk maxima of the
-    // F scan's input ----
-    int cmax1 = NEG, cmax2 = NEG;
-    for (int c = c0; c < c1; ++c) {
-      int seg = floordiv(c, pn);
-      bool band = seg >= begc && seg <= endc;
-      int qrow = (c >= 1 && c <= qlen) ? qrow_p[c] : 0;
-      int h = 0, e1v = 0, e2v = 0;
-      for (int p = 0; p < P; ++p) {
-        int pred = prow_ids[p];
-        bool pvc = p < pre_n[t];
-        int pbegc = pvc ? s_beg[pred] : (1 << 29);
-        int pendc = pvc ? s_end[pred] : -(1 << 29);
-        int _begc = local ? begc : max(begc, pbegc);
-        int _endc = local ? endc : min(min(pendc + 1, endc), dpsn - 1);
-        const int* prH = H + (size_t)pred * Wq;
-        int preH = prH[c];
-        int cand = c >= 1 ? prH[c - 1] : NEG;
-        int boundary = local ? 0 : (pbegc < begc ? cand : inf);
-        if (c == mulw(_begc, pn)) cand = boundary;
-        if (gm == LINEAR_GAP) cand = max(cand + qrow, preH - e1);
-        bool mmask = seg >= _begc && seg <= _endc && pvc;
-        if (p == 0) {
-          if (!local && ((seg >= begc && seg < _begc)
-                         || (seg > _endc && seg <= capc)))
-            h = inf;
-          if (mmask) h = cand;
-        } else if (mmask) {
-          h = max(h, cand);
-        }
-        if (gm != LINEAR_GAP) {
-          int _ende = min(pendc, endc);
-          bool emask = seg >= _begc && seg <= _ende && pvc;
-          int preE1 = E1[(size_t)pred * Wq + c];
-          int preE2 = gm == CONVEX_GAP ? E2[(size_t)pred * Wq + c] : 0;
-          if (p == 0) {
-            if (!local && ((seg >= begc && seg < _begc)
-                           || (seg > _ende && seg <= endc))) {
-              e1v = inf;
-              e2v = inf;
-            }
-            if (emask) {
-              e1v = preE1;
-              e2v = preE2;
-            }
-          } else if (emask) {
-            e1v = max(e1v, preE1);
-            e2v = max(e2v, preE2);
-          }
-        }
+    DP_PROBE(0)
+    u64 kbest = best_key(NEG, 63, 0x3FFFFFF);
+    int carry1 = NEG, carry2 = NEG;
+    // the left neighbour of the tile's first column (the last column of
+    // the tile before it): H, F1, F2
+    int eh = 0, ef1 = 0, ef2 = 0;
+    for (int T0 = 0; T0 < Wq; T0 += TILE) {
+      const bool last_tile = T0 + TILE >= Wq;
+      const int c0 = T0 + tid * CPT;
+      int qrow[CPT], h[CPT], e1v[CPT], e2v[CPT], segs[CPT];
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) {
+        const int c = c0 + u;
+        qrow[u] = (c >= 1 && c <= qlen && c < Wq) ? qrow_p[c] : 0;
+        segs[u] = c >> a.pn_sh;
+        h[u] = e1v[u] = e2v[u] = 0;
       }
-      int rel = c - lo;
-      if (gm == LINEAR_GAP) {
-        Ht[c] = h;
-        cmax1 = max(cmax1, band ? max(h, inf) + rel * e1 : NEG);
-      } else {
-        int h0 = h + (band ? qrow : 0);
-        Ht[c] = h0;
-        E1t[c] = e1v;
-        int src = h0;
-        if (gm == CONVEX_GAP) {
-          E2t[c] = e2v;
-          src = max(max(h0, e1v), e2v);
-          cmax2 = max(cmax2, band ? max(src, inf) + rel * e2 : NEG);
-        }
-        cmax1 = max(cmax1, band ? max(src, inf) + rel * e1 : NEG);
+      // ---- merges over the predecessors; the first one's values stay
+      // for the backtrack words ----
+      PredVals first = {};
+      int fbeg = 1 << 29, fend = -(1 << 29);
+      if (npre > 0) {
+        const int pred = prow_ids[0];
+        fbeg = s_beg[pred];
+        fend = s_end[pred];
+        if (single && pred == t - 1)
+          from_regs(first, ph, pe1, pe2, ph_left);
+        else
+          load_pred(first, H, E1, E2, pred, c0, Wq, gm);
       }
-    }
-    s_scan1[tid] = cmax1;
-    s_scan2[tid] = cmax2;
-    __syncthreads();
-    scan_max2(s_scan1, s_scan2);
-    int pm1 = tid > 0 ? s_scan1[tid - 1] : NEG;
-    int pm2 = tid > 0 ? s_scan2[tid - 1] : NEG;
+      merge_pred(r, first, true, npre > 0, fbeg, fend, c0, segs, qrow, gm,
+                 h, e1v, e2v);
+      for (int p = 1; p < npre; ++p) {
+        const int pred = prow_ids[p];
+        PredVals v;
+        if (single && pred == t - 1)
+          from_regs(v, ph, pe1, pe2, ph_left);
+        else
+          load_pred(v, H, E1, E2, pred, c0, Wq, gm);
+        merge_pred(r, v, false, true, s_beg[pred], s_end[pred], c0, segs,
+                   qrow, gm, h, e1v, e2v);
+      }
 
-    // ---- pass 2: F, H, E and the row maximum ----
-    int vbest = NEG;
-    long long kbest = 0x7FFFFFFFFFFFFFFFLL;
-    for (int c = c0; c < c1; ++c) {
-      int seg = floordiv(c, pn);
-      bool band = seg >= begc && seg <= endc;
-      int rel = c - lo;
-      int hrow;
-      if (gm == LINEAR_GAP) {
-        int h = Ht[c];
-        pm1 = max(pm1, band ? max(h, inf) + rel * e1 : NEG);  // inclusive
-        int hfin = max(pm1 - rel * e1, inf);
-        if (local) hfin = max(hfin, 0);
-        hrow = band ? hfin : h;
-        Ht[c] = hrow;
-      } else {
-        int h0 = Ht[c], e1v = E1t[c];
-        int e2v = gm == CONVEX_GAP ? E2t[c] : 0;
-        int src = gm == CONVEX_GAP ? max(max(h0, e1v), e2v) : h0;
-        int f1 = c == lo ? h0 - oe1 : pm1 - oe1 - (rel - 1) * e1;
-        f1 = max(f1, inf);
-        pm1 = max(pm1, band ? max(src, inf) + rel * e1 : NEG);
-        if (gm == CONVEX_GAP) {
-          int f2 = c == lo ? h0 - oe2 : pm2 - oe2 - (rel - 1) * e2;
-          f2 = max(f2, inf);
-          pm2 = max(pm2, band ? max(src, inf) + rel * e2 : NEG);
-          int hpf = band ? src : NEG;
-          int hh = max(max(hpf, f1), f2);
-          if (local) hh = max(hh, 0);
-          int e1n = max(e1v - e1, hh - oe1);
-          int e2n = max(e2v - e2, hh - oe2);
-          if (local) {
-            e1n = max(e1n, 0);
-            e2n = max(e2n, 0);
-          }
-          hrow = band ? hh : h0;
-          E1t[c] = band ? e1n : e1v;
-          E2t[c] = band ? e2n : e2v;
-          F1t[c] = band ? f1 : 0;
-          F2t[c] = band ? f2 : 0;
+      DP_PROBE(1)
+      // ---- scan inputs: the thread's maxima ----
+      int cmax1 = NEG, cmax2 = NEG;
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) {
+        const int c = c0 + u;
+        if (c >= Wq) continue;
+        const int seg = segs[u];
+        const bool band = seg >= r.begc && seg <= r.endc;
+        const int rel = c - lo;
+        if (gm == LINEAR_GAP) {
+          cmax1 = max(cmax1, band ? max(h[u], inf) + rel * e1 : NEG);
         } else {
-          int h1 = max(h0, e1v);
-          int hh = max(h1, f1);
-          if (local) hh = max(hh, 0);
-          int e1n = max(e1v - e1, hh - oe1);
-          int e1fin = hh == h1 ? e1n : (local ? 0 : inf);
-          hrow = band ? hh : h0;
-          E1t[c] = band ? e1fin : e1v;
-          F1t[c] = band ? f1 : 0;
+          const int h0 = h[u] + (band ? qrow[u] : 0);
+          int src = h0;
+          if (gm == CONVEX_GAP) {
+            src = max(max(h0, e1v[u]), e2v[u]);
+            cmax2 = max(cmax2, band ? max(src, inf) + rel * e2 : NEG);
+          }
+          cmax1 = max(cmax1, band ? max(src, inf) + rel * e1 : NEG);
         }
-        Ht[c] = hrow;
       }
-      if (c >= lo) {
-        // row max with the reference tie-breaks: the maximal value, then
-        // the lowest lane-in-segment, then the last segment, then the
-        // first (aux = prio*1024 + segment-in-band)
-        int v = (band && c <= qlen) ? hrow : inf;
-        int lseg = seg - begc;
-        int prio = lseg == endc - begc ? -1 : lseg;
-        long long key = ((long long)(c % pn) << 32)
-                        | (unsigned)(prio * 1024 + lseg + 1024);
-        if (v > vbest || (v == vbest && key < kbest)) {
-          vbest = v;
-          kbest = key;
+      // ---- inclusive warp scan of the maxima, one step across warps ----
+      int in1 = cmax1, in2 = cmax2;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int x1 = __shfl_up_sync(~0u, in1, d);
+        const int x2 = __shfl_up_sync(~0u, in2, d);
+        if (lane >= d) {
+          in1 = max(in1, x1);
+          in2 = max(in2, x2);
         }
+      }
+      int pm1 = __shfl_up_sync(~0u, in1, 1);
+      int pm2 = __shfl_up_sync(~0u, in2, 1);
+      if (lane == 0) pm1 = pm2 = NEG;
+      if (lane == 31) {
+        s_ws1[wid] = in1;
+        s_ws2[wid] = in2;
+      }
+      __syncthreads();
+      DP_PROBE(2)
+      // across warps: lane k holds warp k's total; the warps before this
+      // one and all warps, by warp reductions
+      {
+        const int w1 = lane < NW ? s_ws1[lane] : NEG;
+        const int w2 = lane < NW ? s_ws2[lane] : NEG;
+        const int b1 = __reduce_max_sync(~0u, lane < wid ? w1 : NEG);
+        const int b2 = __reduce_max_sync(~0u, lane < wid ? w2 : NEG);
+        const int t1 = __reduce_max_sync(~0u, w1);
+        const int t2 = __reduce_max_sync(~0u, w2);
+        pm1 = max(pm1, max(carry1, b1));
+        pm2 = max(pm2, max(carry2, b2));
+        carry1 = max(carry1, t1);
+        carry2 = max(carry2, t2);
+      }
+
+      // ---- F, H, E, the stored rows ----
+      int hrow[CPT], e1row[CPT], e2row[CPT], f1row[CPT], f2row[CPT];
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) {
+        const int c = c0 + u;
+        const int seg = segs[u];
+        const bool band = seg >= r.begc && seg <= r.endc;
+        const int rel = c - lo;
+        e1row[u] = e2row[u] = f1row[u] = f2row[u] = 0;
+        if (gm == LINEAR_GAP) {
+          pm1 = max(pm1, band ? max(h[u], inf) + rel * e1 : NEG);
+          int hfin = max(pm1 - rel * e1, inf);
+          if (local) hfin = max(hfin, 0);
+          hrow[u] = band ? hfin : h[u];
+        } else {
+          const int h0 = h[u] + (band ? qrow[u] : 0);
+          const int src = gm == CONVEX_GAP ? max(max(h0, e1v[u]), e2v[u])
+                                           : h0;
+          int f1 = c == lo ? h0 - oe1 : pm1 - oe1 - (rel - 1) * e1;
+          f1 = max(f1, inf);
+          pm1 = max(pm1, band ? max(src, inf) + rel * e1 : NEG);
+          if (gm == CONVEX_GAP) {
+            int f2 = c == lo ? h0 - oe2 : pm2 - oe2 - (rel - 1) * e2;
+            f2 = max(f2, inf);
+            pm2 = max(pm2, band ? max(src, inf) + rel * e2 : NEG);
+            const int hpf = band ? src : NEG;
+            int hh = max(max(hpf, f1), f2);
+            if (local) hh = max(hh, 0);
+            int e1n = max(e1v[u] - e1, hh - oe1);
+            int e2n = max(e2v[u] - e2, hh - oe2);
+            if (local) {
+              e1n = max(e1n, 0);
+              e2n = max(e2n, 0);
+            }
+            hrow[u] = band ? hh : h0;
+            e1row[u] = band ? e1n : e1v[u];
+            e2row[u] = band ? e2n : e2v[u];
+            f1row[u] = band ? f1 : 0;
+            f2row[u] = band ? f2 : 0;
+          } else {
+            const int h1 = max(h0, e1v[u]);
+            int hh = max(h1, f1);
+            if (local) hh = max(hh, 0);
+            const int e1n = max(e1v[u] - e1, hh - oe1);
+            const int e1fin = hh == h1 ? e1n : (local ? 0 : inf);
+            hrow[u] = band ? hh : h0;
+            e1row[u] = band ? e1fin : e1v[u];
+            f1row[u] = band ? f1 : 0;
+          }
+        }
+      }
+      if (c0 < Wq) {
+        if (c0 + CPT <= Wq && (Wq & (CPT - 1)) == 0) {
+          st_run<CPT>(Ht + c0, hrow);
+          if (gm != LINEAR_GAP) st_run<CPT>(E1t + c0, e1row);
+          if (gm == CONVEX_GAP) st_run<CPT>(E2t + c0, e2row);
+        } else {
+#pragma unroll
+          for (int u = 0; u < CPT; ++u) {
+            if (c0 + u >= Wq) continue;
+            Ht[c0 + u] = hrow[u];
+            if (gm != LINEAR_GAP) E1t[c0 + u] = e1row[u];
+            if (gm == CONVEX_GAP) E2t[c0 + u] = e2row[u];
+          }
+        }
+      }
+
+      DP_PROBE(3)
+      // ---- backtrack words: predecessor slots, then the F bits ----
+      Fields fl[CPT];
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) {
+        fl[u].f[0] = fl[u].f[1] = fl[u].f[2] = fl[u].f[3] = fl[u].f[4] = NONE;
+        fl[u].o = 0;
+      }
+      if (npre > 0)
+        bt_pred(first, 0, mulw(fbeg, pn), mulw(fend + 1, pn) - 1, c0, qrow,
+                hrow, e1row, e2row, gm, e1, oe1, e2, oe2, fl);
+      for (int p = 1; p < npre; ++p) {
+        const int pred = prow_ids[p];
+        PredVals v;
+        if (single && pred == t - 1)
+          from_regs(v, ph, pe1, pe2, ph_left);
+        else
+          load_pred(v, H, E1, E2, pred, c0, Wq, gm);
+        bt_pred(v, p, mulw(s_beg[pred], pn), mulw(s_end[pred] + 1, pn) - 1,
+                c0, qrow, hrow, e1row, e2row, gm, e1, oe1, e2, oe2, fl);
+      }
+      u64 bt[CPT];
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) {
+        bt[u] = ((u64)fl[u].f[0] << BL::MP) | ((u64)fl[u].f[1] << BL::E1M)
+                | ((u64)fl[u].f[2] << BL::E1X) | ((u64)fl[u].o << BL::O)
+                | ((u64)(hrow[u] == 0) << BL::HZ);
+        if (gm == CONVEX_GAP)
+          bt[u] |= ((u64)fl[u].f[3] << BL::E2M) | ((u64)fl[u].f[4] << BL::E2X);
+      }
+#pragma unroll
+      for (int u = 1; u < CPT; ++u)
+        bt[u] |= f_bits<GM>(hrow[u], f1row[u], f2row[u], hrow[u - 1],
+                            f1row[u - 1], f2row[u - 1], e1, oe1, e2, oe2);
+      // the first column's left neighbour: the lane before, else the
+      // warp before (after the barrier), else the tile before
+      const int nh = __shfl_up_sync(~0u, hrow[CPT - 1], 1);
+      const int nf1 = __shfl_up_sync(~0u, f1row[CPT - 1], 1);
+      const int nf2 = __shfl_up_sync(~0u, f2row[CPT - 1], 1);
+      if (lane > 0)
+        bt[0] |= f_bits<GM>(hrow[0], f1row[0], f2row[0], nh, nf1, nf2, e1,
+                            oe1, e2, oe2);
+      else if (wid == 0)
+        bt[0] |= c0 == 0 ? f_bits<GM>(hrow[0], f1row[0], f2row[0], 0, 0, 0,
+                                      e1, oe1, e2, oe2)
+                         : f_bits<GM>(hrow[0], f1row[0], f2row[0], eh, ef1,
+                                      ef2, e1, oe1, e2, oe2);
+      if (lane == 31) {
+        s_edge[wid] = hrow[CPT - 1];
+        s_edge[32 + wid] = f1row[CPT - 1];
+        s_edge[64 + wid] = f2row[CPT - 1];
+      }
+
+      DP_PROBE(4)
+      // ---- the row maximum candidates: columns at or past the band
+      // start; out-of-band columns count as inf ----
+#pragma unroll
+      for (int u = 0; u < CPT; ++u) {
+        const int c = c0 + u;
+        if (c >= Wq || c < lo) continue;
+        const int seg = segs[u];
+        const bool band = seg >= r.begc && seg <= r.endc;
+        const int v = (band && c <= qlen) ? hrow[u] : inf;
+        const int lseg = seg - r.begc;
+        const int prio = lseg == r.endc - r.begc ? -1 : lseg;
+        const u64 k = best_key(v, c - seg * pn, prio * 1024 + lseg + 1024);
+        kbest = k > kbest ? k : kbest;
+      }
+      if (last_tile) {
+        kbest = warp_max64(kbest);
+        if (lane == 0) s_red[wid] = kbest;
+      }
+      __syncthreads();
+      int left = lane > 0 ? nh : (wid > 0 ? s_edge[wid - 1] : eh);
+      DP_PROBE(5)
+      if (lane == 0 && wid > 0)
+        bt[0] |= f_bits<GM>(hrow[0], f1row[0], f2row[0], left,
+                            s_edge[32 + wid - 1], s_edge[64 + wid - 1], e1,
+                            oe1, e2, oe2);
+      if (single) {
+#pragma unroll
+        for (int u = 0; u < CPT; ++u) {
+          ph[u] = hrow[u];
+          pe1[u] = e1row[u];
+          pe2[u] = e2row[u];
+        }
+        ph_left = c0 >= 1 ? left : NEG;
+      }
+      eh = s_edge[NW - 1];
+      ef1 = s_edge[32 + NW - 1];
+      ef2 = s_edge[64 + NW - 1];
+      if (c0 < Wq) {
+#pragma unroll
+        for (int u = 0; u < CPT; ++u)
+          if (c0 + u < Wq) BTt[c0 + u] = (W)bt[u];
+      }
+      // the next tile writes s_ws and s_edge only after its first
+      // barrier, which every thread reaches after these reads
+    }
+
+    // ---- the row maximum (every thread), best cell, z-drop, push ----
+    const u64 g = warp_max64(lane < NW ? s_red[lane] : 0);
+    const int gmax = (int)((unsigned)(g >> 32) ^ 0x80000000u);
+    const unsigned klo = ~(unsigned)(g & 0xFFFFFFFFu);
+    const int lane_pick = (int)(klo >> 26);
+    const int aux_pick = (int)(klo & 0x3FFFFFFu) - 1024;
+    const int wseg = aux_pick - floordiv(aux_pick, 1024) * 1024;
+    const int mi = gmax > inf ? (r.begc + wseg) * pn + lane_pick : -1;
+    const bool active = !stop && ((cw >> C_LIVE) & 1);
+    bool stop_now = false;
+    if (local || extend) {
+      const bool better = gmax > bs;
+      if (extend && a.zdrop_on) {
+        const int delta = brem - s_rem[t];
+        const int zlim = zdrop + mulw(e1, abs(delta - (mi - bj)));
+        stop_now = !better && bs - gmax > zlim;
+      }
+      if (active && better) {
+        bs = gmax;
+        bi = t;
+        bj = mi;
+        brem = s_rem[t];
+      }
+      stop_now = active && stop_now;
+    }
+    prev_push = active && !stop_now;
+    prev_mi1 = mi + 1;
+    if (prev_push) {
+      if (tid < nout) {
+        atomicMin(&s_mpl[my_tgt], mi + 1);
+        atomicMax(&s_mpr[my_tgt], mi + 1);
+      }
+      for (int o = tid + NT; o < nout; o += NT) {
+        const int tgt = out_idx[(size_t)t * O + o];
+        atomicMin(&s_mpl[tgt], mi + 1);
+        atomicMax(&s_mpr[tgt], mi + 1);
       }
     }
-    int gmax = block_max(vbest, s_red);
-    long long kpick = block_min64(vbest == gmax ? kbest
-                                                : 0x7FFFFFFFFFFFFFFFLL,
-                                  s_red64);
-    if (tid == 0) {
-      s_beg[t] = beg_sn;
-      s_end[t] = end_sn;
-      bool active = !stop && rowmask[t] > 0;
-      int lane_pick = (int)(kpick >> 32);
-      int aux_pick = (int)(kpick & 0xFFFFFFFFLL) - 1024;
-      int wseg = aux_pick - floordiv(aux_pick, 1024) * 1024;
-      int mi = gmax > inf ? (begc + wseg) * pn + lane_pick : -1;
-      bool stop_now = false;
-      if (local || extend) {
-        bool better = gmax > bs;
-        if (extend && a.zdrop_on) {
-          int delta = brem - remain[t];
-          int zlim = zdrop + mulw(e1, abs(delta - (mi - bj)));
-          stop_now = !better && bs - gmax > zlim;
-        }
-        if (active && better) {
-          bs = gmax;
-          bi = t;
-          bj = mi;
-          brem = remain[t];
-        }
-        stop_now = active && stop_now;
-      }
-      if (active && !stop_now) {
-        // the band state of the out-nodes (ref adaptive band update)
-        for (int o = 0; o < min(out_n[t], O); ++o) {
-          int tgt = out_idx[(size_t)t * O + o];
-          s_mpr[tgt] = max(s_mpr[tgt], mi + 1);
-          s_mpl[tgt] = min(s_mpl[tgt], mi + 1);
-        }
-      }
-      stop = stop || stop_now;
-      if (active) cells += (end_sn - beg_sn + 1) * pn;
-    }
-    __syncthreads();
+    DP_PROBE(6)
+    stop = stop || stop_now;
+    if (active) cells += (end_sn - beg_sn + 1) * pn;
   }
+  __syncthreads();
 
   for (int i = tid; i < min(nrows, R); i += NT) {
     a.begsn[ro + i] = s_beg[i];
@@ -420,12 +781,12 @@ __global__ void __launch_bounds__(1024) fw_dp_kernel(FwArgs a) {
   if (tid != 0) return;
   if (a.mode == 0) {
     // ---- best cell over the sink's predecessors ----
-    int sink = min(max(nrows - 1, 0), R - 1);
-    for (int p = 0; p < P; ++p) {
-      if (p >= pre_n[sink]) continue;
-      int pred = pre_idx[(size_t)sink * P + p];
-      int ec = min(qlen, (s_end[pred] + 1) * pn - 1);
-      int val = (ec >= 0 && ec < Wq) ? H[(size_t)pred * Wq + ec] : 0;
+    const int sink = min(max(nrows - 1, 0), R - 1);
+    const int npre = s_ctrl[sink] & CMASK;
+    for (int p = 0; p < npre; ++p) {
+      const int pred = pre[(size_t)sink * P + p];
+      const int ec = min(qlen, (s_end[pred] + 1) * pn - 1);
+      const int val = (ec >= 0 && ec < Wq) ? H[(size_t)pred * Wq + ec] : 0;
       if (val > bs) {
         bs = val;
         bi = pred;
@@ -440,119 +801,119 @@ __global__ void __launch_bounds__(1024) fw_dp_kernel(FwArgs a) {
   misc[M_CELLS] = cells;
   misc[M_OVFL] = 0;
   if (a.LS == 0) return;
+  DP_PROBE_MARK
 
-  // ---- the walk: every condition the reference backtrack tests, read
-  // off the planes (0 outside [0, Wq)) ----
-  auto at = [&](const int* pl, int i, int c) -> int {
-    return (c >= 0 && c < Wq) ? pl[(size_t)i * Wq + c] : 0;
-  };
-  auto in_band = [&](int r, int c) -> bool {
-    return s_beg[r] * pn <= c && c <= (s_end[r] + 1) * pn - 1;
+  // ---- the walk: one backtrack word per step ----
+  // the first slot from SPILL on that meets field k's condition at cell
+  // (i, j), re-derived from the planes as bt_pred derived it
+  auto spill_slot = [&](int k, int i, int j) {
+    const int cw = s_ctrl[i];
+    const int np = cw & CMASK, base = (cw >> C_BASE) & 31;
+    const size_t at = (size_t)i * Wq + j;
+    const int q = (j >= 1 && j <= qlen && j < Wq)
+                      ? qp[(size_t)base * Wq + j] : 0;
+    for (int p = SPILL; p < np; ++p) {
+      const int pred = pre[(size_t)i * P + p];
+      const int plo = mulw(s_beg[pred], pn);
+      const int phi = mulw(s_end[pred] + 1, pn) - 1;
+      const size_t pa = (size_t)pred * Wq + j;
+      bool hit;
+      if (k == 0)
+        hit = j - 1 >= plo && j - 1 <= phi && H[pa - 1] + q == H[at];
+      else if (j < plo || j > phi)
+        hit = false;
+      else if (k == 1)
+        hit = gm == LINEAR_GAP ? H[pa] - e1 == H[at] : H[at] == E1[pa];
+      else if (k == 2)
+        hit = E1[at] == E1[pa] - e1;
+      else if (k == 3)
+        hit = H[at] == E2[pa];
+      else
+        hit = E2[at] == E2[pa] - e2;
+      if (hit) return p;
+    }
+    return NONE;
   };
   int* st = a.steps + (size_t)b * max(a.LS, 8);
   int i = bi, j = bj, cur = BT_ALL, nst = 0;
   bool if_ = true, fail = false;
   bool done = bi <= 0 || bj <= 0;
   while (!done && nst < a.LS) {
+    const u64 wd = (u64)BT[(size_t)i * Wq + j];
     const bool curM = (cur & BT_M) != 0;
-    const int hij = at(H, i, j), h_prev = at(H, i, j - 1);
-    const bool zero_stop = local && hij == 0;
-    const int base = min(max(bases[i], 0), a.m - 1);
-    const int s = (j >= 0 && j < Wq) ? qp[(size_t)base * Wq + j] : 0;
-    int e1ij = 0, f1ij = 0, f1prev = 0, e2ij = 0, f2ij = 0, f2prev = 0;
-    if (gm != LINEAR_GAP) {
-      e1ij = at(E1, i, j);
-      f1ij = at(F1, i, j);
-      f1prev = at(F1, i, j - 1);
-    }
-    if (gm == CONVEX_GAP) {
-      e2ij = at(E2, i, j);
-      f2ij = at(F2, i, j);
-      f2prev = at(F2, i, j - 1);
-    }
-    int m_pick = -1, e_pred_sel = 0, e_op_sel = BT_ALL;
-    bool e_possible = false;
-    for (int p = 0; p < P; ++p) {
-      int pre = pre_idx[(size_t)i * P + p];
-      bool pv = p < pre_n[i];
-      int hpre = at(H, pre, j), hpre1 = at(H, pre, j - 1);
-      if (m_pick < 0 && pv && in_band(pre, j - 1) && hpre1 + s == hij)
-        m_pick = p;
-      bool okp = pv && in_band(pre, j);
-      if (gm == LINEAR_GAP) {
-        if (!e_possible && okp && hpre - e1 == hij) {
-          e_possible = true;
-          e_pred_sel = pre;
-          e_op_sel = BT_ALL;
-        }
-      } else {
-        int e1pre = at(E1, pre, j);
-        bool hm = curM && hij == e1pre;
-        bool hx = !curM && e1ij == e1pre - e1;
-        if (!e_possible && okp && (cur & BT_E1) && (hm || hx)) {
-          e_possible = true;
-          e_pred_sel = pre;
-          e_op_sel = hpre - oe1 == e1pre ? (BT_M | BT_F) : BT_E1;
-        }
-        if (gm == CONVEX_GAP) {
-          int e2pre = at(E2, pre, j);
-          bool hm2 = curM && hij == e2pre;
-          bool hx2 = !curM && e2ij == e2pre - e2;
-          if (!e_possible && okp && (cur & BT_E2) && (hm2 || hx2)) {
-            e_possible = true;
-            e_pred_sel = pre;
-            e_op_sel = hpre - oe2 == e2pre ? (BT_M | BT_F) : BT_E2;
-          }
-        }
-      }
-    }
-    bool m_possible = m_pick >= 0;
-    bool f_possible;
-    int f_op_sel = BT_ALL;
+    const bool zero_stop = local && ((wd >> BL::HZ) & 1);
+    const int mp = (int)(wd >> BL::MP) & NONE;
+    const bool m_possible = mp != NONE;
+    bool e_possible, f_possible;
+    int e_pick = 0, e_op_sel = BT_ALL, f_op_sel = BT_ALL;
     if (gm == LINEAR_GAP) {
-      f_possible = h_prev - e1 == hij;
+      e_pick = (int)(wd >> BL::E1M) & NONE;
+      if (e_pick == SPILL) e_pick = spill_slot(1, i, j);
+      e_possible = e_pick != NONE;
+      f_possible = (wd >> BL::F) & 1;
     } else {
-      bool f1_open = h_prev - oe1 == f1ij;
-      bool f1_ext = f1prev - e1 == f1ij;
-      bool f1_gate = curM ? hij == f1ij : true;
-      bool hit_f1 = (cur & BT_F1) && f1_gate && (f1_open || f1_ext);
-      int op_f1 = f1_open ? (BT_M | BT_E) : BT_F1;
+      int pe1 = (int)(wd >> (curM ? BL::E1M : BL::E1X)) & NONE;
+      if (pe1 == SPILL) pe1 = spill_slot(curM ? 1 : 2, i, j);
+      const bool op1 = (wd >> (BL::O + (curM ? 0 : 1))) & 1;
+      const bool e1hit = (cur & BT_E1) && pe1 != NONE;
+      int pe2 = NONE;
+      bool op2 = false, e2hit = false;
+      if (gm == CONVEX_GAP) {
+        pe2 = (int)(wd >> (curM ? BL::E2M : BL::E2X)) & NONE;
+        if (pe2 == SPILL) pe2 = spill_slot(curM ? 3 : 4, i, j);
+        op2 = (wd >> (BL::O + (curM ? 2 : 3))) & 1;
+        e2hit = (cur & BT_E2) && pe2 != NONE;
+      }
+      // candidate order: slot by slot, E1 before E2
+      const bool use_e1 = e1hit && (!e2hit || pe1 <= pe2);
+      e_possible = e1hit || e2hit;
+      e_pick = use_e1 ? pe1 : pe2;
+      e_op_sel = use_e1 ? (op1 ? (BT_M | BT_F) : BT_E1)
+                        : (op2 ? (BT_M | BT_F) : BT_E2);
+      const bool f1o = (wd >> BL::F) & 1, f1x = (wd >> (BL::F + 1)) & 1,
+                 f1g = (wd >> (BL::F + 2)) & 1;
+      const bool hit_f1 = (cur & BT_F1) && (curM ? f1g : true) && (f1o || f1x);
+      const int op_f1 = f1o ? (BT_M | BT_E) : BT_F1;
       bool hit_f2 = false;
       int op_f2 = BT_ALL;
       if (gm == CONVEX_GAP) {
-        bool f2_open = h_prev - oe2 == f2ij;
-        bool f2_ext = f2prev - e2 == f2ij;
-        bool f2_gate = curM ? hij == f2ij : true;
-        hit_f2 = (cur & BT_F2) && f2_gate && (f2_open || f2_ext);
-        op_f2 = f2_open ? (BT_M | BT_E) : BT_F2;
+        const bool f2o = (wd >> (BL::F + 3)) & 1,
+                   f2x = (wd >> (BL::F + 4)) & 1,
+                   f2g = (wd >> (BL::F + 5)) & 1;
+        hit_f2 = (cur & BT_F2) && (curM ? f2g : true) && (f2o || f2x);
+        op_f2 = f2o ? (BT_M | BT_E) : BT_F2;
       }
       f_possible = hit_f1 || hit_f2;
       f_op_sel = hit_f1 ? op_f1 : op_f2;
     }
-    bool use_m1 = curM && !if_ && m_possible;
+    const bool use_m1 = curM && !if_ && m_possible;
     bool use_e = !use_m1 && e_possible;
     if (gm != LINEAR_GAP) use_e = use_e && (cur & BT_E);
     bool use_f = !use_m1 && !use_e && f_possible;
     if (gm != LINEAR_GAP) use_f = use_f && (cur & BT_F);
     bool use_m2 = !use_m1 && !use_e && !use_f && if_ && m_possible;
     if (gm != LINEAR_GAP) use_m2 = use_m2 && curM;
-    bool any_hit = (use_m1 || use_e || use_f || use_m2) && !zero_stop;
+    const bool any_hit = (use_m1 || use_e || use_f || use_m2) && !zero_stop;
     fail = fail || !(any_hit || zero_stop);
-    bool use_m = use_m1 || use_m2;
-    int m_pred = m_possible ? pre_idx[(size_t)i * P + m_pick] : 0;
+    const bool use_m = use_m1 || use_m2;
     if (any_hit) {
-      int op_code = use_m ? 0 : (use_e ? 2 : 1);
+      const int op_code = use_m ? 0 : (use_e ? 2 : 1);
       st[nst++] = (int)((unsigned)op_code | ((unsigned)i << 2)
                         | ((unsigned)j << 14));
     }
-    int new_i = use_m ? m_pred : (use_e ? e_pred_sel : i);
-    int new_j = (use_m || use_f) ? j - 1 : j;
+    int new_i = i;
+    if (use_m)
+      new_i = pre[(size_t)i * P + (mp == SPILL ? spill_slot(0, i, j) : mp)];
+    else if (use_e) new_i = pre[(size_t)i * P + e_pick];
+    const int new_j = (use_m || use_f) ? j - 1 : j;
     cur = use_m ? BT_ALL : (use_e ? e_op_sel : (use_f ? f_op_sel : cur));
     if (use_m) if_ = false;
     i = new_i;
     j = new_j;
     done = fail || zero_stop || new_i <= 0 || new_j <= 0;
   }
+  DP_PROBE(7)
+  DP_PROBE_SAVE(limit, nst)
   misc[M_NSTEPS] = nst;
   misc[M_FAIL] = fail;
   misc[M_ENDI] = i;
@@ -562,11 +923,28 @@ __global__ void __launch_bounds__(1024) fw_dp_kernel(FwArgs a) {
 }  // namespace
 }  // namespace abpoa
 
-// shared memory of one block: reductions, band bounds and band state per
-// row, the two scan arrays (66 KB at R = 4096)
-static size_t fw_smem_bytes(int R, int NT) {
-  return sizeof(int) * (96 + 4 * (size_t)R + 2 * (size_t)NT);
+// shared memory of one block: reductions and scan totals, the per-row
+// band bounds, band state, control and remain, and the predecessor ids
+// when they fit (98 KB at R = 4096 without them)
+static size_t fw_smem_fixed(int R) {
+  return sizeof(int) * (224 + 6 * (size_t)R);
 }
+
+namespace abpoa {
+namespace {
+template <int GM>
+int launch(const FwArgs& a, int B, int NT, size_t smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fw_dp_kernel<GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fw_dp_kernel<GM><<<B, NT, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+}  // namespace abpoa
+
+DP_PROBE_EXPORT
 
 // C entry point (bound with ctypes). Enqueues the kernel on `stream`;
 // returns the cudaError_t of the launch.
@@ -575,23 +953,29 @@ extern "C" int fw_dp_launch(
     const int* out_idx, const int* out_n, const int* remain, const int* qp,
     const int* mpl0, const int* mpr0, const int* rowmask, int* begsn,
     int* endsn, int* mpl, int* mpr, int* misc, int* steps, int* H, int* E1,
-    int* E2, int* F1, int* F2, int B, int R, int Wq, int P, int O, int m,
-    int pn, int gap_mode, int align_mode, int zdrop_on, int banded, int LS,
+    int* E2, void* BT, int B, int R, int Wq, int P, int O, int m, int pn,
+    int gap_mode, int align_mode, int zdrop_on, int banded, int LS,
     void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
-  if (R <= 0 || Wq <= 0 || P <= 0 || O <= 0 || m <= 0 || pn <= 0
-      || align_mode < 0 || align_mode > 2)
+  // pn a power of two (floor divisions by it are shifts); rows and bases
+  // fit the control word, the lane-in-segment the row-maximum key
+  if (R <= 0 || R > MAX_R || Wq <= 0 || P <= 0 || O <= 0 || m <= 0
+      || m > 32 || pn <= 0 || pn > 64 || (pn & (pn - 1)) || align_mode < 0
+      || align_mode > 2)
     return (int)cudaErrorInvalidValue;
-  int NT = min(1024, (Wq + 31) / 32 * 32);
-  size_t smem = fw_smem_bytes(R, NT);
-  cudaError_t err = cudaFuncSetAttribute(
-      fw_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const int pn_sh = __builtin_ctz(pn);
+  const int NT = min(MAX_NT, ((Wq + CPT - 1) / CPT + 31) / 32 * 32);
+  const size_t fixed = fw_smem_fixed(R);
+  const size_t with_pre = fixed + sizeof(int) * (size_t)R * P;
+  const int pre_smem = with_pre <= 232448;
+  const size_t smem = pre_smem ? with_pre : fixed;
   FwArgs a{scal, bases, pre_idx, pre_n, out_idx, out_n, remain, qp, mpl0,
            mpr0, rowmask, begsn, endsn, mpl, mpr, misc, steps, H, E1, E2,
-           F1, F2, R, Wq, P, O, m, pn, gap_mode, align_mode, zdrop_on,
-           banded, LS};
-  fw_dp_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+           BT, R, Wq, P, O, m, pn, pn_sh, gap_mode, align_mode, zdrop_on,
+           banded, LS, pre_smem};
+  // the gap mode's instance (a mode neither linear nor convex is affine)
+  if (gap_mode == LINEAR_GAP) return launch<LINEAR_GAP>(a, B, NT, smem, stream);
+  if (gap_mode == CONVEX_GAP) return launch<CONVEX_GAP>(a, B, NT, smem, stream);
+  return launch<AFFINE_GAP>(a, B, NT, smem, stream);
 }

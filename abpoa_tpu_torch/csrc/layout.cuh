@@ -1,7 +1,8 @@
 // Layout constants shared by the CUDA kernels. Same numbers as
 // abpoa_tpu_torch/ops/layout.py (scal/misc slots, backtrack op bits) and
 // abpoa_tpu/params.py (gap modes, node ids); tests pin the Python copies
-// to the JAX package's.
+// to the JAX package's. Below them, the register helpers of the DP
+// kernels (runs of adjacent ints, a warp's largest 64-bit key).
 #pragma once
 
 namespace abpoa {
@@ -42,5 +43,74 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 __device__ __forceinline__ int floormod(int a, int b) {
   return a - floordiv(a, b) * b;
 }
+
+// ---- register helpers of the DP kernels ----
+
+typedef unsigned long long u64;
+
+// N adjacent ints at an address aligned to N ints, as one access
+template <int N> struct Run;
+template <> struct Run<1> { typedef int T; };
+template <> struct Run<2> { typedef int2 T; };
+template <> struct Run<4> { typedef int4 T; };
+
+template <int N>
+__device__ __forceinline__ void ld_run(const int* p, int* v) {
+  const typename Run<N>::T x = *reinterpret_cast<const typename Run<N>::T*>(p);
+  memcpy(v, &x, sizeof(x));
+}
+
+template <int N>
+__device__ __forceinline__ void st_run(int* p, const int* v) {
+  typename Run<N>::T x;
+  memcpy(&x, v, sizeof(x));
+  *reinterpret_cast<typename Run<N>::T*>(p) = x;
+}
+
+// the largest 64-bit key across a warp: the largest high word, then the
+// largest low word among the lanes that hold it (two warp reductions)
+__device__ __forceinline__ u64 warp_max64(u64 k) {
+  const unsigned hi = (unsigned)(k >> 32), lo = (unsigned)k;
+  const unsigned mhi = __reduce_max_sync(~0u, hi);
+  const unsigned mlo = __reduce_max_sync(~0u, hi == mhi ? lo : 0u);
+  return ((u64)mhi << 32) | mlo;
+}
+
+// ---- phase probes of the DP kernels ----
+// Compiled to nothing unless DP_PROFILE is defined (dp_profile.py builds
+// the kernels so): block 0's thread 0 adds the SM cycles since the last
+// probe to phase k's total; DP_PROBE_SAVE keeps the totals, the rows and
+// the walk steps in g_prof, which dp_profile_read (DP_PROBE_EXPORT, at
+// file scope) copies to the host.
+#ifdef DP_PROFILE
+__device__ long long g_prof[16];
+#define DP_PROBE_INIT                    \
+  long long pacc_[8] = {0};              \
+  long long plast_ = clock64();
+#define DP_PROBE(k)                                      \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {             \
+    const long long now_ = clock64();                    \
+    pacc_[k] += now_ - plast_;                           \
+    plast_ = now_;                                       \
+  }
+#define DP_PROBE_MARK plast_ = clock64();
+#define DP_PROBE_SAVE(rows, steps)                                   \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                         \
+    for (int k_ = 0; k_ < 8; ++k_) abpoa::g_prof[k_] = pacc_[k_];    \
+    abpoa::g_prof[8] = (rows);                                       \
+    abpoa::g_prof[9] = (steps);                                      \
+  }
+#define DP_PROBE_EXPORT                                              \
+  extern "C" int dp_profile_read(long long* out) {                   \
+    return (int)cudaMemcpyFromSymbol(out, abpoa::g_prof,             \
+                                     sizeof(long long) * 16);        \
+  }
+#else
+#define DP_PROBE_INIT
+#define DP_PROBE(k)
+#define DP_PROBE_MARK
+#define DP_PROBE_SAVE(rows, steps)
+#define DP_PROBE_EXPORT
+#endif
 
 }  // namespace abpoa

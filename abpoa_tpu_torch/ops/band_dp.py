@@ -116,8 +116,9 @@ MAX_SMEM_BYTES = 232448
 
 def band_smem_bytes(nid: bool, R: int, P: int, WB: int) -> int:
     """Shared memory of one block: ctrl, (i2nn,) predecessor halves, band
-    bounds and row maxima per row, five WB-lane scratch rows."""
-    return 4 * ((3 + int(nid) + P // 2) * R + 5 * WB + 36)
+    bounds and row maxima per row, the reductions' and scans' per-warp
+    slots (227 words, whatever WB)."""
+    return 4 * ((3 + int(nid) + P // 2) * R + 227)
 
 
 def band_nplanes(gap_mode: int) -> int:

@@ -13,10 +13,12 @@ fill/merge masks as the band kernel; the band state is scattered to the
 out-nodes (mpl/mpr) as the reference does. Unbanded rows (``-b -1``)
 span [0, qlen]. Local mode clamps cells at 0, starts from a zero first
 row and takes the best cell over every row; extend mode takes the best
-row maximum and stops on z-drop. The walk re-derives every backtrack
-condition from the planes (M -> D -> I order, indel_first, cur_op
-gating, local mode's stop at a zero cell) and emits int32 step words
-``op | row<<2 | col<<14``. Full rows cannot overflow, so M_OVFL is 0.
+row maximum and stops on z-drop. The walk (M -> D -> I order,
+indel_first, cur_op gating, local mode's stop at a zero cell) emits
+int32 step words ``op | row<<2 | col<<14``: the plain version re-derives
+every backtrack condition from the planes, the kernel reads the
+backtrack word its sweep wrote per cell (and keeps no F planes). Full
+rows cannot overflow, so M_OVFL is 0.
 """
 from __future__ import annotations
 
@@ -58,14 +60,41 @@ class FWOut(NamedTuple):
     steps: torch.Tensor   # [B, max(bt_lmax, 8)]
 
 
+# rows the kernel takes: its per-row counts are 12-bit fields (the
+# callers stop at 4096 rows: ROADMAP A6)
+FW_MAX_R = 4096
+
+
+def _bt_planes(gap_mode: int) -> int:
+    """int32 planes of the backtrack words: 64 bits (convex gaps) or 32."""
+    return 2 if gap_mode == CONVEX_GAP else 1
+
+
 def fw_nplanes(gap_mode: int) -> int:
-    """Planes the kernel keeps: H; E1, F1 (affine); E2, F2 (convex)."""
-    return {LINEAR_GAP: 1, CONVEX_GAP: 5}.get(gap_mode, 3)
+    """int32 planes the kernel keeps: the backtrack words, H; E1
+    (affine); E1, E2 (convex)."""
+    return _bt_planes(gap_mode) + {LINEAR_GAP: 1, CONVEX_GAP: 3}.get(
+        gap_mode, 2)
 
 
 def fw_plane_bytes(cfg: FWConfig) -> int:
     """Device bytes of one instance's planes."""
     return fw_nplanes(cfg.gap_mode) * cfg.R * cfg.Wq * 4
+
+
+def _planes(cfg: FWConfig, B: int, dev):
+    """Plane scratch of B instances as views of one tensor: the
+    backtrack words (int32 plane 0, or planes 0-1 for the 64-bit words of
+    convex gaps, 8-byte aligned at its start), H, E1 (affine/convex), E2
+    (convex)."""
+    gm = cfg.gap_mode
+    planes = torch.empty(fw_nplanes(gm), B, cfg.R, cfg.Wq, dtype=I32,
+                         device=dev)
+    k = _bt_planes(gm)
+    BT, H = planes[0], planes[k]
+    E1 = planes[k + 1] if gm != LINEAR_GAP else H
+    E2 = planes[k + 2] if gm == CONVEX_GAP else H
+    return BT, H, E1, E2
 
 
 def _pack_fw(cfg: FWConfig, scal, bases, pre_idx, pre_n, out_idx, out_n,
@@ -126,6 +155,9 @@ def fw_poa_dp_batch(cfg: FWConfig, scal, bases, pre_idx, pre_n, out_idx,
                                    mpr0, rowmask)
     if dev.type != "cuda":
         raise ValueError(f"fw_poa_dp_batch: unsupported device {dev}")
+    if cfg.R > FW_MAX_R:
+        raise ValueError(f"fw_poa_dp_batch: {cfg.R} rows, the kernel takes "
+                         f"at most {FW_MAX_R}")
     packed = _pack_fw(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n,
                       remain, qcodes, mpl0, mpr0, rowmask)
     _check(cfg, "fw_poa_dp_batch", packed)
@@ -137,19 +169,15 @@ def fw_poa_dp_batch(cfg: FWConfig, scal, bases, pre_idx, pre_n, out_idx,
     mpr = torch.zeros(B, R, dtype=I32, device=dev)
     misc = torch.zeros(B, L.M_NMISC, dtype=I32, device=dev)
     steps = torch.zeros(B, LS, dtype=I32, device=dev)
-    planes = torch.empty(fw_nplanes(cfg.gap_mode), B, R, Wq, dtype=I32,
-                         device=dev)
-    H = planes[0]
-    E1, F1 = (planes[1], planes[2]) if len(planes) >= 3 else (H, H)
-    E2, F2 = (planes[3], planes[4]) if len(planes) == 5 else (H, H)
+    BT, H, E1, E2 = _planes(cfg, B, dev)
     lib = library("fw_dp")
     with torch.cuda.device(dev):
         rc = lib.fw_dp_launch(
             *(t.data_ptr() for t in packed),
             begsn.data_ptr(), endsn.data_ptr(), mpl.data_ptr(),
             mpr.data_ptr(), misc.data_ptr(), steps.data_ptr(),
-            H.data_ptr(), E1.data_ptr(), E2.data_ptr(), F1.data_ptr(),
-            F2.data_ptr(), B, R, Wq, cfg.P, cfg.O, cfg.m, cfg.pn,
+            H.data_ptr(), E1.data_ptr(), E2.data_ptr(), BT.data_ptr(),
+            B, R, Wq, cfg.P, cfg.O, cfg.m, cfg.pn,
             cfg.gap_mode, cfg.align_mode, int(cfg.use_zdrop),
             int(cfg.banded), cfg.bt_lmax,
             torch.cuda.current_stream(dev).cuda_stream)

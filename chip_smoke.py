@@ -60,8 +60,19 @@ Phases (each prints its own lines; any failed check exits non-zero):
      (heter.fa reads, instance k trimmed by (k % 5) * 120): each equals
      the port's serial oracle of its trim class, no fallback; e2e median,
      windows/s, DP cells/s
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+  3f. (run last, after the end-to-end phases) B1, B3 and B4 timed at the
+     table's shape (B=8), at the B their path launches (B1 32, B3/B4 64,
+     B4 1 per -S window) and sweep only (bt_lmax = 0); with --baseline
+     DIR, beside the kernels of the earlier checkout in DIR in turns
+     new, old, old, new; B4 on each window of a CLI -S run (B=1, its
+     serial path) bit-equal to the plain version, mean times a window
+The line before the last is the kernels' JSON record (the window
+kernels as band_dp_topo_window: phase 3e's round, and fw_dp_window: the
+serial -S windows of 3f, 3e's round under round_B64_* keys; phase 3f's
+times as extra keys); the last line is {"ok": true, "device": {...}}.
+
+    python chip_smoke.py --dp-only   # phases 1-3e and 3f, then stop
+    python chip_smoke.py --baseline build/base   # 3f beside that checkout
 """
 import io
 import json
@@ -948,6 +959,25 @@ def seeded_params():
     return p.post_set()
 
 
+def dp_diff(out, exp, n_rows, fields=("steps",)):
+    """The largest |kernel - plain| over a DP kernel's outputs: misc (but
+    M_LASTI), each instance's step stream(s) up to its step count, its
+    band bounds and band state up to its rows (n_rows[b])."""
+    from abpoa_tpu_torch.ops import layout as L
+    dm = int((out.misc[:, :L.M_LASTI] - exp.misc[:, :L.M_LASTI]).abs().max())
+    for b, n in enumerate(n_rows):
+        ns = int(exp.misc[b, L.M_NSTEPS])
+        for f in fields:
+            if ns:
+                dm = max(dm, int((getattr(out, f)[b, :ns].int()
+                                  - getattr(exp, f)[b, :ns].int())
+                                 .abs().max()))
+        for f in ("beg_sn", "end_sn", "mpl", "mpr"):
+            dm = max(dm, int((getattr(out, f)[b, :n]
+                              - getattr(exp, f)[b, :n]).abs().max()))
+    return dm
+
+
 def window_kernel_phase(dev, heter):
     """B3 in its non-fresh mode and B4 under the row mask against their
     plain versions, on the inputs of a real window round of 64
@@ -999,20 +1029,8 @@ def window_kernel_phase(dev, heter):
         exp = ref(plan.cfg, *args)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        dm = int((out.misc[:, :L.M_LASTI]
-                  - exp.misc[:, :L.M_LASTI]).abs().max())
-        fields = ["steps"] + (["steps16"] if plan.band else [])
-        for b, d in enumerate(dgs):
-            ns = int(exp.misc[b, L.M_NSTEPS])
-            for f in fields:
-                if ns:
-                    dm = max(dm, int((getattr(out, f)[b, :ns].int()
-                                      - getattr(exp, f)[b, :ns].int())
-                                     .abs().max()))
-            for f in ("beg_sn", "end_sn", "mpl", "mpr"):
-                dm = max(dm, int((getattr(out, f)[b, :d.n_rows]
-                                  - getattr(exp, f)[b, :d.n_rows])
-                                 .abs().max()))
+        dm = dp_diff(out, exp, [d.n_rows for d in dgs],
+                     ("steps", "steps16") if plan.band else ("steps",))
         check(dm == 0, f"window round: {name} ({what}) != plain "
               f"(max |d| {dm})")
         check(not (exp.misc[:, L.M_FAIL] | exp.misc[:, L.M_OVFL]).any(),
@@ -1033,11 +1051,194 @@ def window_kernel_phase(dev, heter):
     return rec
 
 
+def baseline_kernels(root):
+    """The DP kernels' wrappers of an earlier checkout at `root` (for
+    example one unpacked by `git archive <commit>` into a git-ignored
+    directory), imported as a package of its own: {record name: wrapper}
+    for band_dp, band_dp_topo, fw_dp and fw_dp_window. They take the
+    port's arguments, and build that checkout's kernels from its csrc/
+    into its build/ at first call."""
+    import importlib
+    import importlib.util
+    pkg = pathlib.Path(root).resolve() / "abpoa_tpu_torch"
+    check((pkg / "ops" / "fw_dp.py").is_file(),
+          f"--baseline {root}: no abpoa_tpu_torch/ops/fw_dp.py there")
+    name = "abpoa_tpu_torch_baseline"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    bd = importlib.import_module(name + ".ops.band_dp")
+    fw = importlib.import_module(name + ".ops.fw_dp")
+    return {"band_dp": bd.band_poa_dp_packed,
+            "band_dp_topo": bd.band_poa_dp_batch,
+            "fw_dp": fw.fw_poa_dp_batch, "fw_dp_window": fw.fw_poa_dp_batch}
+
+
+def loop_round_args(dev, insts):
+    """B1's arguments on the last round of the device loop over `insts`
+    (the state brought there through both kernels)."""
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.ops import poa_loop as pl
+    from abpoa_tpu_torch.parallel.batch import _loop_geometry
+    params = Params().post_set()
+    cfg = _loop_geometry(params, insts)._replace(B=len(insts))
+    ps, base, ql_d, qpf, qp4, _ = loop_inputs(dev, params, insts, cfg)
+    wf1000 = round(params.wf * 1000)
+    r = cfg.NR - 1
+    for rr in range(1, r):
+        ps, _, _ = pl.device_round_packed(cfg, ps, ql_d[rr], qpf[rr],
+                                          qp4[rr], base, params.wb, wf1000)
+    scal = pl.build_scal(cfg, ps, ql_d[r], base, params.wb, wf1000)
+    return pl.band_config(cfg), (scal, ps.ctrl, ps.inp, ps.i2nn, qpf[r])
+
+
+def serial_windows(device="cuda"):
+    """(cfg, args) of every B4 launch of one CLI -S run on heter.fa (the
+    serial engine's window path, B=1 each), taken where the engine hands
+    a window's export to its launch (engine_torch._run) and uploaded as
+    it uploads them."""
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch.align import engine_torch
+    from abpoa_tpu_torch.ops import fw_dp as fw
+    calls = []
+    run0 = engine_torch._run
+
+    def capture(kernel, cfg, arrs, dev):
+        if kernel is fw.fw_poa_dp_batch:
+            calls.append((cfg, [torch.from_numpy(np.ascontiguousarray(a))
+                                [None].to(dev) for a in arrs]))
+        return run0(kernel, cfg, arrs, dev)
+    engine_torch._run = capture
+    try:
+        run_cli(["-S", "--device", device, str(HETER)])
+    finally:
+        engine_torch._run = run0
+    return calls
+
+
+def serial_window_phase(win, round_rec):
+    """B4 on the serial -S path's own launches (`win`: B=1, one window
+    each): every window's result bit-equal to the plain version's on the
+    same inputs, run on the host's CPU (a Python loop of small ops, which
+    costs less there than as launches on the card); the kernel's mean time a
+    window (CUDA events), the plain version's (host clock, CPU) and the
+    mean bound a window. round_rec (phase 3e's B=64 window round, plain
+    on the card) is kept beside it under round_B64_* keys."""
+    import torch
+    from abpoa_tpu_torch.ops import fw_dp as fw
+    from abpoa_tpu_torch.ops import layout as L
+    dm, plain, tb, rows = 0, [], [], []
+    for cfg, args in win:
+        out = fw.fw_poa_dp_batch(cfg, *args)
+        host = [a.cpu() for a in args]
+        t0 = time.perf_counter()
+        exp = fw.fw_poa_dp_batch_ref(cfg, *host)
+        plain.append((time.perf_counter() - t0) * 1e3)
+        out = fw.FWOut(*(t.cpu() for t in out))
+        n = int(args[0][0, L.S_NROWS])
+        rows.append(n)
+        dm = max(dm, dp_diff(out, exp, [n]))
+        check(not (exp.misc[:, L.M_FAIL] | exp.misc[:, L.M_OVFL]).any(),
+              "serial -S window: walk failed or overflowed")
+        cells = int(exp.misc[:, L.M_CELLS].sum())
+        outs = [t for t in out if isinstance(t, torch.Tensor)]
+        tb.append(bound(nbytes(*args, *outs),
+                        cells * OPS_PER_CELL[cfg.gap_mode]))
+    check(dm == 0, f"serial -S windows: fw_dp != plain (max |d| {dm})")
+
+    def run():
+        for cfg, args in win:
+            fw.fw_poa_dp_batch(cfg, *args)
+    ms = cuda_ms(lambda: run, 10) / len(win)
+    rec = dict(max_abs_err=dm, ms=ms, plain_ms=sum(plain) / len(plain),
+               plain_on="cpu", bound_ms=sum(t for t, _ in tb) / len(tb),
+               bound_by=tb[0][1],
+               **{f"round_B64_{k}": v for k, v in round_rec.items()})
+    say(f"kernels: fw_dp (row mask) == plain on each of the {len(win)} "
+        f"windows of a CLI -S run (B=1, {min(rows)}-{max(rows)} rows): "
+        f"kernel {ms:.4f} ms, plain (CPU) {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.7f} ms ({rec['bound_by']}), means a window")
+    return rec
+
+
+def dp_timing_phase(dev, heter, base, win):
+    """B1, B3 and B4 at the table's shape (B=8), at the B their path
+    launches (B1: 32, the device loop's sub-batch; B3/B4: 64 on the round
+    path; B4: 1 per window on the serial -S path, `win`, the mean over one
+    run's windows) and sweep only (bt_lmax = 0: the kernels return before
+    the walk); with `base` (baseline_kernels), each beside an earlier
+    checkout's kernel in turns new, old, old, new. Returns {record name:
+    {ms_B, sweep_ms_B, base_ms_B, ...}}."""
+    import torch
+    from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
+    from abpoa_tpu_torch.ops import band_dp as bd, fw_dp as fw
+    from abpoa_tpu_torch.parallel.batch import round_plan
+
+    def mk(**kw):
+        p = Params()
+        for key, v in kw.items():
+            setattr(p, key, v)
+        return p.post_set()
+    rot = [heter[b:] + heter[:b] for b in range(N_CMP)]
+    cases = []       # (record, B label, new, [(cfg, args)])
+    for B, insts in ((8, rot), (32, [heter] * 32)):
+        cfg, args = loop_round_args(dev, insts)
+        cases.append(("band_dp", B, bd.band_poa_dp_packed, [(cfg, args)]))
+    for name, params in (("band_dp_topo", mk(align_mode=EXTEND_MODE,
+                                              zdrop=100)),
+                         ("fw_dp", mk(align_mode=LOCAL_MODE))):
+        dgs = round_exports(params, rot, 4)
+        for B, dd in ((8, dgs), (64, dgs * 8)):
+            plan = round_plan(params, dd, dev)
+            check(plan.name == name, f"dp timing: dispatch {plan.name}")
+            cases.append((name, B, plan.kernel,
+                          [(plan.cfg, plan.stack(slice(None), dev))]))
+    cases.append(("fw_dp_window", 1, fw.fw_poa_dp_batch, win))
+    rec = {}
+
+    def timed(fn, calls, lmax0, n):
+        def run():
+            for cfg, args in calls:
+                fn(cfg._replace(bt_lmax=0) if lmax0 else cfg, *args)
+        return cuda_ms(lambda: run, n) / len(calls)
+    for name, B, new, calls in cases:
+        n = 20 if B <= 8 else 10
+        old = base.get(name)
+        timed(new, calls, False, 2)
+        r = rec.setdefault(name, {})
+        if old is not None:
+            timed(old, calls, False, 2)
+            fns = (new, old, old, new)
+            t = [timed(f, calls, False, n) for f in fns]
+            sw = [timed(f, calls, True, n) for f in fns]
+            r[f"ms_B{B}"] = (t[0] + t[3]) / 2
+            r[f"base_ms_B{B}"] = (t[1] + t[2]) / 2
+            r[f"sweep_ms_B{B}"] = (sw[0] + sw[3]) / 2
+            r[f"base_sweep_ms_B{B}"] = (sw[1] + sw[2]) / 2
+            say(f"dp timing: {name} B={B} ({len(calls)} launches): new "
+                f"{r[f'ms_B{B}']:.4f} ms (sweep {r[f'sweep_ms_B{B}']:.4f}), "
+                f"baseline {r[f'base_ms_B{B}']:.4f} ms (sweep "
+                f"{r[f'base_sweep_ms_B{B}']:.4f}); turns new, old, old, new "
+                f"{[round(x, 4) for x in t]}")
+        else:
+            r[f"ms_B{B}"] = timed(new, calls, False, n)
+            r[f"sweep_ms_B{B}"] = timed(new, calls, True, n)
+            say(f"dp timing: {name} B={B} ({len(calls)} launches): "
+                f"{r[f'ms_B{B}']:.4f} ms, sweep only "
+                f"{r[f'sweep_ms_B{B}']:.4f} ms")
+    torch.cuda.synchronize()
+    return rec
+
+
 def cli_seeded_phase():
     """The three -S goldens through the CLI's serial engine on the card:
     one B4 launch per non-empty window (plus one per B5 result re-run
     there), one B5 launch per whole-graph call (a read without anchors),
-    and the oracle only for the empty windows."""
+    and the oracle only for the empty windows. Returns the B4 launches
+    of the -S run."""
     from abpoa_tpu_torch import align
     from abpoa_tpu_torch.align import engine_torch
     calls = {}
@@ -1054,7 +1255,7 @@ def cli_seeded_phase():
     for n, fn in saved.items():
         setattr(engine_torch, n, counted(n, fn))
     align._np_subgraph = counted("oracle", oracle0)
-    total = {"fw_dp": 0, "tile_dp": 0}
+    first = None
     try:
         for golden, args in (("heter_S_cons.fa", ["-S"]),
                              ("heter_Sp_cons.fa", ["-S", "-p"]),
@@ -1079,8 +1280,8 @@ def cli_seeded_phase():
                   f"whole-graph calls {whole}, B5 re-run on B4 {rerun}, "
                   f"oracle calls {calls.get('oracle', 0)}, empty windows "
                   f"{engine_torch.empty_windows}")
-            total["fw_dp"] += got["fw_dp"]
-            total["tile_dp"] += got["tile_dp"]
+            if first is None:
+                first = got["fw_dp"]
             say(f"CLI {' '.join(args)} heter.fa: {golden} bytes, B4 "
                 f"{got['fw_dp']} launches for {win} windows (+{rerun} B5 "
                 f"re-runs), B5 {got['tile_dp']} for {whole} whole-graph "
@@ -1090,7 +1291,7 @@ def cli_seeded_phase():
         for n, fn in saved.items():
             setattr(engine_torch, n, fn)
         align._np_subgraph = oracle0
-    return total
+    return first
 
 
 def seeded_phase(dev, heter):
@@ -1150,7 +1351,13 @@ def seeded_phase(dev, heter):
     return launches
 
 
-def main():
+def main(argv):
+    # --dp-only: the card, the build, phases 3-3e (the kernels against
+    # their plain versions) and 3f (the DP kernels' times), then stop;
+    # --baseline DIR: phase 3f also times an earlier checkout's DP kernels
+    dp_only = "--dp-only" in argv
+    base_dir = argv[argv.index("--baseline") + 1] if "--baseline" in argv \
+        else None
     try:
         import torch
     except ImportError:
@@ -1199,7 +1406,24 @@ def main():
     rec.update(qv_kernel_phase(dev, heter))
 
     # ---- 3e. window-round kernels (B3 non-fresh, B4 row mask) ----
-    window_kernel_phase(dev, heter)
+    window_rec = window_kernel_phase(dev, heter)
+
+    def dp_phase():
+        # ---- 3f. the DP kernels' times: shapes, path B, sweep, baseline;
+        # B4 on the serial -S path's own windows vs plain ----
+        base = baseline_kernels(base_dir) if base_dir else {}
+        say("dp timing: baseline kernels "
+            + (f"of {base_dir}" if base else "absent"))
+        win = serial_windows()
+        timing = dp_timing_phase(dev, heter, base, win)
+        window_rec["fw_dp_window"] = serial_window_phase(
+            win, window_rec.pop("fw_dp"))
+        return timing
+    if dp_only:
+        timing = dp_phase()
+        say(json.dumps({"dp_timing": timing, "window": window_rec}))
+        say(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # ---- 4. device loop ----
     from abpoa_tpu_torch import BatchPOA, batch_msa_from_files
@@ -1261,7 +1485,7 @@ def main():
     launches["tile_dp"] = cli_serial_phase(len(heter))
 
     # ---- 8b. CLI -S through the serial engine's window path ----
-    cli_seeded_phase()
+    launches["fw_dp_window"] = cli_seeded_phase()
 
     # ---- 9. CLI list mode ----
     cli_list_phase(len(heter))
@@ -1271,7 +1495,11 @@ def main():
     rec.update(topo_rec)
 
     # ---- 11. seeded window rounds ----
-    seeded_phase(dev, heter)
+    launches["band_dp_topo_window"] = seeded_phase(dev, heter)["band_dp_topo"]
+
+    # ---- 3f, after the end-to-end phases (its buffers and builds do not
+    # weigh on their times) ----
+    timing = dp_phase()
 
     src = {"band_dp": ("abpoa_tpu_torch/csrc/band_dp.cu",
                        "abpoa_tpu/ops/dp_pallas_band.py:132"),
@@ -1286,7 +1514,13 @@ def main():
            "tile_dp": ("abpoa_tpu_torch/csrc/tile_dp.cu",
                        "abpoa_tpu/ops/dp_pallas.py:713"),
            "topo": ("abpoa_tpu_torch/csrc/topo.cu",
-                    "abpoa_tpu/ops/poa_loop.py:467")}
+                    "abpoa_tpu/ops/poa_loop.py:467"),
+           "band_dp_topo_window": ("abpoa_tpu_torch/csrc/band_dp.cu",
+                                   "abpoa_tpu/ops/dp_pallas_band.py:1247"),
+           "fw_dp_window": ("abpoa_tpu_torch/csrc/fw_dp.cu",
+                            "abpoa_tpu/ops/dp_pallas_fw.py:746")}
+    rec["band_dp_topo_window"] = window_rec["band_dp_topo"]
+    rec["fw_dp_window"] = window_rec["fw_dp_window"]
     kernels = []
     for name, (source, replaces) in src.items():
         r = rec[name]
@@ -1294,7 +1528,10 @@ def main():
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        **{k: v for k, v in r.items()
+                           if k.startswith("round_B64_") or k == "plain_on"},
+                        **timing.get(name, {})})
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -1304,4 +1541,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

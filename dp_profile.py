@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Where a DP kernel's time goes, phase by phase, on one GPU.
+
+    python dp_profile.py            # B4 (fw_dp), B1 and B3 (band_dp)
+
+Builds ``abpoa_tpu_torch/csrc/fw_dp.cu`` and ``band_dp.cu`` with
+``-DDP_PROFILE`` (into ``build/abpoa_tpu_torch/profile/``), which turns
+on the kernels' DP_PROBE marks at the row body's phase boundaries
+(``layout.cuh``; a normal build compiles them to nothing), runs each at
+the shape of PERF.md's table (B4: local mode, round 4 of 8 rotated
+heter.fa instances, and the largest of the serial engine's -S windows
+at B=1; B1: the device loop's last round at B=8; B3: extend mode with
+z-drop 100, round 4 of 8 rotated instances), and prints, for block 0's
+thread 0, the SM cycles a swept row spends in each phase and the cycles
+of one walk step. The probes cost a few percent of the time; the
+kernel's own times come from chip_smoke.py (phase 3f).
+"""
+import ctypes
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# the phases DP_PROBE(0)..DP_PROBE(6) close, then the walk (7)
+PHASES = ["scalars", "loads+merge", "scan", "across warps+finish",
+          "backtrack bits", "row max", "final"]
+
+
+def build(name):
+    """csrc/<name>.cu built with its probes on, loaded with the
+    committed library's C interface plus dp_profile_read."""
+    from abpoa_tpu_torch.ops import _build
+    out = _build.BUILD_DIR / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    lib_path = out / f"lib{name}_profile.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DDP_PROFILE",
+                    "-o", str(lib_path), str(_build.CSRC / f"{name}.cu")],
+                   check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for fn_name, argtypes in _build.SOURCES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.dp_profile_read.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def profile(name, label, call):
+    """Run `call` once on the probed library of `name` and print block
+    0's cycles per row by phase and per walk step."""
+    import torch
+    from abpoa_tpu_torch.ops import _build
+    lib = build(name)
+    saved = _build._libs.get(name)
+    _build._libs[name] = lib
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        if saved is not None:
+            _build._libs[name] = saved
+        else:
+            _build._libs.pop(name)
+    buf = (ctypes.c_longlong * 16)()
+    lib.dp_profile_read(ctypes.addressof(buf))
+    rows, steps = max(buf[8] - 1, 1), max(buf[9], 1)
+    per = {p: round(buf[k] / rows, 1) for k, p in enumerate(PHASES)}
+    print(f"{label}: {rows} rows, SM cycles a row {per} (sum "
+          f"{round(sum(per.values()), 1)}); walk {steps} steps, "
+          f"{round(buf[7] / steps, 1)} cycles a step", flush=True)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("FAILED: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
+    from abpoa_tpu_torch.parallel.batch import round_plan
+    from abpoa_tpu_torch.ops import band_dp as bd
+    dev = torch.device("cuda")
+    heter = cs.reads_of(cs.HETER)
+    rot = [heter[b:] + heter[:b] for b in range(cs.N_CMP)]
+    print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"], capture_output=True,
+                            text=True).stdout.strip(), flush=True)
+    for name, mode, label in (("fw_dp", LOCAL_MODE, "B4 B=8 local"),
+                              ("band_dp", EXTEND_MODE,
+                               "B3 B=8 extend z-drop 100")):
+        p = Params()
+        p.align_mode = mode
+        p.zdrop = 100 if mode == EXTEND_MODE else p.zdrop
+        p.post_set()
+        plan = round_plan(p, cs.round_exports(p, rot, 4), dev)
+        args = plan.stack(slice(None), dev)
+        profile(name, label, lambda: plan.kernel(plan.cfg, *args))
+    win = cs.serial_windows()
+    cfg, args = max(win, key=lambda w: w[0].R)
+    from abpoa_tpu_torch.ops import fw_dp as fw
+    profile("fw_dp", f"B4 B=1 the largest -S window (R={cfg.R})",
+            lambda: fw.fw_poa_dp_batch(cfg, *args))
+    bc, bargs = cs.loop_round_args(dev, rot)
+    profile("band_dp", "B1 B=8 the device loop's last round",
+            lambda: bd.band_poa_dp_packed(bc, *bargs))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

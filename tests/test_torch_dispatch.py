@@ -1,0 +1,189 @@
+"""abpoa_tpu_torch: round_plan's dispatch pinned at the shapes of the
+port's cells, and the plane sizes it budgets with pinned to what the
+kernels' wrappers allocate (CPU).
+
+round_plan picks B3 (the topo band kernel) when the band fits a block
+(``band_smem_bytes``), else B4 (full width) within the plane budget
+(``fw_plane_bytes``), and sizes each launch's chunk of instances by the
+planes of one instance. A change of a kernel's layout (its shared memory,
+its planes) must not move a round from one kernel to another or change
+its chunk unnoticed: the expected values are the dispatch of the kernels
+before their redesign, on every round of heter.fa in local mode
+(``heter64-local``) and extend mode (``heter64-extend``) and on every
+window round of the config-5 instances (``seeded-c5``, one instance per
+trim class; its round shapes are those of any number of instances), at
+the CPU's plane budget; and local mode with affine and linear gaps,
+whose full-width planes the redesign changed (linear: one more).
+"""
+import numpy as np
+import pytest
+import torch
+
+
+# (round, kernel, chunk) of every round before the redesign of B3/B4;
+# chunk = the CPU plane budget (4 GiB) over one instance's planes
+LOCAL = [(k, "fw_dp", c) for k, c in enumerate(
+    (374, 403, 403, 403, 288, 288, 336, 288, 288, 403, 336, 336, 403, 403),
+    start=1)]
+EXTEND = [(1, "band_dp_topo", 1092)] + [(k, "band_dp_topo", 840)
+                                        for k in range(2, 15)]
+# the same rounds with affine and linear gaps (-O 4 -E 2, -O 0 -E 2):
+# affine as before the redesign (H, E1 and the 32-bit backtrack words,
+# where F1 was); linear at half its chunk before (H beside the words)
+LOCAL_GAPS = {
+    "affine": ((4, 2, 0, 0), [(k, "fw_dp", c) for k, c in enumerate(
+        (624, 624, 624, 624, 445, 445, 520, 445, 445, 624, 520, 520, 624,
+         624), start=1)]),
+    "linear": ((0, 2, 0, 0), [(k, "fw_dp", c) for k, c in enumerate(
+        (936, 936, 936, 936, 668, 668, 780, 668, 668, 936, 780, 780, 936,
+         936), start=1)]),
+}
+SEEDED = [(r, "band_dp_topo", c) for r, c in enumerate(
+    (1365, 992, 992, 910, 992, 910, 1213, 910, 1213, 910, 1213, 1213, 1213,
+     992, 992, 1213, 1213, 992, 992, 910, 8192, 910, 2730, 1213, 8192, 910,
+     8192, 910), start=1)]
+
+
+def _heter():
+    import pathlib
+    from abpoa_tpu_torch.seqio import read_seqs
+    from abpoa_tpu_torch.alphabet import encode_table
+    tab = encode_table(5)
+    fn = pathlib.Path(__file__).resolve().parent / "data" / "heter.fa"
+    return [tab[np.frombuffer(r.seq.encode(), dtype=np.uint8)]
+            for r in read_seqs(str(fn))]
+
+
+def _mode_params(mode):
+    from abpoa_tpu_torch.params import Params
+    p = Params()
+    p.align_mode = mode
+    return p.post_set()
+
+
+def round_plans(params, reads):
+    """(round, kernel, chunk) of every round of one instance (the rounds
+    of N identical instances dispatch alike): read k against the
+    oracle-fused graph of reads < k."""
+    from abpoa_tpu_torch.align.engine_np import align_sequence_to_subgraph
+    from abpoa_tpu_torch.align.export import export_dense
+    from abpoa_tpu_torch.graph import NativeGraph, POAGraph
+    from abpoa_tpu_torch.params import SRC_NODE_ID, SINK_NODE_ID
+    from abpoa_tpu_torch.parallel.batch import round_plan
+    g = NativeGraph() if NativeGraph.available() else POAGraph()
+    if NativeGraph.available():
+        g.ensure_reads(len(reads))
+    out = []
+    for k, q in enumerate(reads):
+        cig = []
+        if g.node_n > 2:
+            if not g.is_topological_sorted:
+                g.topological_sort(params)
+            plan = round_plan(params, [export_dense(g, params, q)],
+                              torch.device("cpu"))
+            out.append((k, plan.name, plan.chunk))
+            cig = align_sequence_to_subgraph(g, params, SRC_NODE_ID,
+                                             SINK_NODE_ID, q).cigar
+        g.add_graph_alignment(params, q, [1] * len(q), cig, None, k, True)
+    return out
+
+
+def window_rounds(params, instances, monkeypatch):
+    """The window exports of run_seeded's rounds over `instances`: the
+    serial seeded path (host oracle) issues each instance's requests in
+    the order of its request generator, which run_seeded drives in
+    lockstep; round r holds request r of every instance that has one
+    (None: no DP)."""
+    import dataclasses
+    from abpoa_tpu_torch import align as aln
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.align.export import export_dense
+    from abpoa_tpu_torch.alphabet import decode_table
+    host = dataclasses.replace(params, engine="numpy")
+    dt = decode_table(5)
+    per = []
+    orig = aln.align_sequence_to_subgraph
+
+    def record(graph, params_, beg_id, end_id, window, arena=None):
+        dg = None
+        if graph.node_n > 2 and len(window) > 0:
+            if not graph.is_topological_sorted:
+                graph.topological_sort(params_)
+            dg = export_dense(graph, params_, window,
+                              beg_index=int(graph.node_id_to_index[beg_id]),
+                              end_index=int(graph.node_id_to_index[end_id]))
+        per[-1].append(dg)
+        return orig(graph, params_, beg_id, end_id, window, arena=arena)
+    monkeypatch.setattr(aln, "align_sequence_to_subgraph", record)
+    for inst in instances:
+        per.append([])
+        ABPOA().msa(host, [bytes(dt[b] for b in q).decode() for q in inst])
+    n = max(len(p) for p in per)
+    return [[p[r] for p in per if r < len(p) and p[r] is not None]
+            for r in range(n)]
+
+
+def seeded_plans(monkeypatch):
+    """(round, kernel, chunk) of every window round of the five config-5
+    trim classes, re-padded as run_seeded re-pads them."""
+    from abpoa_tpu_torch.align.export import repad_dense
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.parallel.batch import round_plan
+    p = Params()
+    p.disable_seeding = False
+    p.post_set()
+    heter = _heter()
+    insts = [[q[:max(64, len(q) - k * 120)] for q in heter] for k in range(5)]
+    out = []
+    for r, dgs in enumerate(window_rounds(p, insts, monkeypatch)):
+        if not dgs:
+            continue
+        R = max(d.R for d in dgs)
+        W = max(d.W for d in dgs)
+        P = max(d.P for d in dgs)
+        O = max(d.O for d in dgs)
+        plan = round_plan(p, [repad_dense(d, R, W, P, O) for d in dgs],
+                          torch.device("cpu"), seeded=True)
+        out.append((r, plan.name, plan.chunk))
+    return out
+
+
+def test_round_plan_heter_local_pinned():
+    from abpoa_tpu_torch.params import LOCAL_MODE
+    assert round_plans(_mode_params(LOCAL_MODE), _heter()) == LOCAL
+
+
+@pytest.mark.parametrize("gaps", list(LOCAL_GAPS))
+def test_round_plan_heter_local_gaps_pinned(gaps):
+    from abpoa_tpu_torch.params import Params, LOCAL_MODE
+    p = Params()
+    p.align_mode = LOCAL_MODE
+    (p.gap_open1, p.gap_ext1, p.gap_open2, p.gap_ext2), want = \
+        LOCAL_GAPS[gaps]
+    p.post_set()
+    assert round_plans(p, _heter()) == want
+
+
+def test_round_plan_heter_extend_pinned():
+    from abpoa_tpu_torch.params import EXTEND_MODE
+    assert round_plans(_mode_params(EXTEND_MODE), _heter()) == EXTEND
+
+
+def test_round_plan_seeded_windows_pinned(monkeypatch):
+    assert seeded_plans(monkeypatch) == SEEDED
+
+
+def test_plane_sizes_equal_the_wrappers_allocations():
+    """fw_plane_bytes and band_nplanes, which round_plan budgets with,
+    are the planes the wrappers allocate, in every gap mode."""
+    from abpoa_tpu_torch.ops import band_dp as bd, fw_dp as fw
+    for gm in (0, 1, 2):
+        fc = fw.FWConfig(gm, 0, 32, 64, 256, 4, 4, 5, False, 0)
+        BT, H, E1, E2 = fw._planes(fc, 3, torch.device("cpu"))
+        assert BT.untyped_storage().nbytes() == 3 * fw.fw_plane_bytes(fc)
+        bc = bd.BandConfig(gap_mode=gm, pn=32, R=64, WB=128, Wq=256, P=4,
+                           m=5, bt_lmax=0)
+        H, E1, E2, BT = bd._planes(bc, 3, torch.device("cpu"))
+        assert H.untyped_storage().nbytes() == \
+            bd.band_nplanes(gm) * 3 * 64 * 128 * 4
+

@@ -4,10 +4,13 @@ interpret=True) on real rounds of seq.fa (G=1, one padded geometry per
 case), and against the oracle's best score and cigar, as
 tests/test_pallas_kernels.py holds the JAX kernel: local, unbanded
 global and unbanded extend (z-drop on), plus the banded global rows the
-round path sends here when the band kernel does not fit. On a GPU, the
-CUDA kernel against the plain version. Exact equality: misc (M_LASTI is
-not part of the result), the steps up to M_NSTEPS, beg/end_sn and
-mpl/mpr on rows < n_rows.
+round path sends here when the band kernel does not fit; linear gaps
+(unbanded global) and affine gaps (local); and banded rows under
+band-state hints and a partial row mask (the seeded path's windows; no
+oracle there: the mask changes the problem). On a GPU, the CUDA kernel
+against the plain version. Exact equality: misc (M_LASTI is not part of
+the result), the steps up to M_NSTEPS, beg/end_sn and mpl/mpr on rows
+< n_rows.
 """
 import pathlib
 
@@ -37,17 +40,37 @@ def _reads(fn, n):
             for r in read_seqs(str(DATA / fn))][:n]
 
 
+GAPS = {"linear": (0, 2, 0, 0), "affine": (4, 2, 0, 0)}
+BANDED = ("banded", "mask")
+
+
 def _params(case):
     from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
     p = Params()
-    if case == "local":
+    if case in ("local", "affine"):
         p.align_mode = LOCAL_MODE
     elif case == "extend":
         p.align_mode = EXTEND_MODE
         p.zdrop = 20
-    if case != "banded":
+    if case in GAPS:
+        (p.gap_open1, p.gap_ext1, p.gap_open2, p.gap_ext2) = GAPS[case]
+    if case not in BANDED:
         p.wb = -1
     return p.post_set()
+
+
+def _mask(arrs, n, qlen, rng):
+    """Band-state hints and a partial row mask on one round's tuple."""
+    R = arrs[1].shape[1]
+    t = np.arange(R)
+    hint = np.clip(t * qlen // max(n - 1, 1) + rng.integers(-3, 4, R), 0,
+                   qlen)
+    arrs[8] = np.where(t < n, hint, 0).astype(np.int16)[None]
+    arrs[9] = np.where(t < n, np.minimum(hint + 2, qlen), 0).astype(
+        np.int16)[None]
+    mask = np.ones(R, np.int8)
+    mask[5:n - 5:7] = 0
+    arrs[10] = mask[None]
 
 
 def _rounds(case, n_reads=5):
@@ -62,6 +85,7 @@ def _rounds(case, n_reads=5):
     reads = _reads("seq.fa", n_reads)
     Wq = (max(len(q) for q in reads) // 128 + 1) * 128
     LMAX = (R_PAD + Wq + 63) // 64 * 64
+    rng = np.random.default_rng(7)
     g = POAGraph()
     g.add_graph_alignment(params, reads[0], [1] * len(reads[0]), [], None,
                           0, True)
@@ -74,7 +98,10 @@ def _rounds(case, n_reads=5):
                                        bt_lmax=LMAX)
         res = align_sequence_to_subgraph(g, params, SRC_NODE_ID,
                                          SINK_NODE_ID, q)
-        yield cfg, [a[None] for a in arrs], dg.n_rows, g, q, res
+        arrs = [a[None] for a in arrs]
+        if case == "mask":
+            _mask(arrs, dg.n_rows, len(q), rng)
+        yield cfg, arrs, dg.n_rows, g, q, res
         g.add_graph_alignment(params, q, [1] * len(q), res.cigar, None,
                               rid, True)
 
@@ -83,7 +110,7 @@ def _port_cfg(cfg, case):
     from abpoa_tpu_torch.ops.fw_dp import FWConfig
     return FWConfig(cfg.gap_mode, cfg.align_mode, cfg.pn, cfg.R, cfg.Wq,
                     cfg.P, cfg.O, cfg.m, cfg.use_zdrop, cfg.bt_lmax,
-                    banded=case == "banded")
+                    banded=case in BANDED)
 
 
 def _np(x):
@@ -101,7 +128,7 @@ def _assert_same(a, b, n, what):
                 == _np(getattr(b, f))[0, :n]).all(), (what, f)
 
 
-CASES = ["local", "global", "extend", "banded"]
+CASES = ["local", "global", "extend", "banded", "linear", "affine", "mask"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -121,6 +148,8 @@ def test_fw_ref_equals_jax_interpret_and_oracle(case):
         jout = jfw(jc, *[jnp.asarray(a) for a in arrs], interpret=True)
         tout = tfw.fw_poa_dp_batch(pc, *[torch.from_numpy(a) for a in arrs])
         _assert_same(jout, tout, n, case)
+        if case == "mask":
+            continue
         m = tout.misc.numpy()[0]
         assert not m[L.M_FAIL] and m[L.M_NSTEPS] > 0
         dres = AlignResult()

@@ -9,7 +9,8 @@ by convert.params, the same encoded reads).
 * The per-round export (align/export.py): export_dense + pick_WB +
   make_pallas_inputs give the JAX package's config and input tuple,
   array for array, dtype and values, at the band kernel's and the
-  full-width kernel's query widths.
+  full-width kernel's query widths (the edge counts in the port's wider
+  index dtype).
 Exact equality everywhere.
 """
 import dataclasses
@@ -118,5 +119,8 @@ def test_make_pallas_inputs_equals_jax(mode):
             assert tuple(tc) == tuple(jc)
             assert len(ta) == len(ja) == 11
             for i, (t, j) in enumerate(zip(ta, ja)):
-                assert t.dtype == j.dtype and t.shape == j.shape, (i, rid)
+                # pre_n and out_n (3, 5) travel as the index dtype: the
+                # JAX package's int8 wraps past 127 edges of a node
+                want = ta[2].dtype if i in (3, 5) else j.dtype
+                assert t.dtype == want and t.shape == j.shape, (i, rid)
                 assert (t == j).all(), (mode, rid, i)
