@@ -15,10 +15,10 @@ Counterpart of the device wrappers of ``abpoa_tpu/align/engine_jax.py``
 * local mode, unbanded (``-b -1``), and a B5 result with a band
   overflow (``M_OVFL``) or a walk dead end (``M_FAIL``) run kernel B4,
   the full-width DP (``ops/fw_dp.py``), on the whole graph, on the same
-  device. The JAX package runs its XLA tier there (``dp_xla``, ROADMAP
-  A6); B4 computes the same function (the engine chain engine_np ==
-  dp_xla == dp_pallas == dp_pallas_fw) with no overflow path, so it
-  gives the same bytes;
+  device. The JAX package runs its XLA tier there (``dp_xla``); B4
+  computes the same function (the engine chain engine_np == dp_xla ==
+  dp_pallas == dp_pallas_fw) with no overflow path, so it gives the same
+  bytes;
 * a walk dead end of B4 is the reference's own backtrack failure, which
   it treats as fatal: ``RuntimeError``;
 * a subgraph window (``-S``/``-p``: the alignment between two anchors)
@@ -28,9 +28,10 @@ Counterpart of the device wrappers of ``abpoa_tpu/align/engine_jax.py``
   replay relative to the window's first row. An empty window has no DP:
   ``align/__init__.py`` sends it where the JAX package does (the host
   oracle) and counts it in ``empty_windows``;
-* a graph or window past 4096 rows or a query of 2^17 bases or more (the
-  packed step word's row and column bits) raises
-  ``NotImplementedError``: the XLA tier, ROADMAP A6.
+* any graph, window or query runs: the kernels' step words have 30 row
+  and 31 column bits; a launch whose tiles or planes exceed the device
+  memory budget (``parallel/batch.py`` ``_plane_budget``) raises
+  ``RuntimeError`` naming the bytes.
 
 The kernels' wrappers count their launches; ``reroutes`` counts the B5
 results re-run on B4, by flag.
@@ -56,19 +57,22 @@ def _run(kernel, cfg, arrs, dev):
     return out, out.misc[0].cpu().numpy()
 
 
-def _too_large(rows: int, qlen: int):
-    if rows > 4096 or qlen >= (1 << 17):
-        raise NotImplementedError(
-            f"a graph or window of {rows} rows or a query of {qlen} bases "
-            "needs the XLA tier of the JAX package, not ported yet: "
-            "ROADMAP A6")
+def _fits(name, nbytes, dev):
+    """Raise RuntimeError when one launch's tiles or planes exceed the
+    device memory budget."""
+    from ..parallel.batch import _plane_budget
+    budget = _plane_budget(dev)
+    if nbytes > budget:
+        raise RuntimeError(f"{name} needs {nbytes} bytes of tiles or planes "
+                           f"for one alignment, over the device memory "
+                           f"budget of {budget} bytes")
 
 
 def _full_width(dg, params, dev):
     """B4 over one export (whole graph or window): (out, misc row). A
     walk dead end is the reference's own backtrack failure: it raises."""
     from .export import make_pallas_inputs
-    from ..ops.fw_dp import FWConfig, fw_poa_dp_batch
+    from ..ops.fw_dp import FWConfig, fw_plane_bytes, fw_poa_dp_batch
     Wq = (dg.qlen // 128 + 1) * 128
     lmax = (dg.R + Wq + 511) // 512 * 512 if params.ret_cigar else 0
     cfg, arrs = make_pallas_inputs(dg, params, 128, force_Wq=Wq,
@@ -76,6 +80,7 @@ def _full_width(dg, params, dev):
     fwc = FWConfig(cfg.gap_mode, cfg.align_mode, cfg.pn, cfg.R, Wq, cfg.P,
                    cfg.O, cfg.m, cfg.use_zdrop, lmax,
                    banded=params.wb >= 0)
+    _fits("fw_dp", fw_plane_bytes(fwc), dev)
     out, misc = _run(fw_poa_dp_batch, fwc, arrs, dev)
     if params.ret_cigar and misc[L.M_FAIL]:
         raise RuntimeError("Error in backtrack: the full-width walk "
@@ -104,9 +109,8 @@ def align_sequence_to_graph_device(graph, params, query,
     """Whole-graph alignment of `query` on `device` ("cuda": the kernels,
     "cpu": their plain versions); see the module doc for the routing."""
     from .export import export_dense, make_pallas_inputs, pick_WB
-    from ..ops.tile_dp import tile_poa_dp_batch
+    from ..ops.tile_dp import tile_plane_bytes, tile_poa_dp_batch
     dev = resolve_device(device)
-    _too_large(graph.node_n, len(query))
     dg = export_dense(graph, params, query)
     Wq = (dg.qlen // 128 + 1) * 128
     lmax = (dg.R + Wq + 511) // 512 * 512 if params.ret_cigar else 0
@@ -115,6 +119,7 @@ def align_sequence_to_graph_device(graph, params, query,
     if banded and params.align_mode in (GLOBAL_MODE, EXTEND_MODE):
         WB = pick_WB(params, dg.qlen, dg.pn)
         cfg, arrs = make_pallas_inputs(dg, params, WB, bt_lmax=lmax)
+        _fits("tile_dp", tile_plane_bytes(cfg), dev)
         out, misc = _run(tile_poa_dp_batch, cfg, arrs[:10], dev)
         flag = ("M_OVFL" if misc[L.M_OVFL] else
                 "M_FAIL" if params.ret_cigar and misc[L.M_FAIL] else None)
@@ -141,7 +146,6 @@ def align_sequence_to_subgraph_device(graph, params, beg_node_id,
     dev = resolve_device(device)
     beg_index = int(graph.node_id_to_index[beg_node_id])
     end_index = int(graph.node_id_to_index[end_node_id])
-    _too_large(end_index - beg_index + 1, len(query))
     dg = export_dense(graph, params, query, beg_index=beg_index,
                       end_index=end_index)
     out, misc = _full_width(dg, params, dev)

@@ -5,8 +5,9 @@
 //     device loop's kernel.
 //   topo mode (NID = false): planes and control words indexed by
 //     topological row, band-state init (mplr0) and rowmask as inputs when
-//     not fresh, extend mode with z-drop, int32 steps and the band
-//     bounds/state out; the round-based path's kernel.
+//     not fresh, extend mode with z-drop, int64 step words
+//     (op | row<<2 | col<<32) and the band bounds/state out; the
+//     round-based path's kernel.
 //
 // Replaces the TPU kernel make_band_kernel behind band_poa_dp_packed
 // (nid mode) and band_poa_dp_batch (topo mode)
@@ -60,7 +61,7 @@ struct BandArgs {
   const int* qpf;    // [B, m*KW1, WB]
   int* misc;         // [B, M_NMISC]
   int* s16w;         // [B, LS/2] (node-id mode; zeroed by the caller)
-  int* steps;        // [B, max(LS, 8)] (topo mode; zeroed by the caller)
+  long long* steps;  // [B, max(LS, 8)] (topo mode; zeroed by the caller)
   int* bsn_out;      // [B, R] beg_sn|end_sn<<16 (topo mode; zeroed)
   int* mplr_out;     // [B, R] mpl|mpr<<16 (topo mode; zeroed)
   int* H;            // [B, R, WB] planes (scratch)
@@ -764,9 +765,9 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
 
   // ---- the walk: one backtrack word per step; node-id mode emits the
   // steps16 deltas (op | dj<<2 | di<<3 in topo space), two halves per
-  // word, topo mode the int32 words op | row<<2 | col<<14 ----
+  // word, topo mode the int64 words op | row<<2 | col<<32 ----
   int* s16 = NID ? a.s16w + (size_t)b * (a.LS / 2) : nullptr;
-  int* st = NID ? nullptr : a.steps + (size_t)b * max(a.LS, 8);
+  long long* st = NID ? nullptr : a.steps + (size_t)b * max(a.LS, 8);
   int I = bi, J = bj, lane = floormod(bj, WB), cur = BT_ALL, nst = 0;
   bool if_ = true, fail = false;
   int PI = NID ? s_i2nn[bi] >> 16 : 0, PJ = bj;
@@ -845,8 +846,8 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
         PI = ti;
         PJ = J;
       } else {
-        st[nst] = (int)((unsigned)op_code | ((unsigned)I << 2)
-                        | ((unsigned)J << 14));
+        st[nst] = (long long)op_code | ((long long)I << 2)
+                  | ((long long)J << 32);
       }
       ++nst;
     }
@@ -936,7 +937,8 @@ extern "C" int band_dp_launch(const int* scal, const int* ctrl,
 extern "C" int band_dp_topo_launch(const int* scal, const int* ctrl,
                                    const int* pre, const int* mplr0,
                                    const int* qpf, int* bsn_out,
-                                   int* mplr_out, int* misc, int* steps,
+                                   int* mplr_out, int* misc,
+                                   long long* steps,
                                    int* H, int* E1, int* E2, int* BT, int B,
                                    int R, int WB, int Wq, int P, int pn,
                                    int gap_mode, int LS, int m,

@@ -45,13 +45,18 @@
 //   with shared-memory atomics, and the next row adds the push of the
 //   row before it itself (a per-row flag says whether it is an out-node
 //   of it), so no barrier waits for the push;
-// - per-row control (predecessor count, out count, base, row mask, the
-//   flag), remain, the band bounds and state, and the predecessor ids
-//   (when R * P fits) live in shared memory; each gap mode is its own
-//   instance of the kernel, pn a power of two (its divisions shifts).
+// - per-row control (predecessor count, base, row mask, the flag), the
+//   out count, remain, the band bounds and state live in shared memory
+//   while they fit (R up to 8270), in a global scratch past that (a
+//   template flag picks the layout, so the common case keeps shared
+//   memory's loads), and the predecessor ids in shared memory when
+//   R * P fits; each gap mode is its own instance of the kernel, pn a
+//   power of two (its divisions shifts);
+// - the walk emits int64 step words op | row<<2 | col<<32: no row or
+//   column cap short of the card's memory.
 #include <cuda_runtime.h>
 
-#include "layout.cuh"
+#include "fw_tile.cuh"
 
 namespace abpoa {
 namespace {
@@ -59,34 +64,11 @@ namespace {
 constexpr int LOCAL_MODE = 1, EXTEND_MODE = 2;
 constexpr int CPT = 2;               // columns a thread owns in a tile
 constexpr int MAX_NT = 512;          // threads of a block
-constexpr int FB = 8;                // bits of a predecessor field
-constexpr int NONE = (1 << FB) - 1;  // no slot meets the condition
-// the first slot that meets it is SPILL or past it (a row with more
-// predecessors than a field holds): the walk finds it from the planes
-constexpr int SPILL = NONE - 1;
-// The backtrack word: 32 bits (linear and affine gaps) or 64 (convex).
-// Fields of FB bits: the first predecessor slot that meets M (H[pre][j-1]
-// + s == H), E1 from M (H == E1[pre]), E1 extended (E1 == E1[pre] - e1),
-// E2 from M, E2 extended (convex); linear gaps: the E1-from-M field holds
-// H[pre][j] - e1 == H. Then the open bits of the slots picked (H[pre][j]
-// - oe == E[pre]; O1M, O1X, O2M, O2X from bit O); the F bits (H[j-1] - oe
-// == F, F[j-1] - e == F, H == F for F1, then F2, from bit F; linear gaps:
-// H[j-1] - e1 == H at bit F); H == 0 (local mode's stop) at bit HZ.
-template <int GM> struct Bt {
-  typedef unsigned W;
-  static constexpr int MP = 0, E1M = FB, E1X = 2 * FB, E2M = 3 * FB,
-                       E2X = 4 * FB, O = 3 * FB, F = O + 2, HZ = F + 3;
-};
-template <> struct Bt<CONVEX_GAP> {
-  typedef u64 W;
-  static constexpr int MP = 0, E1M = FB, E1X = 2 * FB, E2M = 3 * FB,
-                       E2X = 4 * FB, O = 5 * FB, F = O + 4, HZ = F + 6;
-};
-// per-row control word in shared memory: predecessor count, out count
-// (clamped to [0, P] / [0, O]; rows are at most 4096, so a count fits 12
-// bits), base, row mask, and whether row t+1 is an out-node of row t
-constexpr int C_NOUT = 12, C_BASE = 24, C_LIVE = 29, C_NEXT = 30;
-constexpr int CMASK = 4095, MAX_R = 4096;
+// per-row control word: predecessor count (clamped to [0, P] and to 24
+// bits), base, row mask, and whether row t+1 is an out-node of row t;
+// the out count has a word of its own
+constexpr int C_BASE = 24, C_LIVE = 29, C_NEXT = 30;
+constexpr int CMASK = (1 << 24) - 1;
 
 struct FwArgs {
   const int* scal;     // [B, S_NSCAL]
@@ -105,21 +87,15 @@ struct FwArgs {
   int* mpl;
   int* mpr;
   int* misc;           // [B, M_NMISC] (zeroed)
-  int* steps;          // [B, max(LS, 8)] (zeroed)
+  long long* steps;    // [B, max(LS, 8)] (zeroed)
+  int* rows;           // [B, ROW_WORDS * R] per-row scratch (when the
+                       // per-row arrays do not fit shared memory)
   int* H;              // [B, R, Wq] planes (scratch)
   int* E1;
   int* E2;
   void* BT;            // [B, R, Wq] backtrack words (scratch)
   int R, Wq, P, O, m, pn, pn_sh, gm, mode, zdrop_on, banded, LS, pre_smem;
 };
-
-// the row maximum and its tie-break as one key: the larger value, then
-// the lower (lane-in-segment, aux), aux = prio * 1024 + segment + 1024
-// (< 2^26 on rows below 2^17 columns)
-__device__ __forceinline__ u64 best_key(int v, int lane, int aux) {
-  unsigned lo = ~(((unsigned)lane << 26) | ((unsigned)aux & 0x3FFFFFFu));
-  return ((u64)((unsigned)v ^ 0x80000000u) << 32) | lo;
-}
 
 // what the merge keeps of one predecessor row at the thread's columns
 struct PredVals {
@@ -217,15 +193,6 @@ __device__ __forceinline__ void merge_pred(
   }
 }
 
-// a cell's predecessor fields while the slots are visited: the first
-// slot that meets M, E1 from M, E1 extended, E2 from M, E2 extended
-// (NONE: none yet; SPILL for any slot from SPILL on), and the open
-// bits of the slots picked (bit k of o for field k + 1)
-struct Fields {
-  int f[5];
-  int o;
-};
-
 // one predecessor slot p's part of the backtrack words at the thread's
 // columns: the first slot of each condition, its open bit
 __device__ __forceinline__ void bt_pred(
@@ -233,64 +200,15 @@ __device__ __forceinline__ void bt_pred(
     const int* hrow, const int* e1row, const int* e2row, int gm, int e1,
     int oe1, int e2, int oe2, Fields* fl) {
 #pragma unroll
-  for (int u = 0; u < CPT; ++u) {
-    const int c = c0 + u;
-    const bool m_in = c - 1 >= plo && c - 1 <= phi;
-    const bool okp = c >= plo && c <= phi;
-    Fields& w = fl[u];
-    if (m_in && v.h[u] + qrow[u] == hrow[u] && w.f[0] == NONE)
-      w.f[0] = min(p, SPILL);
-    if (!okp) continue;
-    const int bh = v.h[u + 1];
-    if (gm == LINEAR_GAP) {
-      if (bh - e1 == hrow[u] && w.f[1] == NONE)
-        w.f[1] = min(p, SPILL);
-      continue;
-    }
-    const int be1 = v.e1[u];
-    const int o1 = bh - oe1 == be1;
-    if (hrow[u] == be1 && w.f[1] == NONE) {
-      w.f[1] = min(p, SPILL);
-      w.o |= o1;
-    }
-    if (e1row[u] == be1 - e1 && w.f[2] == NONE) {
-      w.f[2] = min(p, SPILL);
-      w.o |= o1 << 1;
-    }
-    if (gm == CONVEX_GAP) {
-      const int be2 = v.e2[u];
-      const int o2 = bh - oe2 == be2;
-      if (hrow[u] == be2 && w.f[3] == NONE) {
-        w.f[3] = min(p, SPILL);
-        w.o |= o2 << 2;
-      }
-      if (e2row[u] == be2 - e2 && w.f[4] == NONE) {
-        w.f[4] = min(p, SPILL);
-        w.o |= o2 << 3;
-      }
-    }
-  }
+  for (int u = 0; u < CPT; ++u)
+    bt_slot(fl[u], p, c0 + u, plo, phi, v.h[u], v.h[u + 1], v.e1[u],
+            v.e2[u], qrow[u], hrow[u], e1row[u], e2row[u], gm, e1, oe1, e2,
+            oe2);
 }
 
-// the F bits of one cell from its own and its left neighbour's values
-template <int GM>
-__device__ __forceinline__ u64 f_bits(int hh, int f1, int f2, int hprev,
-                                      int f1prev, int f2prev, int e1,
-                                      int oe1, int e2, int oe2) {
-  constexpr int F = Bt<GM>::F;
-  if (GM == LINEAR_GAP) return (u64)(hprev - e1 == hh) << F;
-  u64 w = ((u64)(hprev - oe1 == f1) << F)
-          | ((u64)(f1prev - e1 == f1) << (F + 1))
-          | ((u64)(hh == f1) << (F + 2));
-  if (GM == CONVEX_GAP)
-    w |= ((u64)(hprev - oe2 == f2) << (F + 3))
-         | ((u64)(f2prev - e2 == f2) << (F + 4)) | ((u64)(hh == f2) << (F + 5));
-  return w;
-}
-
-// one instance per gap mode (GM): the code of a launch holds only the
-// branches it runs
-template <int GM>
+// one instance per gap mode (GM) and per-row layout (SROWS: in shared
+// memory): the code of a launch holds only the branches it runs
+template <int GM, bool SROWS>
 __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
   extern __shared__ int smem[];
   constexpr int gm = GM;
@@ -298,19 +216,23 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
   typedef typename BL::W W;
   const int R = a.R, Wq = a.Wq, P = a.P, O = a.O, pn = a.pn;
   const bool local = a.mode == LOCAL_MODE, extend = a.mode == EXTEND_MODE;
-  const int b = blockIdx.x, tid = threadIdx.x, NT = blockDim.x;
+  const int tid = threadIdx.x, NT = blockDim.x;
   const int lane = tid & 31, wid = tid >> 5, NW = NT >> 5;
   u64* s_red = reinterpret_cast<u64*>(smem);  // [32]
   int* s_ws1 = smem + 64;                     // [32] warp scan totals
   int* s_ws2 = s_ws1 + 32;
   int* s_edge = s_ws2 + 32;                   // [3 * 32] last columns
-  int* s_beg = s_edge + 96;
+  const int b = blockIdx.x;
+  int* s_beg = SROWS ? smem + FIXED_WORDS
+                     : a.rows + (size_t)b * ROW_WORDS * R;
   int* s_end = s_beg + R;
   int* s_mpl = s_end + R;
   int* s_mpr = s_mpl + R;
   int* s_ctrl = s_mpr + R;
-  int* s_rem = s_ctrl + R;
-  int* s_pre = s_rem + R;                     // [R * P] when pre_smem
+  int* s_nout = s_ctrl + R;
+  int* s_rem = s_nout + R;
+  // [R * P] when pre_smem
+  int* s_pre = smem + FIXED_WORDS + (SROWS ? ROW_WORDS * R : 0);
 
   const size_t ro = (size_t)b * R;
   const int* qp = a.qp + (size_t)b * a.m * Wq;
@@ -335,13 +257,14 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
     s_mpr[i] = live ? a.mpr0[ro + i] : 0;
     s_rem[i] = a.remain[ro + i];
     const int npre = max(min(min(a.pre_n[ro + i], P), CMASK), 0);
-    const int nout = max(min(min(a.out_n[ro + i], O), CMASK), 0);
+    const int nout = max(min(a.out_n[ro + i], O), 0);
     const int base = min(max(a.bases[ro + i], 0), a.m - 1);
     bool next = false;
     for (int o = 0; o < nout; ++o)
       next |= out_idx[(size_t)i * O + o] == i + 1;
-    s_ctrl[i] = npre | (nout << C_NOUT) | (base << C_BASE)
+    s_ctrl[i] = npre | (base << C_BASE)
                 | ((a.rowmask[ro + i] > 0) << C_LIVE) | (next << C_NEXT);
+    s_nout[i] = nout;
   }
   if (a.pre_smem)
     for (int i = tid; i < R * P; i += NT) s_pre[i] = a.pre_idx[ro * P + i];
@@ -352,7 +275,7 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
   if (tid == 0) {
     s_mpl[0] = 0;
     s_mpr[0] = 0;
-    const int nout0 = (s_ctrl[0] >> C_NOUT) & CMASK;
+    const int nout0 = s_nout[0];
     for (int o = 0; o < nout0; ++o) {
       int tgt = out_idx[o];
       s_mpl[tgt] = 1;
@@ -419,7 +342,7 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
   for (int t = 1; t < limit; ++t) {
     // ---- the row's scalars ----
     const int cw = s_ctrl[t];
-    const int npre = cw & CMASK, nout = (cw >> C_NOUT) & CMASK;
+    const int npre = cw & CMASK, nout = s_nout[t];
     const int base = (cw >> C_BASE) & 31;
     // this thread's out-edge of the row (pushed after the row maximum)
     const int my_tgt = tid < nout ? out_idx[(size_t)t * O + tid] : 0;
@@ -462,7 +385,10 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
     W* BTt = BT + (size_t)t * Wq;
 
     DP_PROBE(0)
-    u64 kbest = best_key(NEG, 63, 0x3FFFFFF);
+    // below every candidate's key (a row of inf cells in 32-bit
+    // geometry, where inf < NEG, keeps its own maximum)
+    u64 kbest = 0;
+    const int last_lseg = r.endc - r.begc;
     int carry1 = NEG, carry2 = NEG;
     // the left neighbour of the tile's first column (the last column of
     // the tile before it): H, F1, F2
@@ -632,10 +558,7 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
       // ---- backtrack words: predecessor slots, then the F bits ----
       Fields fl[CPT];
 #pragma unroll
-      for (int u = 0; u < CPT; ++u) {
-        fl[u].f[0] = fl[u].f[1] = fl[u].f[2] = fl[u].f[3] = fl[u].f[4] = NONE;
-        fl[u].o = 0;
-      }
+      for (int u = 0; u < CPT; ++u) fields_init(fl[u]);
       if (npre > 0)
         bt_pred(first, 0, mulw(fbeg, pn), mulw(fend + 1, pn) - 1, c0, qrow,
                 hrow, e1row, e2row, gm, e1, oe1, e2, oe2, fl);
@@ -651,13 +574,8 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
       }
       u64 bt[CPT];
 #pragma unroll
-      for (int u = 0; u < CPT; ++u) {
-        bt[u] = ((u64)fl[u].f[0] << BL::MP) | ((u64)fl[u].f[1] << BL::E1M)
-                | ((u64)fl[u].f[2] << BL::E1X) | ((u64)fl[u].o << BL::O)
-                | ((u64)(hrow[u] == 0) << BL::HZ);
-        if (gm == CONVEX_GAP)
-          bt[u] |= ((u64)fl[u].f[3] << BL::E2M) | ((u64)fl[u].f[4] << BL::E2X);
-      }
+      for (int u = 0; u < CPT; ++u)
+        bt[u] = field_bits<GM>(fl[u]) | ((u64)(hrow[u] == 0) << BL::HZ);
 #pragma unroll
       for (int u = 1; u < CPT; ++u)
         bt[u] |= f_bits<GM>(hrow[u], f1row[u], f2row[u], hrow[u - 1],
@@ -692,8 +610,8 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
         const bool band = seg >= r.begc && seg <= r.endc;
         const int v = (band && c <= qlen) ? hrow[u] : inf;
         const int lseg = seg - r.begc;
-        const int prio = lseg == r.endc - r.begc ? -1 : lseg;
-        const u64 k = best_key(v, c - seg * pn, prio * 1024 + lseg + 1024);
+        const u64 k = best_key(v, c - seg * pn,
+                               lseg == last_lseg ? 0 : lseg + 1);
         kbest = k > kbest ? k : kbest;
       }
       if (last_tile) {
@@ -733,8 +651,8 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
     const int gmax = (int)((unsigned)(g >> 32) ^ 0x80000000u);
     const unsigned klo = ~(unsigned)(g & 0xFFFFFFFFu);
     const int lane_pick = (int)(klo >> 26);
-    const int aux_pick = (int)(klo & 0x3FFFFFFu) - 1024;
-    const int wseg = aux_pick - floordiv(aux_pick, 1024) * 1024;
+    const int aux_pick = (int)(klo & 0x3FFFFFFu);
+    const int wseg = aux_pick == 0 ? r.endc - r.begc : aux_pick - 1;
     const int mi = gmax > inf ? (r.begc + wseg) * pn + lane_pick : -1;
     const bool active = !stop && ((cw >> C_LIVE) & 1);
     bool stop_now = false;
@@ -834,7 +752,7 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
     }
     return NONE;
   };
-  int* st = a.steps + (size_t)b * max(a.LS, 8);
+  long long* st = a.steps + (size_t)b * max(a.LS, 8);
   int i = bi, j = bj, cur = BT_ALL, nst = 0;
   bool if_ = true, fail = false;
   bool done = bi <= 0 || bj <= 0;
@@ -898,8 +816,8 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
     const bool use_m = use_m1 || use_m2;
     if (any_hit) {
       const int op_code = use_m ? 0 : (use_e ? 2 : 1);
-      st[nst++] = (int)((unsigned)op_code | ((unsigned)i << 2)
-                        | ((unsigned)j << 14));
+      st[nst++] = (long long)op_code | ((long long)i << 2)
+                  | ((long long)j << 32);
     }
     int new_i = i;
     if (use_m)
@@ -920,26 +838,21 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
   misc[M_ENDJ] = j;
 }
 
-}  // namespace
-}  // namespace abpoa
-
-// shared memory of one block: reductions and scan totals, the per-row
-// band bounds, band state, control and remain, and the predecessor ids
-// when they fit (98 KB at R = 4096 without them)
-static size_t fw_smem_fixed(int R) {
-  return sizeof(int) * (224 + 6 * (size_t)R);
-}
-
-namespace abpoa {
-namespace {
-template <int GM>
-int launch(const FwArgs& a, int B, int NT, size_t smem, void* stream) {
+template <int GM, bool SROWS>
+int launch_rows(const FwArgs& a, int B, int NT, size_t smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fw_dp_kernel<GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fw_dp_kernel<GM, SROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fw_dp_kernel<GM><<<B, NT, smem, (cudaStream_t)stream>>>(a);
+  fw_dp_kernel<GM, SROWS><<<B, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int GM>
+int launch(const FwArgs& a, int B, int NT, size_t smem, bool srows,
+           void* stream) {
+  return srows ? launch_rows<GM, true>(a, B, NT, smem, stream)
+               : launch_rows<GM, false>(a, B, NT, smem, stream);
 }
 }  // namespace
 }  // namespace abpoa
@@ -952,30 +865,36 @@ extern "C" int fw_dp_launch(
     const int* scal, const int* bases, const int* pre_idx, const int* pre_n,
     const int* out_idx, const int* out_n, const int* remain, const int* qp,
     const int* mpl0, const int* mpr0, const int* rowmask, int* begsn,
-    int* endsn, int* mpl, int* mpr, int* misc, int* steps, int* H, int* E1,
-    int* E2, void* BT, int B, int R, int Wq, int P, int O, int m, int pn,
+    int* endsn, int* mpl, int* mpr, int* misc, long long* steps, int* rows,
+    int* H, int* E1, int* E2, void* BT, int B, int R, int Wq, int P, int O,
+    int m, int pn,
     int gap_mode, int align_mode, int zdrop_on, int banded, int LS,
     void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
-  // pn a power of two (floor divisions by it are shifts); rows and bases
-  // fit the control word, the lane-in-segment the row-maximum key
-  if (R <= 0 || R > MAX_R || Wq <= 0 || P <= 0 || O <= 0 || m <= 0
-      || m > 32 || pn <= 0 || pn > 64 || (pn & (pn - 1)) || align_mode < 0
-      || align_mode > 2)
+  // pn a power of two (floor divisions by it are shifts); bases fit the
+  // control word, the lane-in-segment and the columns the row-maximum key
+  if (R <= 0 || R >= (1 << 30) || Wq <= 0 || Wq >= (1 << 29) || P <= 0
+      || O <= 0 || m <= 0 || m > 32 || pn <= 0 || pn > 64 || (pn & (pn - 1))
+      || align_mode < 0 || align_mode > 2)
     return (int)cudaErrorInvalidValue;
   const int pn_sh = __builtin_ctz(pn);
   const int NT = min(MAX_NT, ((Wq + CPT - 1) / CPT + 31) / 32 * 32);
-  const size_t fixed = fw_smem_fixed(R);
+  const size_t fixed = smem_with_rows(R);
+  const bool srows = fixed > sizeof(int) * FIXED_WORDS;
+  // past shared memory the per-row arrays need the caller's scratch
+  if (!srows && rows == nullptr) return (int)cudaErrorInvalidValue;
   const size_t with_pre = fixed + sizeof(int) * (size_t)R * P;
-  const int pre_smem = with_pre <= 232448;
+  const int pre_smem = with_pre <= MAX_SMEM;
   const size_t smem = pre_smem ? with_pre : fixed;
   FwArgs a{scal, bases, pre_idx, pre_n, out_idx, out_n, remain, qp, mpl0,
-           mpr0, rowmask, begsn, endsn, mpl, mpr, misc, steps, H, E1, E2,
-           BT, R, Wq, P, O, m, pn, pn_sh, gap_mode, align_mode, zdrop_on,
+           mpr0, rowmask, begsn, endsn, mpl, mpr, misc, steps, rows, H, E1,
+           E2, BT, R, Wq, P, O, m, pn, pn_sh, gap_mode, align_mode, zdrop_on,
            banded, LS, pre_smem};
   // the gap mode's instance (a mode neither linear nor convex is affine)
-  if (gap_mode == LINEAR_GAP) return launch<LINEAR_GAP>(a, B, NT, smem, stream);
-  if (gap_mode == CONVEX_GAP) return launch<CONVEX_GAP>(a, B, NT, smem, stream);
-  return launch<AFFINE_GAP>(a, B, NT, smem, stream);
+  if (gap_mode == LINEAR_GAP)
+    return launch<LINEAR_GAP>(a, B, NT, smem, srows, stream);
+  if (gap_mode == CONVEX_GAP)
+    return launch<CONVEX_GAP>(a, B, NT, smem, srows, stream);
+  return launch<AFFINE_GAP>(a, B, NT, smem, srows, stream);
 }

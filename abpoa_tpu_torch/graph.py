@@ -755,7 +755,7 @@ class NativeGraph(POAGraph):
             w = np.ones(qlen, dtype=np.int32)
         else:
             w = np.ascontiguousarray(weight, dtype=np.int32)
-        st = np.ascontiguousarray(steps[:nsteps], dtype=np.int32)
+        st = np.ascontiguousarray(steps[:nsteps], dtype=np.int64)
         rc = self._lib.pg_fuse_steps(
             self._h, ptr(self._i2n32), int(row0), ptr(st), int(nsteps),
             int(best_j), int(end_j), qlen, ptr(s), ptr(w), int(read_id),

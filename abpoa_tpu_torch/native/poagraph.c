@@ -337,12 +337,12 @@ int pg_add_subgraph_alignment(void *h, int32_t beg_node_id,
                        weight[seq_l - 1], add_rid, add_rw, rid) < 0 ? -1 : 0;
 }
 
-/* Replay a device backtrack step stream (packed op|row<<2|col<<14, stored
- * reversed: steps[0] is the LAST move) and fuse it in the same pass —
+/* Replay a device backtrack step stream (int64 words op|row<<2|col<<32,
+ * stored reversed: steps[0] is the LAST move) and fuse it in the same pass —
  * equivalent to ops/bt_xla.py replay_steps + add_graph_alignment without
  * materializing the cigar. i2n maps dp row -> node id (row0 offset). */
 int pg_fuse_steps(void *h, const int32_t *i2n, int32_t row0,
-                  const int32_t *steps, int32_t nsteps, int32_t best_j,
+                  const int64_t *steps, int32_t nsteps, int32_t best_j,
                   int32_t end_j, int32_t qlen, const uint8_t *seq,
                   const int32_t *weight, int32_t rid, int32_t add_rid,
                   int32_t add_rw, int32_t inc_both_ends,
@@ -357,10 +357,10 @@ int pg_fuse_steps(void *h, const int32_t *i2n, int32_t row0,
                      rid, 0)) return -1;
     }
     for (int32_t k = nsteps - 1; k >= 0; k--) {
-        int32_t enc = steps[k];
-        int32_t op = enc & 3;
+        int64_t enc = steps[k];
+        int32_t op = (int32_t)(enc & 3);
         if (op == 0) {
-            int32_t node_id = i2n[row0 + ((enc >> 2) & 0xFFF)];
+            int32_t node_id = i2n[row0 + (int32_t)((enc >> 2) & 0x3FFFFFFF)];
             if (fuse_match(pg, node_id, &last_id, &last_new, &query_id,
                            seq, weight, beg_node_id, inc_both_ends,
                            add_rid, add_rw, rid, 0)) return -1;

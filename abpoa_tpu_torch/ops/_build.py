@@ -39,7 +39,7 @@ SOURCES = {
         "graph_update_launch": [_vp] * 15 + [_int] * 10 + [_vp],
     },
     "fw_dp": {
-        "fw_dp_launch": [_vp] * 21 + [_int] * 12 + [_vp],
+        "fw_dp_launch": [_vp] * 22 + [_int] * 12 + [_vp],
     },
     "tile_dp": {
         "tile_dp_launch": [_vp] * 21 + [_int] * 12 + [_vp],

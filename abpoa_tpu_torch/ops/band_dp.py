@@ -5,9 +5,9 @@ behind its two entries: ``band_poa_dp_packed`` (nid mode, the device
 loop: planes and control words indexed by node id, the sweep order from
 the packed i2n map, steps16 out) and ``band_poa_dp_batch`` (topo mode,
 the round-based path: planes and control words indexed by topological
-row, band state and rowmask as inputs, extend mode with z-drop, int32
-steps and steps16 out). One CUDA source, ``csrc/band_dp.cu``, holds both
-kernels over one row body; ``band_poa_dp_packed_ref`` and
+row, band state and rowmask as inputs, extend mode with z-drop, int64
+step words and steps16 out). One CUDA source, ``csrc/band_dp.cu``, holds
+both kernels over one row body; ``band_poa_dp_packed_ref`` and
 ``band_poa_dp_batch_ref`` are the plain PyTorch versions, batched over
 instances, sharing one implementation (``_band_ref``).
 
@@ -32,6 +32,7 @@ from ..params import (GLOBAL_MODE, EXTEND_MODE, LINEAR_GAP, CONVEX_GAP,
 
 from . import layout as L
 from ._build import check_launch, library
+from .steps import pack_steps, step_fields
 
 I32 = torch.int32
 RM_OK = 1 << 30
@@ -63,7 +64,7 @@ class BandOut(NamedTuple):
     mpl: torch.Tensor
     mpr: torch.Tensor
     misc: torch.Tensor     # [B, M_NMISC]
-    steps: torch.Tensor    # [B, max(bt_lmax, 8)] op|row<<2|col<<14
+    steps: torch.Tensor    # [B, max(bt_lmax, 8)] int64 op|row<<2|col<<32
     steps16: torch.Tensor  # [B, max(bt_lmax, 8)] int16 delta stream
 
 
@@ -111,7 +112,7 @@ def _check_tensors(name: str, want: dict, dev):
 
 
 # dynamic shared memory a block of the band kernel may use on Hopper
-MAX_SMEM_BYTES = 232448
+MAX_SMEM_BYTES = L.MAX_SMEM_BYTES
 
 
 def band_smem_bytes(nid: bool, R: int, P: int, WB: int) -> int:
@@ -223,13 +224,13 @@ def band_cells(cfg: BandConfig, scal, bsn, rowmask):
 
 
 def steps16_compress(st, misc):
-    """The int16 delta stream of int32 step words: i/j are
-    non-increasing along the walk and predecessor jumps fit 13 bits."""
-    iseq = (st >> 2) & 0xFFF
-    jseq = st >> 14
+    """The int16 delta stream of step words: i/j are non-increasing
+    along the walk; a predecessor jump fits the 13-bit row decrement in
+    graphs of at most 8192 rows (the split round's, at most 4096)."""
+    op, iseq, jseq = (f.to(I32) for f in step_fields(st))
     prev_i = torch.cat([misc[:, L.M_BI:L.M_BI + 1], iseq[:, :-1]], 1)
     prev_j = torch.cat([misc[:, L.M_BJ:L.M_BJ + 1], jseq[:, :-1]], 1)
-    s16 = ((st & 3) | ((prev_j - jseq) << 2) | ((prev_i - iseq) << 3))
+    s16 = (op | ((prev_j - jseq) << 2) | ((prev_i - iseq) << 3))
     return (((s16 & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16)
 
 
@@ -312,7 +313,7 @@ def band_poa_dp_batch(cfg: BandConfig, scal, bases, pre_idx, pre_n,
     bsn = torch.zeros(B, R, dtype=I32, device=dev)
     mplr = torch.zeros(B, R, dtype=I32, device=dev)
     misc = torch.zeros(B, L.M_NMISC, dtype=I32, device=dev)
-    steps = torch.zeros(B, LS, dtype=I32, device=dev)
+    steps = torch.zeros(B, LS, dtype=torch.int64, device=dev)
     H, E1, E2, BT = _planes(cfg, B, dev)
     lib = library("band_dp")
     with torch.cuda.device(dev):
@@ -768,7 +769,7 @@ def _band_ref(cfg: BandConfig, scal, ctrl, pre, qpf, i2nn=None,
     if nid:
         out = torch.zeros(B, LS, dtype=I32, device=dev)      # halves
     else:
-        out = torch.zeros(B, max(LS, 8), dtype=I32, device=dev)
+        out = torch.zeros(B, max(LS, 8), dtype=torch.int64, device=dev)
     if LS == 0:
         return bsn[:, :R], mplr[:, :R], misc, out
 
@@ -874,7 +875,7 @@ def _band_ref(cfg: BandConfig, scal, ctrl, pre, qpf, i2nn=None,
             PI = torch.where(emit, ti, PI)
             PJ = torch.where(emit, J, PJ)
         else:
-            word = op_code | (I_ << 2) | (J << 14)
+            word = pack_steps(op_code, I_, J)
             out[sel, nst[sel].long()] = word[sel]
         nst = nst + emit.to(I32)
         new_i = torch.where(use_m, m_pred, torch.where(use_e, e_pred, I_))

@@ -15,7 +15,7 @@ span [0, qlen]. Local mode clamps cells at 0, starts from a zero first
 row and takes the best cell over every row; extend mode takes the best
 row maximum and stops on z-drop. The walk (M -> D -> I order,
 indel_first, cur_op gating, local mode's stop at a zero cell) emits
-int32 step words ``op | row<<2 | col<<14``: the plain version re-derives
+int64 step words ``op | row<<2 | col<<32``: the plain version re-derives
 every backtrack condition from the planes, the kernel reads the
 backtrack word its sweep wrote per cell (and keeps no F planes). Full
 rows cannot overflow, so M_OVFL is 0.
@@ -31,6 +31,7 @@ from ..params import (GLOBAL_MODE, LOCAL_MODE, EXTEND_MODE, LINEAR_GAP,
 
 from . import layout as L
 from ._build import check_launch, library
+from .steps import pack_steps
 
 I32 = torch.int32
 
@@ -57,12 +58,7 @@ class FWOut(NamedTuple):
     mpl: torch.Tensor
     mpr: torch.Tensor
     misc: torch.Tensor    # [B, M_NMISC]
-    steps: torch.Tensor   # [B, max(bt_lmax, 8)]
-
-
-# rows the kernel takes: its per-row counts are 12-bit fields (the
-# callers stop at 4096 rows: ROADMAP A6)
-FW_MAX_R = 4096
+    steps: torch.Tensor   # [B, max(bt_lmax, 8)] int64 step words
 
 
 def _bt_planes(gap_mode: int) -> int:
@@ -155,9 +151,6 @@ def fw_poa_dp_batch(cfg: FWConfig, scal, bases, pre_idx, pre_n, out_idx,
                                    mpr0, rowmask)
     if dev.type != "cuda":
         raise ValueError(f"fw_poa_dp_batch: unsupported device {dev}")
-    if cfg.R > FW_MAX_R:
-        raise ValueError(f"fw_poa_dp_batch: {cfg.R} rows, the kernel takes "
-                         f"at most {FW_MAX_R}")
     packed = _pack_fw(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n,
                       remain, qcodes, mpl0, mpr0, rowmask)
     _check(cfg, "fw_poa_dp_batch", packed)
@@ -168,14 +161,17 @@ def fw_poa_dp_batch(cfg: FWConfig, scal, bases, pre_idx, pre_n, out_idx,
     mpl = torch.zeros(B, R, dtype=I32, device=dev)
     mpr = torch.zeros(B, R, dtype=I32, device=dev)
     misc = torch.zeros(B, L.M_NMISC, dtype=I32, device=dev)
-    steps = torch.zeros(B, LS, dtype=I32, device=dev)
+    steps = torch.zeros(B, LS, dtype=torch.int64, device=dev)
     BT, H, E1, E2 = _planes(cfg, B, dev)
+    rows = (None if L.rows_in_smem(R) else
+            torch.empty(B, L.ROW_WORDS * R, dtype=I32, device=dev))
     lib = library("fw_dp")
     with torch.cuda.device(dev):
         rc = lib.fw_dp_launch(
             *(t.data_ptr() for t in packed),
             begsn.data_ptr(), endsn.data_ptr(), mpl.data_ptr(),
             mpr.data_ptr(), misc.data_ptr(), steps.data_ptr(),
+            rows.data_ptr() if rows is not None else None,
             H.data_ptr(), E1.data_ptr(), E2.data_ptr(), BT.data_ptr(),
             B, R, Wq, cfg.P, cfg.O, cfg.m, cfg.pn,
             cfg.gap_mode, cfg.align_mode, int(cfg.use_zdrop),
@@ -320,10 +316,11 @@ def fw_poa_dp_batch_ref(cfg: FWConfig, scal, bases, pre_idx, pre_n,
         qrow = torch.where((lane >= 1) & (lane <= qlenc), qp[bidx, base],
                            zero)
 
-        # ---- merges over predecessors ----
+        # ---- merges over predecessors (slots past every instance's
+        # count add nothing, slot 0 sets the fill) ----
         h = torch.zeros(B, Wq, dtype=I32, device=dev)
         e1v = e2v = h
-        for p in range(P):
+        for p in range(max(1, int(pvs.sum(1).max()))):
             pred = preds[:, p]
             pvc = pvs[:, p][:, None]
             pbegc = torch.where(pvc, begsn[bidx, pred][:, None], 1 << 29)
@@ -499,7 +496,7 @@ def fw_poa_dp_batch_ref(cfg: FWConfig, scal, bases, pre_idx, pre_n,
     misc[:, L.M_BI] = bi
     misc[:, L.M_BJ] = bj
     misc[:, L.M_CELLS] = cells
-    steps = torch.zeros(B, max(LS, 8), dtype=I32, device=dev)
+    steps = torch.zeros(B, max(LS, 8), dtype=torch.int64, device=dev)
     out = lambda: FWOut(begsn[:, :R], endsn[:, :R], mpl[:, :R],  # noqa
                         mpr[:, :R], misc, steps)
     if LS == 0:
@@ -538,7 +535,8 @@ def fw_poa_dp_batch_ref(cfg: FWConfig, scal, bases, pre_idx, pre_n,
         if gm == CONVEX_GAP:
             e2ij = at(E2, ic, j)
             f2ij, f2prev = at(F2, ic, j), at(F2, ic, j - 1)
-        for p in range(P):
+        # slots past every instance's count meet no condition
+        for p in range(int(pre_n[bidx, ic.long()].clamp(0, P).max())):
             pre = pre_idx[bidx, (ic * P + p).long()]
             pv = p < pre_n[bidx, ic.long()]
             hpre, hpre1 = at(H, pre, j), at(H, pre, j - 1)
@@ -606,7 +604,7 @@ def fw_poa_dp_batch_ref(cfg: FWConfig, scal, bases, pre_idx, pre_n,
         op_code = torch.where(use_m, 0, torch.where(use_e, 2, 1)).to(I32)
         emit = act & any_hit
         sel = emit.nonzero()[:, 0]
-        word = op_code | (i << 2) | (j << 14)
+        word = pack_steps(op_code, i, j)
         steps[sel, nst[sel].long()] = word[sel]
         nst = nst + emit.to(I32)
         new_i = torch.where(use_m, m_pred, torch.where(use_e, e_pick_pred, i))

@@ -25,3 +25,17 @@ BT_E, BT_F, BT_ALL = 0x6, 0x18, 0x1F
 
 # backtrack bits of a cell outside its row's band window: no move hits
 INVALID_BITS = 15 | (15 << 4) | (15 << 8) | (15 << 14) | (15 << 18)
+
+# dynamic shared memory a block may use on Hopper
+MAX_SMEM_BYTES = 232448
+# B4's and B5's per-row arrays: ROW_WORDS words a row after 224 fixed
+# words of shared memory, where they stay while they fit; past that the
+# wrappers allocate them a global scratch (csrc/fw_tile.cuh
+# smem_with_rows)
+ROW_WORDS = 7
+
+
+def rows_in_smem(R: int) -> bool:
+    """Whether B4 and B5 keep the per-row arrays of R rows in shared
+    memory."""
+    return 4 * (224 + ROW_WORDS * R) <= MAX_SMEM_BYTES

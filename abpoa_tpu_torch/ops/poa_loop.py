@@ -343,15 +343,17 @@ def poa_device_loop(cfg: LoopConfig, st0: GState, i2n0, n2i0, remain0,
 # round, held against the packed two-kernel form)
 
 def fuse_batch(cfg: LoopConfig, st: GState, i2n, steps, misc, qcodes, qlen):
-    """Fuse one round's int32 step streams (op|row<<2|col<<14 in push
+    """Fuse one round's step words (int64 op|row<<2|col<<32 in push
     order, rows in topo space) into the graph state, with the plain graph
     update's vectorized fusion. Instances whose round was bad (overflow,
     walk failure) or whose fusion overran a capacity set the sticky fail
     flag and keep their graph."""
     from .graph_update import fuse_steps_ref
-    steps, misc, qlen = steps.to(I32), misc.to(I32), qlen.to(I32)
+    from .steps import step_fields
+    misc, qlen = misc.to(I32), qlen.to(I32)
+    op, row, _col = step_fields(steps.to(torch.int64))
     st2, inst_ok, fusion_fail = fuse_steps_ref(
-        cfg, st, i2n.to(I32), steps & 3, (steps >> 2) & 0xFFF, misc, qlen,
+        cfg, st, i2n.to(I32), op.to(I32), row.to(I32), misc, qlen,
         qcodes.to(I32) & 0xFF)
     bad = (misc[:, L.M_OVFL] | misc[:, L.M_FAIL]) > 0
     fail = (st.fail > 0) | (inst_ok & fusion_fail) | (bad & (qlen > 0))

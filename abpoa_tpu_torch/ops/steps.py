@@ -1,12 +1,20 @@
-"""The steps16 wire stream: decode on the host, and the legacy-word
-encoder the tests use to hand-build streams.
+"""The step words of the DP walks, and the steps16 wire stream: decode
+on the host, and the encoder the tests use to hand-build streams.
 
-The DP walk emits one 16-bit half per backtrack step, in push (reverse)
-order: ``op | dj<<2 | di<<3``, where (di, dj) are the topo-row and
-column decrements from the previous emission (the first step's are from
-(M_BI, M_BJ)). Re-hosted from ``abpoa_tpu/ops/bt_xla.py``
-(``unpack_steps16``, ``replay_steps``), ``parallel/batch.py`` (the
-whole-batch decode) and ``ops/poa_loop.py`` (``steps32_to_s16w``).
+A step word is an int64 ``op | row<<2 | col<<32`` (``pack_steps``;
+``step_fields`` takes it apart): 30 row bits and 31 column bits, so no
+graph, window or query that fits the card's memory outgrows it. The
+walks of B3 (topo mode), B4 and B5 emit it; the host fusion
+(``native/poagraph.c`` ``pg_fuse_steps``) and ``replay_steps`` read it.
+
+The device loop's walk emits one 16-bit half per backtrack step
+instead, in push (reverse) order: ``op | dj<<2 | di<<3``, where (di,
+dj) are the topo-row and column decrements from the previous emission
+(the first step's are from (M_BI, M_BJ)); its 13-bit row decrement
+holds any predecessor jump of a graph up to 8192 rows. Re-hosted from
+``abpoa_tpu/ops/bt_xla.py`` (``unpack_steps16``, ``replay_steps``),
+``parallel/batch.py`` (the whole-batch decode) and ``ops/poa_loop.py``
+(``steps32_to_s16w``, here ``steps_to_s16w``).
 """
 from __future__ import annotations
 
@@ -15,41 +23,58 @@ import torch
 
 from . import layout as L
 
+ROW_MASK = (1 << 30) - 1
+COL_SHIFT = 32
+
+
+def pack_steps(op, row, col):
+    """Int64 step words of (op, row, col): numpy arrays or integers, or
+    torch tensors."""
+    if isinstance(op, torch.Tensor):
+        return (op.to(torch.int64) | (row.to(torch.int64) << 2)
+                | (col.to(torch.int64) << COL_SHIFT))
+    return (np.asarray(op, np.int64) | (np.asarray(row, np.int64) << 2)
+            | (np.asarray(col, np.int64) << COL_SHIFT))
+
+
+def step_fields(enc):
+    """(op, row, col) of step words (numpy or torch int64)."""
+    return enc & 3, (enc >> 2) & ROW_MASK, enc >> COL_SHIFT
+
 
 def unpack_steps16(s16, n_steps: int, best_i: int, best_j: int):
-    """Rebuild int32 step words (op|i<<2|j<<14) from one instance's int16
-    delta stream: the walk starts at (best_i, best_j), and i/j are
-    non-increasing along it."""
-    raw = np.asarray(s16[:n_steps]).astype(np.int32) & 0xFFFF
-    op = raw & 3
+    """Rebuild step words from one instance's int16 delta stream: the
+    walk starts at (best_i, best_j), and i/j are non-increasing along
+    it."""
+    raw = np.asarray(s16[:n_steps]).astype(np.int64) & 0xFFFF
     i = best_i - np.cumsum((raw >> 3) & 0x1FFF)
     j = best_j - np.cumsum((raw >> 2) & 1)
-    return op | (i << 2) | (j << 14)
+    return pack_steps(raw & 3, i, j)
 
 
 def decode_steps_batch(s16, misc):
     """All rounds' and instances' step words in one vectorized pass.
     s16: int16 [NR, B, cap]; misc: int32 [NR, B, M_NMISC]. Entries past
     an instance's M_NSTEPS are garbage and are never read."""
-    raw = np.asarray(s16).astype(np.int32) & 0xFFFF
+    raw = np.asarray(s16).astype(np.int64) & 0xFFFF
+    misc = np.asarray(misc).astype(np.int64)
     iall = (misc[:, :, L.M_BI:L.M_BI + 1]
             - np.cumsum((raw >> 3) & 0x1FFF, axis=2))
     jall = (misc[:, :, L.M_BJ:L.M_BJ + 1]
             - np.cumsum((raw >> 2) & 1, axis=2))
-    return (raw & 3) | (iall << 2) | (jall << 14)
+    return pack_steps(raw & 3, iall, jall)
 
 
-def steps32_to_s16w(steps: torch.Tensor, misc: torch.Tensor):
-    """Legacy op|row<<2|col<<14 step words [B, LS] + misc -> (wire words
-    [B, LS//2], misc with M_LASTI set). For tests that hand-build step
-    streams; the DP kernel emits the wire format itself."""
+def steps_to_s16w(steps: torch.Tensor, misc: torch.Tensor):
+    """Step words [B, LS] + misc -> (wire words [B, LS//2], misc with
+    M_LASTI set). For tests that hand-build step streams; the DP kernel
+    emits the wire format itself."""
     i32 = torch.int32
-    steps = steps.to(i32)
-    iseq = (steps >> 2) & 0xFFF
-    jseq = steps >> 14
+    op, iseq, jseq = (f.to(i32)
+                      for f in step_fields(steps.to(torch.int64)))
     prev_i = torch.cat([misc[:, L.M_BI:L.M_BI + 1], iseq[:, :-1]], 1)
     prev_j = torch.cat([misc[:, L.M_BJ:L.M_BJ + 1], jseq[:, :-1]], 1)
-    s16 = ((steps & 3) | ((prev_j - jseq) << 2)
+    s16 = (op | ((prev_j - jseq) << 2)
            | ((prev_i - iseq) << 3)) & 0xFFFF
     s16w = s16[:, 0::2] | (s16[:, 1::2] << 16)
     nst = misc[:, L.M_NSTEPS:L.M_NSTEPS + 1].to(torch.int64)
@@ -71,10 +96,7 @@ def replay_steps(graph, params, query, steps, n_steps, best_i, best_j,
     qlen = len(query)
     i2n = np.asarray(graph.index_to_node_id, dtype=np.int64)[row0:]
     n = int(n_steps)
-    enc = np.asarray(steps[:n])
-    ops = enc & 0x3
-    rows = (enc >> 2) & 0xFFF
-    cols = enc >> 14
+    ops, rows, cols = step_fields(np.asarray(steps[:n]).astype(np.int64))
     nids = i2n[rows] if n else np.zeros(0, np.int64)
     cigar: list = []
     if best_j < qlen:

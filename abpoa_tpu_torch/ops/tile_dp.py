@@ -9,16 +9,22 @@ What is computed, per instance: the adaptive-banded DP of one query
 against the whole graph in topological order. Lane l of row t holds
 query column ``beg_sn[t]*pn + l`` (row-relative tiles, unlike the band
 kernels' ``c mod WB`` window); a predecessor row is read shifted by
-``t_off - pre_beg_sn*pn`` with inf outside its tile. Planes H, E1, E2,
-F1, F2 are outputs ([B, R, WB], 1, 3 or 5 of them written by gap mode,
-every lane of the first row and of each swept row); the band bounds
+``t_off - pre_beg_sn*pn`` with inf outside its tile. The band bounds
 beg/end_sn and the band state mpl/mpr (pushed along out-edges, starting
 from copies of mpl0/mpr0) are outputs for every row. A row whose band
 outgrows the tile sets M_OVFL and is clamped to it. Extend mode tracks
 the best row maximum and stops on z-drop; global mode takes the best
-cell over the sink's predecessors. The walk (bt_lmax > 0) re-derives
-every backtrack condition from the tiles (M -> D -> I order, indel
-first, cur_op gating) and emits int32 step words ``op|row<<2|col<<14``.
+cell over the sink's predecessors. The walk (bt_lmax > 0; M -> D -> I
+order, indel first, cur_op gating) emits int64 step words
+``op|row<<2|col<<32``.
+
+The plain version writes every tile, H, E1, E2, F1, F2 ([B, R, WB], 1,
+3 or 5 of them by gap mode, every lane of the first row and of each
+swept row), and its walk re-derives every backtrack condition from
+them: the JAX package's tiles, which the tests compare. The kernel's
+tiles are scratch (H, E1, E2 on the rows it swept; F1/F2 are not kept:
+its sweep writes a backtrack word per cell instead); callers read only
+misc, the steps, the band bounds and the band state.
 
 The F (insertion) and linear-gap scans replicate the TPU kernel's
 Kogge-Stone prefix max exactly, including its NEG fill: every lane but
@@ -35,13 +41,15 @@ from ..params import GLOBAL_MODE, EXTEND_MODE, LINEAR_GAP, CONVEX_GAP
 
 from . import layout as L
 from ._build import check_launch, library
+from .steps import pack_steps
 
 I32 = torch.int32
 NPLANES = 5
 
 
 class TileOut(NamedTuple):
-    """Outputs of one launch (the JAX ``PallasDPOut``)."""
+    """Outputs of one launch (the JAX ``PallasDPOut``). The kernel's
+    tiles are scratch and its F1b/F2b None."""
     Hb: torch.Tensor      # [B, R, WB] row-relative tiles
     E1b: torch.Tensor
     E2b: torch.Tensor
@@ -52,12 +60,39 @@ class TileOut(NamedTuple):
     mpl: torch.Tensor
     mpr: torch.Tensor
     misc: torch.Tensor    # [B, M_NMISC]
-    steps: torch.Tensor   # [B, max(bt_lmax, 8)] op|row<<2|col<<14
+    steps: torch.Tensor   # [B, max(bt_lmax, 8)] int64 op|row<<2|col<<32
+
+
+def _bt_planes(gap_mode: int) -> int:
+    """int32 planes of the backtrack words: 64 bits (convex gaps) or 32."""
+    return 2 if gap_mode == CONVEX_GAP else 1
+
+
+def tile_nplanes(gap_mode: int) -> int:
+    """int32 tiles the kernel keeps: the backtrack words, H; E1
+    (affine); E1, E2 (convex)."""
+    return _bt_planes(gap_mode) + {LINEAR_GAP: 1, CONVEX_GAP: 3}.get(
+        gap_mode, 2)
 
 
 def tile_plane_bytes(cfg) -> int:
-    """Device bytes of one instance's output tiles."""
-    return NPLANES * cfg.R * cfg.WB * 4
+    """Device bytes of one instance's tiles on the card."""
+    return tile_nplanes(cfg.gap_mode) * cfg.R * cfg.WB * 4
+
+
+def _scratch(cfg, B: int, dev):
+    """The kernel's tiles of B instances as views of one tensor: the
+    backtrack words (int32 plane 0, or planes 0-1 for the 64-bit words of
+    convex gaps, 8-byte aligned at its start), H, E1 (affine/convex), E2
+    (convex)."""
+    gm = cfg.gap_mode
+    planes = torch.empty(tile_nplanes(gm), B, cfg.R, cfg.WB, dtype=I32,
+                         device=dev)
+    k = _bt_planes(gm)
+    BT, H = planes[0], planes[k]
+    E1 = planes[k + 1] if gm != LINEAR_GAP else H
+    E2 = planes[k + 2] if gm == CONVEX_GAP else H
+    return BT, H, E1, E2
 
 
 def _pack(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n, remain, qcodes,
@@ -102,16 +137,14 @@ def _check(cfg, name, packed):
 
 
 def _outputs(cfg, B, dev):
-    """Zero-filled outputs: the tiles (one allocation), band bounds,
-    misc and steps. Kernel and plain version start from the same fill, so
-    their tiles compare whole."""
-    R, WB = cfg.R, cfg.WB
-    planes = torch.zeros(NPLANES, B, R, WB, dtype=I32, device=dev)
+    """Zero-filled band bounds, misc and steps."""
+    R = cfg.R
     begsn = torch.zeros(B, R, dtype=I32, device=dev)
     endsn = torch.zeros(B, R, dtype=I32, device=dev)
     misc = torch.zeros(B, L.M_NMISC, dtype=I32, device=dev)
-    steps = torch.zeros(B, max(cfg.bt_lmax, 8), dtype=I32, device=dev)
-    return planes, begsn, endsn, misc, steps
+    steps = torch.zeros(B, max(cfg.bt_lmax, 8), dtype=torch.int64,
+                        device=dev)
+    return begsn, endsn, misc, steps
 
 
 def tile_poa_dp_batch(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n,
@@ -134,25 +167,36 @@ def tile_poa_dp_batch(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n,
     packed = _pack(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n, remain,
                    qcodes, mpl0, mpr0)
     _check(cfg, "tile_poa_dp_batch", packed)
-    B = bases.shape[0]
-    planes, begsn, endsn, misc, steps = _outputs(cfg, B, dev)
-    mpl = torch.empty_like(begsn)
-    mpr = torch.empty_like(begsn)
-    lib = library("tile_dp")
     with torch.cuda.device(dev):
-        rc = lib.tile_dp_launch(
-            *(t.data_ptr() for t in packed), *(p.data_ptr() for p in planes),
-            begsn.data_ptr(), endsn.data_ptr(), mpl.data_ptr(),
-            mpr.data_ptr(), misc.data_ptr(), steps.data_ptr(), B, cfg.R,
-            cfg.WB, cfg.Wq, cfg.P, cfg.O, cfg.m, cfg.pn, cfg.gap_mode,
-            cfg.align_mode, int(cfg.use_zdrop), cfg.bt_lmax,
-            torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(rc, "tile_dp")
+        out = _launch(cfg, packed, torch.cuda.current_stream(dev).cuda_stream)
     tile_poa_dp_batch.launches += 1
-    return TileOut(*planes, begsn, endsn, mpl, mpr, misc, steps)
+    return out
 
 
 tile_poa_dp_batch.launches = 0
+
+
+def _launch(cfg, packed, stream):
+    """Allocate the outputs and scratch of one launch on the packed
+    inputs' device and enqueue the kernel on `stream`."""
+    bases = packed[1]
+    B, R, dev = bases.shape[0], cfg.R, bases.device
+    begsn, endsn, misc, steps = _outputs(cfg, B, dev)
+    mpl = torch.empty_like(begsn)
+    mpr = torch.empty_like(begsn)
+    BT, H, E1, E2 = _scratch(cfg, B, dev)
+    rows = (None if L.rows_in_smem(R) else
+            torch.empty(B, L.ROW_WORDS * R, dtype=I32, device=dev))
+    rc = library("tile_dp").tile_dp_launch(
+        *(t.data_ptr() for t in packed), begsn.data_ptr(), endsn.data_ptr(),
+        mpl.data_ptr(), mpr.data_ptr(), misc.data_ptr(), steps.data_ptr(),
+        rows.data_ptr() if rows is not None else None, H.data_ptr(),
+        E1.data_ptr(), E2.data_ptr(), BT.data_ptr(), B, R, cfg.WB, cfg.Wq,
+        cfg.P, cfg.O, cfg.m, cfg.pn, cfg.gap_mode, cfg.align_mode,
+        int(cfg.use_zdrop), cfg.bt_lmax, stream)
+    check_launch(rc, "tile_dp")
+    return TileOut(H, E1, E2, None, None, begsn, endsn, mpl, mpr, misc,
+                   steps)
 
 
 def _ks(g, neg):
@@ -182,7 +226,8 @@ def tile_poa_dp_batch_ref(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n,
     SB = WB // pn
     gm = cfg.gap_mode
     extend = cfg.align_mode == EXTEND_MODE
-    planes, begsn, endsn, misc, steps = _outputs(cfg, B, dev)
+    begsn, endsn, misc, steps = _outputs(cfg, B, dev)
+    planes = torch.zeros(NPLANES, B, R, WB, dtype=I32, device=dev)
     Hb, E1b, E2b, F1b, F2b = planes
     mpl, mpr = mpl0.clone(), mpr0.clone()
 
@@ -292,10 +337,11 @@ def tile_poa_dp_batch_ref(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n,
         qv = qp[bidx, base].gather(1, cols.long().clamp(0, Wq - 1))
         qrow = torch.where((cols >= 1) & (cols <= qlen[:, None]), qv, zero)
 
-        # ---- M/E merges over predecessors (ref :1332-1350) ----
+        # ---- M/E merges over predecessors (ref :1332-1350); slots past
+        # every instance's count add nothing, slot 0 sets the fill ----
         h = torch.zeros(B, WB, dtype=I32, device=dev)
         e1v = e2v = h
-        for p in range(P):
+        for p in range(max(1, int(pvs.sum(1).max()))):
             pv = pvs[:, p][:, None]
             pred = preds[:, p]
             pb, pe = pbs[:, p], pes[:, p]
@@ -485,7 +531,8 @@ def tile_poa_dp_batch_ref(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n,
         e_pred = full(0)
         e_op = full(L.BT_ALL)
         e_found = torch.zeros_like(curM)
-        for p in range(P):
+        # slots past every instance's count meet no condition
+        for p in range(int(pre_n[bidx, ic.long()].clamp(0, P).max())):
             pre = pre_idx[bidx, (ic * P + p).long()].clamp(0, R - 1)
             pv = p < pre_n[bidx, ic.long()]
             hpre, hpre1 = lane_at(Hb, pre, j), lane_at(Hb, pre, j - 1)
@@ -550,7 +597,7 @@ def tile_poa_dp_batch_ref(cfg, scal, bases, pre_idx, pre_n, out_idx, out_n,
         op_code = torch.where(use_m, 0, torch.where(use_e, 2, 1)).to(I32)
         emit = act & any_hit
         sel = emit.nonzero()[:, 0]
-        word = op_code | (i << 2) | (j << 14)
+        word = pack_steps(op_code, i, j)
         steps[sel, nst[sel].long()] = word[sel]
         nst = nst + emit.to(I32)
         new_i = torch.where(use_m, m_pred, torch.where(use_e, e_pred, i))

@@ -36,8 +36,9 @@ live rows only.
 An instance whose device result is unusable (band overflow, walk dead
 end, graph capacity) is rebuilt on the bit-exact oracle: that is the
 algorithm's capacity rule and is counted in ``fallbacks``. A device or
-kernel fault is never caught. Batches neither path serves raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+kernel fault is never caught. A round whose one instance needs more
+plane memory than the budget (``_plane_budget``) raises ``RuntimeError``
+naming the bytes.
 """
 from __future__ import annotations
 
@@ -113,15 +114,14 @@ def _make_aligners(instances, params, init=None):
     return abs_, rid0
 
 
-def _step_stream(pend, steps, b, nst, bi, bj):
-    """Instance b's int32 step words. A stream longer than the fetch cap
-    (long deletion runs) is refetched from the device tensor kept in the
-    pending handle; the band kernel's rows travel as the int16 delta
-    stream and are rebuilt here."""
+def _step_stream(pend, steps, b, nst):
+    """Instance b's step words. A stream longer than the fetch cap (long
+    deletion runs) is refetched from the device tensor kept in the
+    pending handle."""
     srow = steps[b]
     if nst > srow.shape[0]:
         srow = pend["steps_dev"][b, :nst].cpu().numpy()
-    return unpack_steps16(srow, nst, bi, bj) if pend["band"] else srow
+    return srow
 
 
 def _loop_geometry(params, instances, wmax=None):
@@ -184,7 +184,7 @@ def _plane_budget(dev) -> int:
 
 class RoundPlan(NamedTuple):
     """How one round's score-width group runs on the device."""
-    band: bool        # topo-mode band kernel (steps16 out; else int32 steps)
+    band: bool        # topo-mode band kernel
     name: str         # "band_dp_topo", "fw_dp" or "tile_dp"
     kernel: object    # band_poa_dp_batch, fw_poa_dp_batch or
     #                   tile_poa_dp_batch
@@ -202,31 +202,32 @@ class RoundPlan(NamedTuple):
 def round_plan(params, dgs, dev, seeded=False) -> RoundPlan:
     """The dispatch rule of one round's group of exports (re-padded to
     one geometry): the topo-mode band kernel when the band fits a block
-    (at most 1024 lanes, 16 predecessor slots and the shared memory of
-    ``band_smem_bytes``); else the full-width kernel when one instance's
-    planes fit the memory budget (``_plane_budget``); else the
-    banded-tile kernel, whose [R, WB] tiles are chunked to the same
-    budget (an instance whose band outgrows its tile goes to the oracle
-    through M_OVFL).
+    (at most 1024 lanes, 16 predecessor slots, segments that fit its
+    10-bit band fields, and the shared memory of ``band_smem_bytes``);
+    else the full-width kernel when one instance's planes fit the memory
+    budget (``_plane_budget``); else the banded-tile kernel, whose
+    [R, WB] tiles are chunked to the same budget (an instance whose band
+    outgrows its tile goes to the oracle through M_OVFL).
 
     seeded: the exports are subgraph windows; the band kernel runs
     non-fresh (band state and row mask from the export), and there is no
-    third branch: the banded-tile kernel has no row mask."""
+    third branch: the banded-tile kernel has no row mask.
+
+    A round whose one instance's planes or tiles exceed the budget
+    raises ``RuntimeError`` naming the bytes."""
     from ..align.export import make_pallas_inputs, pick_WB
     from ..ops import band_dp, fw_dp, tile_dp
     R = dgs[0].R
     P_ = max(d.P for d in dgs)
+    pn = dgs[0].pn
     WB = max(pick_WB(params, dg.qlen, dg.pn) for dg in dgs)
     Wq = max((dg.qlen // 128 + 1) * 128 for dg in dgs)
     LMAX = (R + Wq + 63) // 64 * 64
-    # the packed step word is op|row<<2|col<<14: rows need <= 12 bits
-    # and cols <= 17; the JAX package's XLA tier takes larger rounds
-    if R > 4096 or Wq >= (1 << 17):
-        raise NotImplementedError(
-            f"a round with R={R} rows or Wq={Wq} columns needs the XLA "
-            "tier of the JAX package, not ported yet: ROADMAP A6")
     WqB = (Wq + WB - 1) // WB * WB
-    band = (params.wb >= 0 and Wq < 32000 and P_ <= 16 and WB <= 1024
+    # 16-bit packings of the band kernel: query columns below 32000,
+    # predecessor rows below 2^16; band segments below 2^10
+    band = (params.wb >= 0 and Wq < 32000 and R < (1 << 16)
+            and WqB // pn < 1024 and P_ <= 16 and WB <= 1024
             and band_dp.band_smem_bytes(False, R, P_, WB)
             <= band_dp.MAX_SMEM_BYTES)
     made = [make_pallas_inputs(dg, params, WB, force_Wq=WqB if band else Wq,
@@ -246,23 +247,17 @@ def round_plan(params, dgs, dev, seeded=False) -> RoundPlan:
                              banded=params.wb >= 0)
         per = fw_dp.fw_plane_bytes(cfg)
         kernel, name = fw_dp.fw_poa_dp_batch, "fw_dp"
-        if per > budget and seeded:
-            raise NotImplementedError(
-                f"a window whose band does not fit a block (WB={WB}, "
-                f"R={R}, P={P_}) and whose full-width planes ({per} bytes) "
-                "exceed the memory budget needs the XLA tier of the JAX "
-                "package, not ported yet: ROADMAP A6")
-        if per > budget:
+        if per > budget and not seeded:
             cfg = c0
             per = tile_dp.tile_plane_bytes(cfg)
             kernel, name = tile_dp.tile_poa_dp_batch, "tile_dp"
     chunk = budget // per
     if chunk < 1:
-        raise NotImplementedError(
-            f"a round whose band does not fit a block (WB={WB}, R={R}, "
-            f"P={P_}) and whose tiles ({per} bytes an instance) exceed "
-            "the memory budget needs the XLA tier of the JAX package, not "
-            "ported yet: ROADMAP A6")
+        raise RuntimeError(
+            f"a {'window' if seeded else 'round'} whose band does not fit "
+            f"a block (WB={WB}, R={R}, P={P_}) needs {per} bytes of "
+            f"{name} planes an instance, over the device memory budget of "
+            f"{budget} bytes")
     # adaptive fetch cap: the walk is bounded by rows + qlen, but the
     # typical path is ~qlen + a few deletions; the rare longer stream is
     # refetched from the device tensor
@@ -450,9 +445,12 @@ def batch_msa_from_files(params, fns, out, device="cuda"):
 
 def _dispatch(bp, group, dgs, r, seeded=False):
     """Launch one round's DP + walk for a score-width group (in memory
-    chunks) and fetch misc and the capped step streams (and, for seeded
+    chunks) and fetch misc and the capped step words (and, for seeded
     windows, the band state of each window's rows). Yields one pending
-    handle per launch."""
+    handle per launch. The int64 words are fetched, not the band
+    kernel's int16 delta stream: at 64 instances the words' copy took
+    0.19 ms and the stream's copy and host decode 2.91 ms (chip_smoke.py
+    phase 3f, NVIDIA H100 80GB HBM3, 700.00 W)."""
     dev = bp.device
     plan = round_plan(bp.params, dgs, dev, seeded)
     step_cap = plan.step_cap
@@ -462,11 +460,10 @@ def _dispatch(bp, group, dgs, r, seeded=False):
         part = slice(c0, c0 + plan.chunk)
         t0 = time.perf_counter()
         out = plan.kernel(plan.cfg, *plan.stack(part, dev))
-        steps_dev = out.steps16 if plan.band else out.steps
         misc = out.misc.cpu().numpy()
-        steps = steps_dev[:, :step_cap].cpu().numpy()
-        pend = dict(group=group[part], r=r, band=plan.band, misc=misc,
-                    steps=steps, steps_dev=steps_dev)
+        steps = out.steps[:, :step_cap].cpu().numpy()
+        pend = dict(group=group[part], r=r, misc=misc, steps=steps,
+                    steps_dev=out.steps)
         if seeded:
             nmax = max(d.n_rows for d in dgs[part])
             pend["mpl"] = out.mpl[:, :nmax].cpu().numpy()
@@ -550,8 +547,7 @@ class _Rounds:
 
             def step_stream():
                 # deferred past the early-outs that never read the steps
-                return _step_stream(pend, steps, b, nst, int(mi[L.M_BI]),
-                                    int(mi[L.M_BJ]))
+                return _step_stream(pend, steps, b, nst)
             if params.amb_strand and (
                     bad or bp._amb_flagged(ab, q, int(mi[L.M_BEST]))):
                 # rc-retry candidate: the sequential fwd+rc body (the
@@ -623,11 +619,6 @@ class _Windows:
             g.topological_sort(params)
         bi = int(g.node_id_to_index[beg_id])
         ei = int(g.node_id_to_index[end_id])
-        if ei - bi + 1 > 4096 or len(window) >= (1 << 17):
-            raise NotImplementedError(
-                f"a window of {ei - bi + 1} rows and {len(window)} bases "
-                "is past the packed step word and needs the XLA tier of "
-                "the JAX package, not ported yet: ROADMAP A6")
         return export_dense(g, params, window, beg_index=bi, end_index=ei)
 
     def _oracle(self, k, req):
@@ -719,8 +710,7 @@ class _Windows:
             res = AlignResult()
             res.best_score = int(mi[L.M_BEST])
             nst = int(mi[L.M_NSTEPS])
-            stp = _step_stream(pend, steps, b, nst, int(mi[L.M_BI]),
-                               int(mi[L.M_BJ]))
+            stp = _step_stream(pend, steps, b, nst)
             results[k] = replay_steps(
                 g, params, np.asarray(reqs[k][2]), stp, nst, int(mi[L.M_BI]),
                 int(mi[L.M_BJ]), int(mi[L.M_ENDI]), int(mi[L.M_ENDJ]), res,
@@ -853,22 +843,22 @@ class _DeviceLoop:
                     nst = int(mi[L.M_NSTEPS])
                     if nst > s16.shape[2]:   # over the fetch cap: refetch
                         w = s16_d[r, b, :(nst + 1) // 2].cpu().numpy()
-                        steps32 = unpack_steps16(
+                        words = unpack_steps16(
                             np.ascontiguousarray(w).view(np.int16)[:nst],
                             nst, int(mi[L.M_BI]), int(mi[L.M_BJ]))
                     else:
-                        steps32 = steps_all[r, b]
+                        words = steps_all[r, b]
                     if not g.is_topological_sorted:
                         g.topological_sort(params)
                     if isinstance(g, NativeGraph):
-                        g.fuse_steps(params, 0, steps32, nst,
+                        g.fuse_steps(params, 0, words, nst,
                                      int(mi[L.M_BJ]), int(mi[L.M_ENDJ]),
                                      q, r + 1, True,
                                      weight=bp._weight(k, r + 1, q))
                     else:
                         from ..align.engine_np import AlignResult
                         res = AlignResult()
-                        replay_steps(g, params, np.asarray(q), steps32, nst,
+                        replay_steps(g, params, np.asarray(q), words, nst,
                                      int(mi[L.M_BI]), int(mi[L.M_BJ]),
                                      int(mi[L.M_ENDI]), int(mi[L.M_ENDJ]),
                                      res)

@@ -19,7 +19,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
   3c. the banded-tile DP (B5) vs plain on the serial engine's inputs:
      heter.fa round 14 (B=1, global convex), extend mode with z-drop 100
      (B=8), and a tile forced too narrow (M_OVFL); misc, steps, band
-     state and every tile bit-equal; times of each
+     bounds and band state bit-equal (the kernel's tiles are scratch);
+     times of each
   3d. B2's wmode-1 instance (qv weights) vs plain on the last round of
      64 x heter.fa with qv weights (rng 77), bit-equal; times
   3e. B3 non-fresh and B4 under the row mask vs plain on a real window
@@ -60,12 +61,21 @@ Phases (each prints its own lines; any failed check exits non-zero):
      (heter.fa reads, instance k trimmed by (k % 5) * 120): each equals
      the port's serial oracle of its trim class, no fallback; e2e median,
      windows/s, DP cells/s
+  12. long reads -- 3 reads of 4.7-4.9 kb (heter.fa reads k..k+6
+     joined; graphs past 4096 nodes, past the former step word's rows):
+     the CLI on the card with default flags, -m 1 and -S gives the port
+     oracle's bytes (--engine numpy) with the serial engine's launch
+     counts; -l -m 2 over 4 such files runs one B3 launch per round past
+     4096 rows, no fallback, the oracle's bytes; e2e of each
   3f. (run last, after the end-to-end phases) B1, B3 and B4 timed at the
      table's shape (B=8), at the B their path launches (B1 32, B3/B4 64,
-     B4 1 per -S window) and sweep only (bt_lmax = 0); with --baseline
-     DIR, beside the kernels of the earlier checkout in DIR in turns
-     new, old, old, new; B4 on each window of a CLI -S run (B=1, its
-     serial path) bit-equal to the plain version, mean times a window
+     B4 1 per -S window), B5 at B=1 on heter.fa round 14, and sweep only
+     (bt_lmax = 0); with --baseline DIR, beside the kernels of the
+     earlier checkout in DIR in turns new, old, old, new; B4 on each
+     window of a CLI -S run (B=1, its serial path) bit-equal to the plain
+     version, mean times a window; the round path's step fetch at
+     heter64-extend's last round, as the int16 delta stream (and its host
+     decode) and as the int64 words
 The line before the last is the kernels' JSON record (the window
 kernels as band_dp_topo_window: phase 3e's round, and fw_dp_window: the
 serial -S windows of 3f, 3e's round under round_B64_* keys; phase 3f's
@@ -595,8 +605,7 @@ def tile_kernel_phase(dev, heter):
             if ns:
                 dm = max(dm, int((out.steps[b, :ns]
                                   - exp.steps[b, :ns]).abs().max()))
-        for f in ("beg_sn", "end_sn", "mpl", "mpr", "Hb", "E1b", "E2b",
-                  "F1b", "F2b"):
+        for f in ("beg_sn", "end_sn", "mpl", "mpr"):
             dm = max(dm, int((getattr(out, f)
                               - getattr(exp, f)).abs().max()))
         ovfl = int(exp.misc[:, L.M_OVFL].sum())
@@ -607,7 +616,9 @@ def tile_kernel_phase(dev, heter):
               f"{what}: walk failed")
         ms = cuda_ms(lambda: (lambda: td.tile_poa_dp_batch(cfg, *args)), 20)
         cells = int(exp.misc[:, L.M_CELLS].sum())
-        bms, bby = bound(nbytes(*args, *out),
+        # the outputs callers read: the tiles are the kernel's scratch
+        bms, bby = bound(nbytes(*args, out.beg_sn, out.end_sn, out.mpl,
+                                out.mpr, out.misc, out.steps),
                          cells * OPS_PER_CELL[params.gap_mode])
         say(f"kernels: tile_dp == plain ({what}; R={cfg.R}, WB={cfg.WB}, "
             f"{int(exp.misc[:, L.M_NSTEPS].sum())} steps, {cells} cells, "
@@ -1071,9 +1082,11 @@ def baseline_kernels(root):
     spec.loader.exec_module(mod)
     bd = importlib.import_module(name + ".ops.band_dp")
     fw = importlib.import_module(name + ".ops.fw_dp")
+    td = importlib.import_module(name + ".ops.tile_dp")
     return {"band_dp": bd.band_poa_dp_packed,
             "band_dp_topo": bd.band_poa_dp_batch,
-            "fw_dp": fw.fw_poa_dp_batch, "fw_dp_window": fw.fw_poa_dp_batch}
+            "fw_dp": fw.fw_poa_dp_batch, "fw_dp_window": fw.fw_poa_dp_batch,
+            "tile_dp": td.tile_poa_dp_batch}
 
 
 def loop_round_args(dev, insts):
@@ -1168,13 +1181,15 @@ def dp_timing_phase(dev, heter, base, win):
     """B1, B3 and B4 at the table's shape (B=8), at the B their path
     launches (B1: 32, the device loop's sub-batch; B3/B4: 64 on the round
     path; B4: 1 per window on the serial -S path, `win`, the mean over one
-    run's windows) and sweep only (bt_lmax = 0: the kernels return before
+    run's windows), B5 at B=1 (the serial engine's last read of heter.fa)
+    and sweep only (bt_lmax = 0: the kernels return before
     the walk); with `base` (baseline_kernels), each beside an earlier
     checkout's kernel in turns new, old, old, new. Returns {record name:
     {ms_B, sweep_ms_B, base_ms_B, ...}}."""
     import torch
     from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
     from abpoa_tpu_torch.ops import band_dp as bd, fw_dp as fw
+    from abpoa_tpu_torch.ops import tile_dp as td
     from abpoa_tpu_torch.parallel.batch import round_plan
 
     def mk(**kw):
@@ -1197,6 +1212,9 @@ def dp_timing_phase(dev, heter, base, win):
             cases.append((name, B, plan.kernel,
                           [(plan.cfg, plan.stack(slice(None), dev))]))
     cases.append(("fw_dp_window", 1, fw.fw_poa_dp_batch, win))
+    cfg, arrs, _ = tile_inputs(mk(), [heter], len(heter) - 1)
+    cases.append(("tile_dp", 1, td.tile_poa_dp_batch,
+                  [(cfg, [torch.from_numpy(a).to(dev) for a in arrs])]))
     rec = {}
 
     def timed(fn, calls, lmax0, n):
@@ -1233,30 +1251,68 @@ def dp_timing_phase(dev, heter, base, win):
     return rec
 
 
+class counted_engine:
+    """Counts the serial engine's calls while it is entered: whole-graph
+    and window alignments on the device, and the host oracle's window
+    calls (``calls`` by name)."""
+
+    NAMES = ("align_sequence_to_subgraph_device",
+             "align_sequence_to_graph_device")
+
+    def __enter__(self):
+        from abpoa_tpu_torch import align
+        from abpoa_tpu_torch.align import engine_torch
+        self.calls = {}
+        self.saved = {n: getattr(engine_torch, n) for n in self.NAMES}
+        self.oracle0 = align._np_subgraph
+
+        def counted(name, fn):
+            def run(*a, **k):
+                self.calls[name] = self.calls.get(name, 0) + 1
+                return fn(*a, **k)
+            return run
+        for n, fn in self.saved.items():
+            setattr(engine_torch, n, counted(n, fn))
+        align._np_subgraph = counted("oracle", self.oracle0)
+        return self.calls
+
+    def __exit__(self, *exc):
+        from abpoa_tpu_torch import align
+        from abpoa_tpu_torch.align import engine_torch
+        for n, fn in self.saved.items():
+            setattr(engine_torch, n, fn)
+        align._np_subgraph = self.oracle0
+
+
+def check_serial_launches(what, calls, want_whole=None):
+    """The serial engine's launches of one CLI run: one B4 per window and
+    per B5 result re-run there, one B5 per whole-graph call (banded), the
+    oracle only for the empty windows. Returns (launches, windows,
+    whole-graph calls, re-runs)."""
+    from abpoa_tpu_torch.align import engine_torch
+    got = launches_now()
+    win = calls.get("align_sequence_to_subgraph_device", 0)
+    whole = calls.get("align_sequence_to_graph_device", 0)
+    rerun = sum(engine_torch.reroutes.values())
+    b5 = whole if want_whole is None else want_whole
+    check(got["fw_dp"] == win + rerun + (whole - b5) and got["tile_dp"] == b5
+          and calls.get("oracle", 0) == engine_torch.empty_windows,
+          f"{what}: launches {got}, windows {win}, whole-graph calls "
+          f"{whole}, B5 re-run on B4 {rerun}, oracle calls "
+          f"{calls.get('oracle', 0)}, empty windows "
+          f"{engine_torch.empty_windows}")
+    return got, win, whole, rerun
+
+
 def cli_seeded_phase():
     """The three -S goldens through the CLI's serial engine on the card:
     one B4 launch per non-empty window (plus one per B5 result re-run
     there), one B5 launch per whole-graph call (a read without anchors),
     and the oracle only for the empty windows. Returns the B4 launches
     of the -S run."""
-    from abpoa_tpu_torch import align
     from abpoa_tpu_torch.align import engine_torch
-    calls = {}
-    saved = {n: getattr(engine_torch, n) for n in
-             ("align_sequence_to_subgraph_device",
-              "align_sequence_to_graph_device")}
-    oracle0 = align._np_subgraph
-
-    def counted(name, fn):
-        def run(*a, **k):
-            calls[name] = calls.get(name, 0) + 1
-            return fn(*a, **k)
-        return run
-    for n, fn in saved.items():
-        setattr(engine_torch, n, counted(n, fn))
-    align._np_subgraph = counted("oracle", oracle0)
     first = None
-    try:
+    with counted_engine() as calls:
         for golden, args in (("heter_S_cons.fa", ["-S"]),
                              ("heter_Sp_cons.fa", ["-S", "-p"]),
                              ("heter_S_n100_cons.fa", ["-S", "-n", "100"])):
@@ -1267,19 +1323,11 @@ def cli_seeded_phase():
             t0 = time.perf_counter()
             out, _err = run_cli(args + [str(HETER)])
             secs = time.perf_counter() - t0
-            got = launches_now()
-            win = calls.get("align_sequence_to_subgraph_device", 0)
-            whole = calls.get("align_sequence_to_graph_device", 0)
-            rerun = sum(engine_torch.reroutes.values())
             check(out == (GOLD_SAN / golden).read_text(),
                   f"CLI {' '.join(args)}: output != {golden}")
-            check(got["fw_dp"] == win + rerun and got["tile_dp"] == whole
-                  and win > 0
-                  and calls.get("oracle", 0) == engine_torch.empty_windows,
-                  f"CLI {' '.join(args)}: launches {got}, windows {win}, "
-                  f"whole-graph calls {whole}, B5 re-run on B4 {rerun}, "
-                  f"oracle calls {calls.get('oracle', 0)}, empty windows "
-                  f"{engine_torch.empty_windows}")
+            got, win, whole, rerun = check_serial_launches(
+                f"CLI {' '.join(args)}", calls)
+            check(win > 0, f"CLI {' '.join(args)}: no window on the card")
             if first is None:
                 first = got["fw_dp"]
             say(f"CLI {' '.join(args)} heter.fa: {golden} bytes, B4 "
@@ -1287,11 +1335,121 @@ def cli_seeded_phase():
                 f"re-runs), B5 {got['tile_dp']} for {whole} whole-graph "
                 f"calls, oracle only for the {engine_torch.empty_windows} "
                 f"empty windows, {secs:.4f} s")
-    finally:
-        for n, fn in saved.items():
-            setattr(engine_torch, n, fn)
-        align._np_subgraph = oracle0
     return first
+
+
+def long_reads(n_reads, first=0, join=7):
+    """FASTA text of n_reads long reads: read k joins heter.fa reads
+    first+k .. first+k+join-1 (cyclically)."""
+    from abpoa_tpu_torch.seqio import read_seqs
+    heter = [r.seq for r in read_seqs(str(HETER))]
+    return "".join(f">long{k}\n"
+                   + "".join(heter[(first + k + i) % len(heter)]
+                             for i in range(join)) + "\n"
+                   for k in range(n_reads))
+
+
+def long_read_phase():
+    """The CLI past 4096 graph nodes on the card: default flags, -m 1 and
+    -S on 3 long reads give the port oracle's bytes with the serial
+    engine's launch counts; -l -m 2 over 4 such files runs the round
+    path's band kernel past 4096 rows, one launch per round, no
+    fallback. Returns {case: e2e seconds}."""
+    import torch
+    from abpoa_tpu_torch.align import engine_torch
+    d = ROOT / "build" / "abpoa_tpu_torch"
+    d.mkdir(parents=True, exist_ok=True)
+    fa = d / "long3.fa"
+    fa.write_text(long_reads(3))
+    rec = {}
+    with counted_engine() as calls:
+        for args in ([], ["-m", "1"], ["-S"]):
+            what = f"long reads CLI {' '.join(args) or 'default'}"
+            t0 = time.perf_counter()
+            exp, _err = run_cli(["--engine", "numpy", *args, str(fa)])
+            oracle_s = time.perf_counter() - t0
+            calls.clear()
+            reset_launches()
+            engine_torch.reroutes.update(M_OVFL=0, M_FAIL=0)
+            engine_torch.empty_windows = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _err = run_cli([*args, str(fa)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(out == exp, f"{what}: output != the port's oracle")
+            got, win, whole, rerun = check_serial_launches(
+                what, calls, 0 if args == ["-m", "1"] else None)
+            check(whole + win > 0, f"{what}: nothing ran on the card")
+            rec[" ".join(args) or "default"] = secs
+            say(f"{what}: == oracle bytes, B5 {got['tile_dp']} for {whole} "
+                f"whole-graph calls, B4 {got['fw_dp']} ({win} windows, "
+                f"{rerun} B5 re-runs), empty windows "
+                f"{engine_torch.empty_windows}; card {secs:.4f} s, oracle "
+                f"(CPU) {oracle_s:.4f} s")
+    fas = []
+    for k in range(4):
+        fas.append(d / f"long3_{k}.fa")
+        fas[-1].write_text(long_reads(3, first=k))
+    lst = d / "long_list.txt"
+    lst.write_text("".join(f"{f}\n" for f in fas))
+    exp = "".join(run_cli(["--engine", "numpy", "-m", "2", str(f)])[0]
+                  for f in fas)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _err = run_cli(["-m", "2", "-l", str(lst)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launches_now()
+    check(out == exp, "long reads -l -m 2: output != the port's oracle")
+    check(got["band_dp_topo"] == 2 and got["fw_dp"] == got["tile_dp"] == 0,
+          f"long reads -l -m 2: launches {got}, expected 2 of B3")
+    rec["-l -m 2"] = secs
+    say(f"long reads -l -m 2 (4 files): == oracle bytes, B3 launches "
+        f"{got['band_dp_topo']} (one per round), {secs:.4f} s")
+    return rec
+
+
+def fetch_phase(dev, heter):
+    """The round path's step fetch at heter64-extend's last round (64
+    instances, B3): the int16 delta stream plus its host decode against
+    the int64 step words, in turns (s16, wide, wide, s16). Returns
+    {s16_ms, wide_ms} per launch."""
+    import numpy as np
+    import torch
+    from abpoa_tpu_torch.params import Params, EXTEND_MODE
+    from abpoa_tpu_torch.parallel.batch import round_plan
+    from abpoa_tpu_torch.ops import layout as L
+    from abpoa_tpu_torch.ops.steps import unpack_steps16
+    p = Params()
+    p.align_mode = EXTEND_MODE
+    p.post_set()
+    dgs = round_exports(p, [heter], len(heter) - 1) * N_INST
+    plan = round_plan(p, dgs, dev)
+    check(plan.name == "band_dp_topo", f"fetch: dispatch {plan.name}")
+    out = plan.kernel(plan.cfg, *plan.stack(slice(None), dev))
+    misc = out.misc.cpu().numpy()
+    cap = plan.step_cap
+
+    def s16():
+        st = out.steps16[:, :cap].cpu().numpy()
+        return [unpack_steps16(st[b], int(misc[b, L.M_NSTEPS]),
+                               int(misc[b, L.M_BI]), int(misc[b, L.M_BJ]))
+                for b in range(len(dgs))]
+
+    def wide():
+        st = out.steps[:, :cap].cpu().numpy()
+        return [st[b, :int(misc[b, L.M_NSTEPS])] for b in range(len(dgs))]
+    a, b_ = s16(), wide()
+    check(all(np.array_equal(x, y) for x, y in zip(a, b_)),
+          "fetch: the two streams decode differently")
+    t = [host_ms(lambda f=f: f, 20) for f in (s16, wide, wide, s16)]
+    rec = {"s16_ms": (t[0] + t[3]) / 2, "wide_ms": (t[1] + t[2]) / 2}
+    say(f"fetch at heter64-extend's last round (B=64, cap {cap} steps): "
+        f"steps16 + host decode {rec['s16_ms']:.4f} ms, int64 words "
+        f"{rec['wide_ms']:.4f} ms; turns {[round(x, 4) for x in t]}")
+    return rec
 
 
 def seeded_phase(dev, heter):
@@ -1418,6 +1576,8 @@ def main(argv):
         timing = dp_timing_phase(dev, heter, base, win)
         window_rec["fw_dp_window"] = serial_window_phase(
             win, window_rec.pop("fw_dp"))
+        timing["band_dp_topo"].update(
+            {f"fetch_{k}": v for k, v in fetch_phase(dev, heter).items()})
         return timing
     if dp_only:
         timing = dp_phase()
@@ -1497,6 +1657,9 @@ def main(argv):
     # ---- 11. seeded window rounds ----
     launches["band_dp_topo_window"] = seeded_phase(dev, heter)["band_dp_topo"]
 
+    # ---- 12. long reads: past 4096 graph nodes ----
+    long_rec = long_read_phase()
+
     # ---- 3f, after the end-to-end phases (its buffers and builds do not
     # weigh on their times) ----
     timing = dp_phase()
@@ -1532,6 +1695,7 @@ def main(argv):
                         **{k: v for k, v in r.items()
                            if k.startswith("round_B64_") or k == "plain_on"},
                         **timing.get(name, {})})
+    say(f"long reads e2e (s): {json.dumps(long_rec)}")
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a DP kernel's time goes, phase by phase, on one GPU.
 
-    python dp_profile.py            # B4 (fw_dp), B1 and B3 (band_dp)
+    python dp_profile.py            # B4 (fw_dp), B1 and B3 (band_dp),
+                                    # B5 (tile_dp)
 
 Builds ``abpoa_tpu_torch/csrc/fw_dp.cu`` and ``band_dp.cu`` with
 ``-DDP_PROFILE`` (into ``build/abpoa_tpu_torch/profile/``), which turns
@@ -10,7 +11,8 @@ on the kernels' DP_PROBE marks at the row body's phase boundaries
 the shape of PERF.md's table (B4: local mode, round 4 of 8 rotated
 heter.fa instances, and the largest of the serial engine's -S windows
 at B=1; B1: the device loop's last round at B=8; B3: extend mode with
-z-drop 100, round 4 of 8 rotated instances), and prints, for block 0's
+z-drop 100, round 4 of 8 rotated instances; B5: the serial engine's last
+read of heter.fa at B=1), and prints, for block 0's
 thread 0, the SM cycles a swept row spends in each phase and the cycles
 of one walk step. The probes cost a few percent of the time; the
 kernel's own times come from chip_smoke.py (phase 3f).
@@ -25,6 +27,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # the phases DP_PROBE(0)..DP_PROBE(6) close, then the walk (7)
 PHASES = ["scalars", "loads+merge", "scan", "across warps+finish",
           "backtrack bits", "row max", "final"]
+PHASES_B5 = ["scalars", "merge", "scan", "finish", "backtrack bits",
+             "row max", "final"]
 
 
 def build(name):
@@ -46,7 +50,7 @@ def build(name):
     return lib
 
 
-def profile(name, label, call):
+def profile(name, label, call, phases=PHASES):
     """Run `call` once on the probed library of `name` and print block
     0's cycles per row by phase and per walk step."""
     import torch
@@ -65,7 +69,7 @@ def profile(name, label, call):
     buf = (ctypes.c_longlong * 16)()
     lib.dp_profile_read(ctypes.addressof(buf))
     rows, steps = max(buf[8] - 1, 1), max(buf[9], 1)
-    per = {p: round(buf[k] / rows, 1) for k, p in enumerate(PHASES)}
+    per = {p: round(buf[k] / rows, 1) for k, p in enumerate(phases)}
     print(f"{label}: {rows} rows, SM cycles a row {per} (sum "
           f"{round(sum(per.values()), 1)}); walk {steps} steps, "
           f"{round(buf[7] / steps, 1)} cycles a step", flush=True)
@@ -105,6 +109,12 @@ def main():
     bc, bargs = cs.loop_round_args(dev, rot)
     profile("band_dp", "B1 B=8 the device loop's last round",
             lambda: bd.band_poa_dp_packed(bc, *bargs))
+    from abpoa_tpu_torch.ops import tile_dp as td
+    tc, tarrs, _ = cs.tile_inputs(Params().post_set(), [heter],
+                                  len(heter) - 1)
+    targs = [torch.from_numpy(a).to(dev) for a in tarrs]
+    profile("tile_dp", f"B5 B=1 heter.fa round 14 (R={tc.R}, WB={tc.WB})",
+            lambda: td.tile_poa_dp_batch(tc, *targs), PHASES_B5)
     return 0
 
 

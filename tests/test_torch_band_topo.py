@@ -5,9 +5,10 @@ interpret=True), on the export tuples of real rounds: seq.fa graphs of
 once. Cases: global (convex), extend with z-drop on a query whose tail
 diverges, affine, linear, and a non-fresh call with band-state hints and
 a partial rowmask. On a GPU, the CUDA topo kernel against the plain
-version. Exact equality: misc (M_LASTI is node-id mode only), the int32
-steps and the steps16 stream up to M_NSTEPS, beg/end_sn and mpl/mpr on
-rows < n_rows. The affine and linear cases are in
+version. Exact equality: misc (M_LASTI is node-id mode only), the steps
+as (op, row, col) triples (the JAX package's int32 words, the port's
+int64 words) and the steps16 stream up to M_NSTEPS, beg/end_sn and
+mpl/mpr on rows < n_rows. The affine and linear cases are in
 test_torch_band_topo_gaps.py (each JAX compile takes ~15 s on one core).
 """
 import pathlib
@@ -15,6 +16,8 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+
+from test_torch_tile_dp import _triples
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 
@@ -123,9 +126,10 @@ def _assert_same(a, b, n, what):
     ma, mb = _np(a.misc), _np(b.misc)
     assert (ma[:, :L.M_LASTI] == mb[:, :L.M_LASTI]).all(), (what, ma, mb)
     ns = int(ma[0, L.M_NSTEPS])
-    for f in ("steps", "steps16"):
-        assert (_np(getattr(a, f))[0, :ns]
-                == _np(getattr(b, f))[0, :ns]).all(), (what, f)
+    assert (_triples(a.steps[0, :ns]) == _triples(b.steps[0, :ns])).all(), \
+        (what, "steps")
+    assert (_np(a.steps16)[0, :ns] == _np(b.steps16)[0, :ns]).all(), \
+        (what, "steps16")
     for f in ("beg_sn", "end_sn", "mpl", "mpr"):
         assert (_np(getattr(a, f))[0, :n]
                 == _np(getattr(b, f))[0, :n]).all(), (what, f)

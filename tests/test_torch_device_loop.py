@@ -291,8 +291,10 @@ def test_slice_mixed_batch_on_gpu(cuda_device):
 @pytest.mark.parametrize("what", ["qv", "long"])
 def test_out_of_scope_raises(what):
     """qv weights run the device loop in wmode 1 and give the serial
-    oracle's consensus under the same weights; a round beyond the packed
-    step word (the XLA tier, A6) still raises."""
+    oracle's consensus under the same weights; a batch past the former
+    packed step word's 4096 rows (two 4.8 kb reads, extend mode: the
+    round path, B3 over ~4800 rows) runs and gives the JAX package's
+    serial consensus (it raised before the int64 step word)."""
     from abpoa_tpu_torch import BatchPOA
     params = Params().post_set()
     reads = _reads("seq.fa", 3)
@@ -304,9 +306,15 @@ def test_out_of_scope_raises(what):
             == _serial_oracle([reads], params, weights)
         assert bp.used_device_loop and bp.fallbacks == 0
         return
-    reads = [np.zeros(40000, np.uint8)] * 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        BatchPOA(convert.params(params), device="cpu").run([reads])
+    from abpoa_tpu.params import EXTEND_MODE
+    heter = _reads("heter.fa")
+    reads = [np.concatenate(heter[k:k + 7]) for k in range(2)]
+    params.align_mode = EXTEND_MODE
+    params.post_set()
+    bp = BatchPOA(convert.params(params), device="cpu")
+    assert bp.run_consensus([reads]) == _serial_oracle([reads], params)
+    assert not bp.used_device_loop and bp.fallbacks == 0
+    assert bp.launches == {"band_dp_topo": 1, "fw_dp": 0, "tile_dp": 0}
 
 
 TURNED_AWAY = ["local", "unbanded", "incremental", "scores32"]

@@ -13,7 +13,12 @@ before their redesign, on every round of heter.fa in local mode
 window round of the config-5 instances (``seeded-c5``, one instance per
 trim class; its round shapes are those of any number of instances), at
 the CPU's plane budget; and local mode with affine and linear gaps,
-whose full-width planes the redesign changed (linear: one more).
+whose full-width planes the redesign changed (linear: one more). Past
+4096 rows (synthetic exports, tests/test_torch_dp_edges.py synth_dense)
+the same rule holds with no raise: B3 while the band fits a block (past
+8192 rows too), B4 past that, B5 when B4's planes exceed the budget, and
+a clear error naming the bytes when one instance's tiles exceed it
+too.
 """
 import numpy as np
 import pytest
@@ -173,11 +178,58 @@ def test_round_plan_seeded_windows_pinned(monkeypatch):
     assert seeded_plans(monkeypatch) == SEEDED
 
 
+def _synth_plan(n, budget, monkeypatch, seeded=False, wb=None, **kw):
+    from test_torch_dp_edges import _params, synth_dense
+    from abpoa_tpu_torch.parallel import batch
+    monkeypatch.setattr(batch, "CPU_PLANE_BUDGET", budget)
+    dg = synth_dense(_params(wb=wb), n, seed=7, **kw)
+    return batch.round_plan(_params(wb=wb), [dg], torch.device("cpu"),
+                            seeded)
+
+
+# (rows, kwargs, budget) -> kernel; a band of 1024 lanes or fewer (the
+# default -b 10) fits a block up to about 11,600 rows at 4 predecessor
+# slots; -b 400 makes it wider than a block
+PAST_4096 = {
+    "band": ((5000, {}, 4 << 30), "band_dp_topo"),
+    "band_past_8192": ((9000, dict(fan=1, qcut=2000), 4 << 30),
+                       "band_dp_topo"),
+    "fw": ((12000, dict(qcut=3000), 4 << 30), "fw_dp"),
+    "fw_wide_band": ((5000, dict(wb=400), 4 << 30), "fw_dp"),
+    "tile": ((5000, dict(wb=400), 256 << 20), "tile_dp"),
+}
+
+
+@pytest.mark.parametrize("case", list(PAST_4096))
+def test_round_plan_past_4096_rows(case, monkeypatch):
+    (n, kw, budget), name = PAST_4096[case]
+    plan = _synth_plan(n, budget, monkeypatch, **kw)
+    assert plan.cfg.R > 4096
+    assert plan.name == name
+    assert plan.chunk >= 1
+
+
+def test_round_plan_past_the_budget_names_the_bytes(monkeypatch):
+    """A window whose band does not fit a block and whose planes exceed
+    the budget, and a round whose tiles exceed it too, raise
+    RuntimeError naming the bytes (no fallback)."""
+    with pytest.raises(RuntimeError, match="bytes"):
+        _synth_plan(5000, 256 << 20, monkeypatch, seeded=True, wb=400)
+    with pytest.raises(RuntimeError, match="bytes"):
+        _synth_plan(5000, 16 << 20, monkeypatch, wb=400)
+
+
 def test_plane_sizes_equal_the_wrappers_allocations():
-    """fw_plane_bytes and band_nplanes, which round_plan budgets with,
-    are the planes the wrappers allocate, in every gap mode."""
+    """fw_plane_bytes, band_nplanes and tile_plane_bytes, which
+    round_plan budgets with, are the planes the wrappers allocate, in
+    every gap mode."""
+    from abpoa_tpu_torch.align.export import PallasDPConfig
     from abpoa_tpu_torch.ops import band_dp as bd, fw_dp as fw
+    from abpoa_tpu_torch.ops import tile_dp as td
     for gm in (0, 1, 2):
+        tc = PallasDPConfig(gm, 0, 32, 64, 128, 256, 4, 4, 5, False)
+        BT, H, E1, E2 = td._scratch(tc, 3, torch.device("cpu"))
+        assert BT.untyped_storage().nbytes() == 3 * td.tile_plane_bytes(tc)
         fc = fw.FWConfig(gm, 0, 32, 64, 256, 4, 4, 5, False, 0)
         BT, H, E1, E2 = fw._planes(fc, 3, torch.device("cpu"))
         assert BT.untyped_storage().nbytes() == 3 * fw.fw_plane_bytes(fc)

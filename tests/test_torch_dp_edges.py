@@ -9,10 +9,15 @@ Edges: B4 (``fw_poa_dp_batch``) with more than 1024 columns (several
 column tiles a block), 16, 32 and 512 predecessor slots (a row of 270
 predecessors on the only path, past what a backtrack word's slot field
 holds), rows with no valid predecessor (the unreachable rows of a
-window), R near 4096, and extend mode stopped by z-drop; B3 (``band_poa_dp_batch``) with 1024 band lanes,
-16 predecessor slots, rows with no valid predecessor, R near 4096 and
-the z-drop stop. Every case needs a CUDA card; synth_dense's own checks
-run on the CPU.
+window), R near 4096, R past 4096 and past the shared-memory switch of
+its per-row arrays (9000 rows), and extend mode stopped by z-drop; B3
+(``band_poa_dp_batch``) with 1024 band lanes, 16 predecessor slots, rows
+with no valid predecessor, R near 4096, R past 4096 (8192, the last
+graph of the steps16 row decrement) and past 8192 (9000), and the
+z-drop stop; B5 (``tile_poa_dp_batch``) with 512 predecessor slots (the
+spill), a 2048-lane tile (two tiles a row), rows with no predecessor,
+R past its shared-memory switch and the z-drop stop. Every case needs a
+CUDA card; synth_dense's own checks run on the CPU.
 """
 import numpy as np
 import pytest
@@ -29,7 +34,7 @@ def cuda_device():
 
 
 def synth_dense(params, n, seed, R=None, span=6, fan=3, wide=(), dead=(),
-                diverge=False):
+                diverge=False, qcut=None):
     """A DenseGraph of n rows on R padded rows (row 0 the source, row
     n-1 the sink) and its query. Row t in [1, n-1) takes the live row
     before it and up to fan-1 more among the `span` rows before that;
@@ -39,7 +44,9 @@ def synth_dense(params, n, seed, R=None, span=6, fan=3, wide=(), dead=(),
     out-edges into them). The query is the bases of the chain through the
     live rows with 10 % substitutions, so the band follows the diagonal;
     with `diverge` the rows' bases are 0-2 and the query's second half is
-    all 3: nothing matches it."""
+    all 3: nothing matches it. qcut: keep the query's first qcut bases
+    (a short query against a long graph, where the plain versions' rows
+    stay narrow)."""
     from abpoa_tpu_torch.align.export import DenseGraph, score_dispatch
     rng = np.random.default_rng(seed)
     R = R or (n + 63) // 64 * 64
@@ -72,6 +79,9 @@ def synth_dense(params, n, seed, R=None, span=6, fan=3, wide=(), dead=(),
     q[sub] = rng.integers(0, 4, int(sub.sum()))
     if diverge:
         q[qlen // 2:] = 3
+    if qcut is not None:
+        q = q[:qcut]
+        qlen = len(q)
     P = max(2, 1 << (max(len(p) for p in preds) - 1).bit_length())
     O = max(2, 1 << (max(len(o) for o in outs) - 1).bit_length())
     pre_idx = np.zeros((R, P), np.int32)
@@ -127,6 +137,8 @@ FW_CASES = {
     "p512": ({"wb": -1}, dict(n=300, fan=1, wide=((290, 270),))),
     "dead_rows": ({}, dict(n=400, dead=(30, 31, 90, 250))),
     "r4096": ({}, dict(n=4000, R=4096, wide=((3000, 20),))),
+    # past 4096 rows and past the shared memory of its per-row arrays
+    "r9000": ({}, dict(n=9000, qcut=1500, wide=((7000, 20),))),
     "zdrop": ({"extend": True}, dict(n=600, fan=1, diverge=True)),
 }
 
@@ -184,6 +196,40 @@ BAND_CASES = {
     "p16": ({}, dict(n=400, wide=((50, 16), (200, 16)))),
     "dead_rows": ({}, dict(n=400, dead=(30, 31, 90, 250))),
     "r4096": ({}, dict(n=4000, R=4096)),
+    # past 4096 rows: the last graph whose steps16 rows fit, and past it
+    "r8192": ({}, dict(n=8100, R=8192, qcut=2000)),
+    "r9000": ({}, dict(n=9000, fan=1, qcut=2000)),
+    "zdrop": ({"extend": True}, dict(n=600, fan=1, diverge=True)),
+}
+
+
+def _tile_inputs(case, dev, B=2):
+    from abpoa_tpu_torch.align.export import (make_pallas_inputs, pick_WB,
+                                              repad_dense)
+    pkw, gkw = dict(TILE_CASES[case][0]), TILE_CASES[case][1]
+    WB_force = pkw.pop("WB", None)
+    params = _params(**pkw)
+    dgs = [synth_dense(params, seed=31 + b, **gkw) for b in range(B)]
+    R = max(d.R for d in dgs)
+    Wq = max(d.W for d in dgs)
+    P = max(d.P for d in dgs)
+    O = max(d.O for d in dgs)
+    WB = WB_force or max(pick_WB(params, d.qlen, d.pn) for d in dgs)
+    dgs = [repad_dense(d, R, Wq, P, O) for d in dgs]
+    lmax = (R + Wq + 511) // 512 * 512
+    made = [make_pallas_inputs(d, params, WB, force_Wq=Wq, bt_lmax=lmax)
+            for d in dgs]
+    args = [torch.from_numpy(a).to(dev)
+            for a in _stack([m[1][:10] for m in made])]
+    return made[0][0], args, [d.n_rows for d in dgs]
+
+
+TILE_CASES = {
+    "p512": ({}, dict(n=300, fan=1, wide=((290, 270),))),
+    "wb2048": ({"WB": 2048, "wb": 400}, dict(n=2500)),
+    "dead_rows": ({}, dict(n=400, dead=(30, 31, 90, 250))),
+    # past the shared memory of its per-row arrays
+    "r9000": ({}, dict(n=9000, qcut=2000, wide=((7000, 20),))),
     "zdrop": ({"extend": True}, dict(n=600, fan=1, diverge=True)),
 }
 
@@ -236,6 +282,24 @@ def test_fw_kernel_edges_on_gpu(case, cuda_device):
     if case == "zdrop":
         # the stop fired: fewer cells than the same sweep without z-drop
         r0 = fw.fw_poa_dp_batch_ref(cfg._replace(use_zdrop=False), *host)
+        assert (r.misc[:, L.M_CELLS] < r0.misc[:, L.M_CELLS]).all()
+    assert int(r.misc[:, L.M_NSTEPS].min()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tile_kernel_edges_on_gpu(case, cuda_device):
+    from abpoa_tpu_torch.ops import tile_dp as td
+    from abpoa_tpu_torch.ops import layout as L
+    cfg, args, nrows = _tile_inputs(case, cuda_device)
+    k = td.tile_poa_dp_batch(cfg, *args)
+    k = td.TileOut(*(t.cpu() if t is not None else None for t in k))
+    # the plain version on the host's copies of the inputs
+    host = [a.cpu() for a in args]
+    r = td.tile_poa_dp_batch_ref(cfg, *host)
+    _assert_same(k, r, nrows, ("steps",), case)
+    if case == "zdrop":
+        r0 = td.tile_poa_dp_batch_ref(cfg._replace(use_zdrop=False), *host)
         assert (r.misc[:, L.M_CELLS] < r0.misc[:, L.M_CELLS]).all()
     assert int(r.misc[:, L.M_NSTEPS].min()) > 0
 

@@ -180,19 +180,47 @@ def test_engine_walk_dead_end_reruns_on_full_width(monkeypatch):
         _run_all(_encoded("seq.fa"), _case("local-convex"), "cpu")
 
 
-def test_engine_raises_past_the_packed_step_word():
-    """Graphs past 4096 nodes or queries of 2^17 bases need the XLA tier
-    (ROADMAP A6)."""
+def _long_read(k):
+    """Reads k..k+6 of heter.fa joined: one read of 4.7-4.9 kb."""
+    return np.concatenate(_encoded("heter.fa")[k:k + 7])
+
+
+def test_engine_past_the_packed_step_word_equals_oracle():
+    """A graph past 4096 nodes (one 4.8 kb read fused) and a second long
+    read: the engine on the CPU (plain B5, rows past the 12 bits of the
+    former step word) gives the JAX package oracle's score, cigar and
+    band state."""
+    from abpoa_tpu.align.engine_np import align_sequence_to_subgraph
+    from abpoa_tpu.graph import POAGraph as JGraph
+    from abpoa_tpu.params import Params as JParams
+    from abpoa_tpu_torch import convert
     from abpoa_tpu_torch.align import engine_torch
     from abpoa_tpu_torch.graph import POAGraph
-    from abpoa_tpu_torch.params import Params
-    params = Params().post_set()
-    g = POAGraph()
-    q = _encoded("seq.fa")[0]
-    g.add_graph_alignment(params, q, [1] * len(q), [], None, 0, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        engine_torch.align_sequence_to_graph_device(
-            g, params, np.zeros(1 << 17, np.uint8), "cpu")
+    from abpoa_tpu_torch.params import SRC_NODE_ID, SINK_NODE_ID
+    jparams = JParams().post_set()
+    tparams = convert.params(jparams)
+    q0, q1 = _long_read(0), _long_read(1)
+    gt, gj = POAGraph(), JGraph()
+    gt.add_graph_alignment(tparams, q0, [1] * len(q0), [], None, 0, True)
+    gj.add_graph_alignment(jparams, q0, [1] * len(q0), [], None, 0, True)
+    gt.topological_sort(tparams)
+    gj.topological_sort(jparams)
+    assert gt.node_n > 4096
+    engine_torch.reroutes.update(M_OVFL=0, M_FAIL=0)
+    r_t = engine_torch.align_sequence_to_graph_device(gt, tparams, q1,
+                                                      "cpu")
+    r_j = align_sequence_to_subgraph(gj, jparams, SRC_NODE_ID,
+                                     SINK_NODE_ID, q1)
+    assert engine_torch.reroutes == {"M_OVFL": 0, "M_FAIL": 0}
+    assert r_t.best_score == r_j.best_score
+    assert list(map(tuple, r_t.cigar)) == list(map(tuple, r_j.cigar))
+    assert (r_t.node_s, r_t.node_e, r_t.query_s, r_t.query_e) == (
+        r_j.node_s, r_j.node_e, r_j.query_s, r_j.query_e)
+    n = gt.node_n
+    assert (np.array(gt.node_id_to_max_pos_left[:n])
+            == np.array(gj.node_id_to_max_pos_left[:n])).all()
+    assert (np.array(gt.node_id_to_max_pos_right[:n])
+            == np.array(gj.node_id_to_max_pos_right[:n])).all()
 
 
 @pytest.mark.gpu

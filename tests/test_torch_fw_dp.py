@@ -9,14 +9,17 @@ round path sends here when the band kernel does not fit; linear gaps
 band-state hints and a partial row mask (the seeded path's windows; no
 oracle there: the mask changes the problem). On a GPU, the CUDA kernel
 against the plain version. Exact equality: misc (M_LASTI is not part of
-the result), the steps up to M_NSTEPS, beg/end_sn and mpl/mpr on rows
-< n_rows.
+the result), the steps up to M_NSTEPS as (op, row, col) triples (the JAX
+package's int32 words, the port's int64 words), beg/end_sn and mpl/mpr
+on rows < n_rows.
 """
 import pathlib
 
 import numpy as np
 import pytest
 import torch
+
+from test_torch_tile_dp import _triples
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 
@@ -122,7 +125,8 @@ def _assert_same(a, b, n, what):
     ma, mb = _np(a.misc), _np(b.misc)
     assert (ma[:, :L.M_LASTI] == mb[:, :L.M_LASTI]).all(), (what, ma, mb)
     ns = int(ma[0, L.M_NSTEPS])
-    assert (_np(a.steps)[0, :ns] == _np(b.steps)[0, :ns]).all(), what
+    assert (_triples(a.steps[0, :ns]) == _triples(b.steps[0, :ns])).all(), \
+        what
     for f in ("beg_sn", "end_sn", "mpl", "mpr"):
         assert (_np(getattr(a, f))[0, :n]
                 == _np(getattr(b, f))[0, :n]).all(), (what, f)

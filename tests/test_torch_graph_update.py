@@ -42,8 +42,9 @@ def _jax_cfg(params, maxlen, B, R):
 
 
 def _oracle_steps(g, params, q, LS):
-    """The oracle's alignment of q as a legacy step stream (push order)
-    + misc, the inverse of bt_xla.replay_steps."""
+    """The oracle's alignment of q as a stream of the port's int64 step
+    words (push order) + misc, the inverse of bt_xla.replay_steps
+    (``_legacy`` gives the JAX package's int32 words of the same steps)."""
     from abpoa_tpu.align.engine_np import align_sequence_to_subgraph
     from abpoa_tpu.cigar import CMATCH, CINS, CDEL
     from abpoa_tpu_torch.ops import layout as L
@@ -69,15 +70,25 @@ def _oracle_steps(g, params, q, LS):
     while fwd and fwd[-1][0] == 1:
         trail += 1
         fwd.pop()
-    steps = np.zeros(LS, np.int32)
+    from abpoa_tpu_torch.ops.steps import pack_steps
+    steps = np.zeros(LS, np.int64)
     for k, (op, row, col) in enumerate(reversed(fwd)):
-        steps[k] = op | (row << 2) | (col << 14)
+        steps[k] = pack_steps(op, row, col)
     misc = np.zeros(L.M_NMISC, np.int32)
     misc[L.M_NSTEPS] = len(fwd)
     misc[L.M_BJ] = len(q) - trail
     misc[L.M_ENDJ] = lead
-    misc[L.M_BI] = (steps[0] >> 2) & 0xFFF if fwd else 0
+    misc[L.M_BI] = fwd[-1][1] if fwd else 0
     return res, steps, misc
+
+
+def _legacy(steps):
+    """The JAX package's int32 words op|row<<2|col<<14 of the port's step
+    words (rows below 4096, columns below 2^17)."""
+    from abpoa_tpu_torch.ops.steps import step_fields
+    op, row, col = step_fields(np.asarray(steps, np.int64))
+    assert (row < 4096).all() and (col < (1 << 17)).all()
+    return (op | (row << 2) | (col << 14)).astype(np.int32)
 
 
 def _port_state(graphs, cfg, device="cpu"):
@@ -93,8 +104,8 @@ def _port_state(graphs, cfg, device="cpu"):
 
 def _wire(steps, misc):
     from abpoa_tpu_torch.ops import steps as tst
-    return tst.steps32_to_s16w(torch.from_numpy(steps),
-                               torch.from_numpy(misc))
+    return tst.steps_to_s16w(torch.from_numpy(steps),
+                             torch.from_numpy(misc))
 
 
 def test_graph_update_ref_equals_jax_kernel():
@@ -121,7 +132,7 @@ def test_graph_update_ref_equals_jax_kernel():
         graphs.append(g)
     st, i2n, n2i, remain = pls.init_state_np(graphs, cfg)
     q = reads[2]
-    steps = np.zeros((B, cfg.LS), np.int32)
+    steps = np.zeros((B, cfg.LS), np.int64)
     misc = np.zeros((B, 10), np.int32)
     for b, g in enumerate(graphs):
         _res, steps[b], misc[b] = _oracle_steps(g, params, q, cfg.LS)
@@ -227,7 +238,7 @@ def test_graph_update_capacity_sets_fail():
     # an all-insertion round: every base is a new node (150 + 152 > R)
     misc = np.zeros((1, 10), np.int32)
     misc[0, 2] = 0                       # M_BJ = 0: the read is trailing I
-    s16w, misc2 = _wire(np.zeros((1, cfg.LS), np.int32), misc)
+    s16w, misc2 = _wire(np.zeros((1, cfg.LS), np.int64), misc)
     qc = np.zeros((1, cfg.Wq), np.int8)
     qc[0, 1:151] = reads[1]
     qp4 = tpl.pack_qp4(cfg, torch.from_numpy(qc))

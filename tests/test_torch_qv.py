@@ -91,7 +91,7 @@ def _round_inputs(graphs, params, q, w, LS, Wq):
     steps16 wire words + misc, the query codes and the weight stream."""
     from test_torch_graph_update import _oracle_steps, _wire
     B = len(graphs)
-    steps = np.zeros((B, LS), np.int32)
+    steps = np.zeros((B, LS), np.int64)
     misc = np.zeros((B, 10), np.int32)
     res = []
     for b, g in enumerate(graphs):

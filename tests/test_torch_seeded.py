@@ -191,21 +191,37 @@ def test_serial_seeded_on_a_cut_equals_oracle(golden, args, tmp_path,
 
 
 def test_window_past_the_step_word_raises():
-    """A window of 2^17 bases needs the XLA tier: NotImplementedError
-    naming A6, before any export."""
+    """A window past the former packed step word's 4096 rows (the whole
+    graph of one 4.8 kb read, a second such read as the window's query)
+    runs the window path (B4 under the row mask, plain on the CPU) and
+    gives the JAX package oracle's alignment; it raised before the int64
+    step word."""
+    from abpoa_tpu.align.engine_np import align_sequence_to_subgraph
+    from abpoa_tpu.graph import POAGraph as JGraph
+    from abpoa_tpu.params import Params as JParams
+    from abpoa_tpu_torch import convert
     from abpoa_tpu_torch.align.engine_torch import \
         align_sequence_to_subgraph_device
     from abpoa_tpu_torch.graph import POAGraph
-    from abpoa_tpu_torch.params import Params, SRC_NODE_ID, SINK_NODE_ID
-    p = Params().post_set()
-    g = POAGraph()
-    q = _reads("seq.fa")[0]
-    g.add_graph_alignment(p, q, [1] * len(q), [], None, 0, True)
+    from abpoa_tpu_torch.params import SRC_NODE_ID, SINK_NODE_ID
+    jp = JParams().post_set()
+    p = convert.params(jp)
+    heter = _reads("heter.fa")
+    q0, q1 = (np.concatenate(heter[k:k + 7]) for k in range(2))
+    g, gj = POAGraph(), JGraph()
+    g.add_graph_alignment(p, q0, [1] * len(q0), [], None, 0, True)
+    gj.add_graph_alignment(jp, q0, [1] * len(q0), [], None, 0, True)
     g.topological_sort(p)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        align_sequence_to_subgraph_device(
-            g, p, SRC_NODE_ID, g.index_to_node_id[5],
-            np.zeros(1 << 17, np.uint8), "cpu")
+    gj.topological_sort(jp)
+    assert g.node_n > 4096
+    r = align_sequence_to_subgraph_device(g, p, SRC_NODE_ID, SINK_NODE_ID,
+                                          q1, "cpu")
+    rj = align_sequence_to_subgraph(gj, jp, SRC_NODE_ID, SINK_NODE_ID, q1)
+    assert r.best_score == rj.best_score
+    assert list(map(tuple, r.cigar)) == list(map(tuple, rj.cigar))
+    n = g.node_n
+    assert (np.array(g.node_id_to_max_pos_left[:n])
+            == np.array(gj.node_id_to_max_pos_left[:n])).all()
 
 
 @pytest.mark.gpu

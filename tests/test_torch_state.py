@@ -182,8 +182,9 @@ def test_init_state_np_equal_jax():
 
 
 def test_steps16_roundtrip_equal_jax():
-    """Legacy step words -> wire words (port) -> decode (port) equals the
-    JAX encoder and bt_xla's decode."""
+    """Step words -> wire words (port) -> decode (port) equals the JAX
+    encoder and bt_xla's decode on the same (op, row, col) steps (the JAX
+    package's int32 words, the port's int64 words)."""
     import jax.numpy as jnp
     from abpoa_tpu.ops import bt_xla
     from abpoa_tpu.ops import poa_loop as pls
@@ -193,6 +194,7 @@ def test_steps16_roundtrip_equal_jax():
     rng = np.random.default_rng(11)
     B, LS = 3, 64
     steps = np.zeros((B, LS), np.int32)
+    wide = np.zeros((B, LS), np.int64)
     misc = np.zeros((B, L.M_NMISC), np.int32)
     for b in range(B):
         n = int(rng.integers(1, LS))
@@ -203,9 +205,10 @@ def test_steps16_roundtrip_equal_jax():
             i -= int(rng.integers(0, 40)) if op != 1 else 0
             j -= 1 if op != 2 else 0
             steps[b, k] = op | (i << 2) | (j << 14)
+            wide[b, k] = tst.pack_steps(op, i, j)
     js16w, jmisc = pls.steps32_to_s16w(jnp.asarray(steps), jnp.asarray(misc))
-    ts16w, tmisc = tst.steps32_to_s16w(torch.from_numpy(steps),
-                                       torch.from_numpy(misc))
+    ts16w, tmisc = tst.steps_to_s16w(torch.from_numpy(wide),
+                                     torch.from_numpy(misc))
     assert (np.asarray(js16w) == ts16w.numpy()).all()
     assert (np.asarray(jmisc) == tmisc.numpy()).all()
     s16 = tpl.s16w_to_s16(ts16w).numpy()
@@ -213,8 +216,10 @@ def test_steps16_roundtrip_equal_jax():
     allw = tst.decode_steps_batch(s16[None], misc[None])[0]
     for b in range(B):
         n = misc[b, L.M_NSTEPS]
-        ref = bt_xla.unpack_steps16(s16[b], n, misc[b, L.M_BI],
-                                    misc[b, L.M_BJ])
-        assert (tst.unpack_steps16(s16[b], n, misc[b, L.M_BI],
-                                   misc[b, L.M_BJ]) == ref).all()
-        assert (allw[b, :n] == steps[b, :n]).all()
+        ref = np.asarray(bt_xla.unpack_steps16(
+            s16[b], n, misc[b, L.M_BI], misc[b, L.M_BJ])).astype(np.int64)
+        ref3 = np.stack([ref & 3, (ref >> 2) & 0xFFF, ref >> 14])
+        got = tst.unpack_steps16(s16[b], n, misc[b, L.M_BI],
+                                 misc[b, L.M_BJ])
+        assert (np.stack(tst.step_fields(got)) == ref3).all()
+        assert (allw[b, :n] == wide[b, :n]).all()

@@ -6,8 +6,11 @@ convex, affine and linear gaps, extend mode with z-drop, 32-bit score
 geometry (where the Kogge-Stone scan's NEG fill shows), and a tile too
 narrow for the band (M_OVFL). On a GPU, the CUDA kernel against the
 plain version. Tolerance 0 (integer DP): misc (M_LASTI is not part of
-the result), the steps up to M_NSTEPS, beg/end_sn and mpl/mpr on rows
-< n_rows, and the tiles the gap mode writes on the rows the sweep wrote.
+the result), the steps up to M_NSTEPS as (op, row, col) triples (the
+JAX package's int32 words and the port's int64 words hold the same
+triples), beg/end_sn and mpl/mpr on rows < n_rows, and the tiles the gap
+mode writes on the rows the sweep wrote (the kernel keeps no F tiles:
+its H and E tiles only).
 """
 import pathlib
 
@@ -98,18 +101,30 @@ def _swept_rows(out, cfg):
     return k + 1
 
 
-def _assert_same(a, b, cfg, n, what):
+def _triples(steps):
+    """(op, row, col) of step words: the JAX package's int32
+    op|row<<2|col<<14 or the port's int64 op|row<<2|col<<32."""
+    from abpoa_tpu_torch.ops.steps import step_fields
+    w = _np(steps).astype(np.int64)
+    if _np(steps).dtype == np.int32:
+        return np.stack([w & 3, (w >> 2) & 0xFFF, w >> 14])
+    return np.stack(step_fields(w))
+
+
+def _assert_same(a, b, cfg, n, what, planes=None):
     from abpoa_tpu_torch.ops import layout as L
     ma, mb = _np(a.misc), _np(b.misc)
     assert (ma[:, :L.M_LASTI] == mb[:, :L.M_LASTI]).all(), (what, ma, mb)
     ns = int(ma[0, L.M_NSTEPS])
-    assert (_np(a.steps)[0, :ns] == _np(b.steps)[0, :ns]).all(), what
+    assert (_triples(a.steps[0, :ns]) == _triples(b.steps[0, :ns])).all(), \
+        what
     for f in ("beg_sn", "end_sn", "mpl", "mpr"):
         assert (_np(getattr(a, f))[0, :n]
                 == _np(getattr(b, f))[0, :n]).all(), (what, f)
     rows = _swept_rows(b, cfg)
-    planes = {0: ("Hb",), 1: ("Hb", "E1b", "F1b")}.get(
-        cfg.gap_mode, ("Hb", "E1b", "E2b", "F1b", "F2b"))
+    if planes is None:
+        planes = {0: ("Hb",), 1: ("Hb", "E1b", "F1b")}.get(
+            cfg.gap_mode, ("Hb", "E1b", "E2b", "F1b", "F2b"))
     for f in planes:
         assert (_np(getattr(a, f))[0, :rows]
                 == _np(getattr(b, f))[0, :rows]).all(), (what, f)
@@ -148,6 +163,8 @@ def test_tile_kernel_equals_ref_on_gpu(case, cuda_device):
         k = tile_dp.tile_poa_dp_batch(cfg, *args)
         r = tile_dp.tile_poa_dp_batch_ref(cfg, *args)
         torch.cuda.synchronize()
-        _assert_same(k, r, cfg, n, case)
-        for f in ("Hb", "E1b", "E2b", "F1b", "F2b"):
-            assert torch.equal(getattr(k, f), getattr(r, f)), (case, f)
+        # the kernel's tiles are scratch: H and E on the rows it swept
+        _assert_same(k, r, cfg, n, case,
+                     planes={0: ("Hb",), 1: ("Hb", "E1b")}.get(
+                         cfg.gap_mode, ("Hb", "E1b", "E2b")))
+        assert k.F1b is None and k.F2b is None

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_graph_update import _jax_cfg, _oracle_steps
+from test_torch_graph_update import _jax_cfg, _legacy, _oracle_steps
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 
@@ -82,7 +82,8 @@ def test_fuse_topo_remain_equal_jax_trio():
         qc = np.zeros((1, cfg.Wq), np.int8)
         qc[0, 1:len(q) + 1] = q
         qlen = np.array([len(q)], np.int32)
-        jst = pls.fuse_batch(cfg, jst, ji2n, jnp.asarray(steps[None]),
+        jst = pls.fuse_batch(cfg, jst, ji2n,
+                             jnp.asarray(_legacy(steps)[None]),
                              jnp.asarray(misc[None]), jnp.asarray(qc),
                              jnp.asarray(qlen))
         ji2n, jn2i, jok = pls.topo_batch(cfg, jst, interpret=True)
