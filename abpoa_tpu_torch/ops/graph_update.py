@@ -1,14 +1,18 @@
-"""One round's graph update on the packed state: fusion replay of the
-step stream, Kahn FIFO re-sort with aligned grouping, max_remain.
+"""One round's graph update on the packed state: fusion of the step
+stream, Kahn FIFO re-sort with aligned grouping, max_remain.
 
 Counterpart of ``graph_update_packed`` / ``make_graph_kernel2`` in
 ``abpoa_tpu/ops/poa_loop.py``, both bodies: unit weights (``wmode=0``)
 and qv weights (``wmode=1``: full-word out-edge entries, and each
 resolving edge adds the weight of its query base, the sink edge the
-last base's). The CUDA kernel is ``csrc/graph_update.cu``, a scalar
-transcription of the reference semantics, one template instance per
-mode. ``graph_update_packed_ref`` reaches the same
-function by a second, independent route, so the two check each other:
+last base's). The CUDA kernel is ``csrc/graph_update.cu``, one block
+per instance and one template instance per mode: the fusion data
+parallel over the steps (block scans number the rows, query bases and
+new nodes; each edge and aligned bundle is written by its own thread),
+the Kahn sort on one thread, max_remain by pointer doubling on the
+other warps while it runs (the source's head says why this equals the
+serial replay). ``graph_update_packed_ref`` reaches the same function
+by vectorized torch operations, so the two check each other:
 
   1. vectorized fusion (every node resolution depends only on the
      pre-fusion state; new ids come from a prefix count, the last-node
@@ -100,7 +104,9 @@ def graph_update_packed(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen,
     CUDA tensors launch ``csrc/graph_update.cu``, which updates
     ps.ctrl/outp/inp/alp IN PLACE (the counterpart of the JAX kernel's
     input_output_aliases) and returns them with a new i2nn, node_n and
-    fail. CPU tensors run the plain version, which returns new tensors."""
+    fail; its per-step scratch (two int32 a forward step and instance)
+    comes from PyTorch's caching allocator. CPU tensors run the plain
+    version, which returns new tensors."""
     qlen = qlen.to(I32).contiguous()
     _check(cfg, ps, s16w, misc, qlen, qp4, qw)
     if ps.ctrl.device.type == "cpu":
@@ -112,6 +118,8 @@ def graph_update_packed(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen,
     i2nn = torch.empty_like(ps.i2nn)
     node_n = torch.empty_like(ps.node_n)
     fail = torch.empty_like(ps.fail)
+    # per-step scratch: each resolving step's node and bundled node
+    work = torch.empty(B, 2 * cfg.LS, dtype=I32, device=dev)
     lib = library("graph_update")
     with torch.cuda.device(dev):
         rc = lib.graph_update_launch(
@@ -120,7 +128,8 @@ def graph_update_packed(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen,
             qp4.data_ptr(), qw.data_ptr() if cfg.wmode else None,
             ps.ctrl.data_ptr(), ps.outp.data_ptr(), ps.inp.data_ptr(),
             ps.alp.data_ptr(), i2nn.data_ptr(), node_n.data_ptr(),
-            fail.data_ptr(), B, cfg.R, cfg.E, cfg.P, cfg.A, s16w.shape[1],
+            fail.data_ptr(), work.data_ptr(), B, cfg.R, cfg.E, cfg.P, cfg.A,
+            s16w.shape[1],
             qp4.shape[1], qw.shape[1] if cfg.wmode else 0, cfg.wbits,
             cfg.wmode, torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "graph_update")

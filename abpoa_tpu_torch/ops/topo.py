@@ -8,6 +8,13 @@ the split device round (``poa_loop.device_round(split=True)``) holds the
 graph kernel's sort against, so it shares no code with
 ``csrc/graph_update.cu``.
 
+The kernel stages the instance's out-edge ids, aligned lists and counts
+into shared memory as 16-bit ids, so the one thread that runs the sort
+waits on shared-memory loads, and it walks a chain of single links on a
+short path; an instance too large for a block's shared memory
+(``staged``) runs a second instance of the kernel that reads the state
+from device memory.
+
 Per instance (ref src/abpoa_graph.c:186-231): from SRC, pop the FIFO
 head, give it the next topological index, decrement its out-nodes'
 in-degrees; a node whose in-degree reaches 0 is queued together with its
@@ -19,9 +26,21 @@ from __future__ import annotations
 
 import torch
 
+from . import layout as L
 from ._build import check_launch, library
 
 I32 = torch.int32
+
+
+def staged(cfg) -> bool:
+    """Whether ``csrc/topo.cu`` stages the state in shared memory at this
+    geometry (the rule of ``topo_launch``: the in-degrees, the queue and
+    two results as int32, the out-ids, aligned ids and counts as 16
+    bits)."""
+    R, E, A = cfg.R, cfg.E, cfg.A
+    return (R <= 1 << 16 and E < 256 and A < 256
+            and 4 * (2 * R + A + 3) + 2 * R * (E + A + 1)
+            <= L.MAX_SMEM_BYTES)
 
 
 def _check(cfg, st, name):

@@ -70,7 +70,9 @@ Phases (each prints its own lines; any failed check exits non-zero):
   3f. (run last, after the end-to-end phases) B1, B3 and B4 timed at the
      table's shape (B=8), at the B their path launches (B1 32, B3/B4 64,
      B4 1 per -S window), B5 at B=1 on heter.fa round 14, and sweep only
-     (bt_lmax = 0); with --baseline DIR, beside the kernels of the
+     (bt_lmax = 0); B2 at B=8 (wmode 0), B=64 (wmode 1) and B=32 (both,
+     the device loop's sub-batch), B6 at B=8, on the device loop's last
+     round; with --baseline DIR, each beside the kernels of the
      earlier checkout in DIR in turns new, old, old, new; B4 on each
      window of a CLI -S run (B=1, its serial path) bit-equal to the plain
      version, mean times a window; the round path's step fetch at
@@ -1063,10 +1065,11 @@ def window_kernel_phase(dev, heter):
 
 
 def baseline_kernels(root):
-    """The DP kernels' wrappers of an earlier checkout at `root` (for
+    """The kernels' wrappers of an earlier checkout at `root` (for
     example one unpacked by `git archive <commit>` into a git-ignored
     directory), imported as a package of its own: {record name: wrapper}
-    for band_dp, band_dp_topo, fw_dp and fw_dp_window. They take the
+    for band_dp, band_dp_topo, fw_dp, fw_dp_window, tile_dp,
+    graph_update (both modes) and topo. They take the
     port's arguments, and build that checkout's kernels from its csrc/
     into its build/ at first call."""
     import importlib
@@ -1083,10 +1086,15 @@ def baseline_kernels(root):
     bd = importlib.import_module(name + ".ops.band_dp")
     fw = importlib.import_module(name + ".ops.fw_dp")
     td = importlib.import_module(name + ".ops.tile_dp")
+    gu = importlib.import_module(name + ".ops.graph_update")
+    tt = importlib.import_module(name + ".ops.topo")
     return {"band_dp": bd.band_poa_dp_packed,
             "band_dp_topo": bd.band_poa_dp_batch,
             "fw_dp": fw.fw_poa_dp_batch, "fw_dp_window": fw.fw_poa_dp_batch,
-            "tile_dp": td.tile_poa_dp_batch}
+            "tile_dp": td.tile_poa_dp_batch,
+            "graph_update": gu.graph_update_packed,
+            "graph_update_qv": gu.graph_update_packed,
+            "topo": tt.topo_batch}
 
 
 def loop_round_args(dev, insts):
@@ -1105,6 +1113,43 @@ def loop_round_args(dev, insts):
                                           qp4[rr], base, params.wb, wf1000)
     scal = pl.build_scal(cfg, ps, ql_d[r], base, params.wb, wf1000)
     return pl.band_config(cfg), (scal, ps.ctrl, ps.inp, ps.i2nn, qpf[r])
+
+
+def graph_round_args(dev, insts, ws=None):
+    """B2's arguments on the last round of the device loop over `insts`
+    (with per-base weights `ws`: wmode 1), the state brought there
+    through both kernels: (cfg, packed state, (s16w, misc, qlen, qp4),
+    packed weights or None). The state is not touched: callers clone it
+    for the kernel, which updates it in place."""
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.ops import poa_loop as pl
+    from abpoa_tpu_torch.ops import band_dp as bd
+    from abpoa_tpu_torch.parallel.batch import _loop_geometry
+    params = Params().post_set()
+    wmax = max(sum(max(w) for w in wk) for wk in ws) if ws else None
+    cfg = _loop_geometry(params, insts, wmax)._replace(B=len(insts))
+    ps, base, ql_d, qpf, qp4, qw2 = loop_inputs(dev, params, insts, cfg, ws)
+    wf1000 = round(params.wf * 1000)
+    r = cfg.NR - 1
+    for rr in range(r):
+        ps, _, _ = pl.device_round_packed(
+            cfg, ps, ql_d[rr], qpf[rr], qp4[rr], base, params.wb, wf1000,
+            qw=qw2[rr] if ws else None)
+    scal = pl.build_scal(cfg, ps, ql_d[r], base, params.wb, wf1000)
+    km, ks = bd.band_poa_dp_packed(pl.band_config(cfg), scal, ps.ctrl,
+                                   ps.inp, ps.i2nn, qpf[r])
+    return cfg, ps, (ks, km, ql_d[r], qp4[r]), qw2[r] if ws else None
+
+
+def fused_state(cfg, ps, args, qw):
+    """The graph state after B2's round on a copy of `ps` (a GState: B6's
+    input, as the split round hands it the fused graph)."""
+    from abpoa_tpu_torch.ops import poa_loop as pl
+    from abpoa_tpu_torch.ops import graph_update as gu
+    out = gu.graph_update_packed(cfg, pl.PackedState(*(x.clone()
+                                                       for x in ps)),
+                                 *args, qw=qw)
+    return pl.unpack_state(cfg, out)[0]
 
 
 def serial_windows(device="cuda"):
@@ -1248,6 +1293,58 @@ def dp_timing_phase(dev, heter, base, win):
                 f"{r[f'ms_B{B}']:.4f} ms, sweep only "
                 f"{r[f'sweep_ms_B{B}']:.4f} ms")
     torch.cuda.synchronize()
+    return rec
+
+
+def graph_timing_phase(dev, heter, base):
+    """B2 in both modes and B6 at the table's shapes (B2 wmode 0: 8
+    rotated heter.fa instances; wmode 1: 64 x heter.fa with qv weights;
+    B6: the graph of the wmode-0 round, B=8) and B2 at the B its path
+    launches (32, the device loop's sub-batch), each on the device
+    loop's last round; with `base` (baseline_kernels), beside an earlier
+    checkout's kernels in turns new, old, old, new. B2 updates its state
+    in place, so each call gets a fresh copy, made outside the timed
+    region. Returns {record name: {ms_B, base_ms_B}}."""
+    from abpoa_tpu_torch.ops import poa_loop as pl
+    from abpoa_tpu_torch.ops import graph_update as gu
+    from abpoa_tpu_torch.ops import topo as tt
+    rot = [heter[b:] + heter[:b] for b in range(N_CMP)]
+    cases = []       # (record, B, new wrapper, fn -> set-up -> callable)
+    for name, B, insts in (("graph_update", 8, rot),
+                           ("graph_update", 32, [heter] * 32),
+                           ("graph_update_qv", N_INST, [heter] * N_INST),
+                           ("graph_update_qv", 32, [heter] * 32)):
+        ws = qv_weights(insts) if name == "graph_update_qv" else None
+        cfg, ps, args, qw = graph_round_args(dev, insts, ws)
+
+        def b2(fn, cfg=cfg, ps=ps, args=args, qw=qw):
+            def setup():
+                c = pl.PackedState(*(x.clone() for x in ps))
+                return lambda: fn(cfg, c, *args, qw=qw)
+            return setup
+        cases.append((name, B, gu.graph_update_packed, b2))
+        if name == "graph_update" and B == 8:
+            st = fused_state(cfg, ps, args, qw)
+            cases.append(("topo", 8, tt.topo_batch,
+                          lambda fn, cfg=cfg, st=st:
+                          (lambda: (lambda: fn(cfg, st)))))
+    rec = {}
+    for name, B, new, call in cases:
+        old = base.get(name)
+        cuda_ms(call(new), 2)
+        r = rec.setdefault(name, {})
+        if old is not None:
+            cuda_ms(call(old), 2)
+            t = [cuda_ms(call(f), 20) for f in (new, old, old, new)]
+            r[f"ms_B{B}"] = (t[0] + t[3]) / 2
+            r[f"base_ms_B{B}"] = (t[1] + t[2]) / 2
+            say(f"graph timing: {name} B={B}: new {r[f'ms_B{B}']:.4f} ms, "
+                f"baseline {r[f'base_ms_B{B}']:.4f} ms "
+                f"({r[f'ms_B{B}'] / r[f'base_ms_B{B}']:.3f}x); turns new, "
+                f"old, old, new {[round(x, 4) for x in t]}")
+        else:
+            r[f"ms_B{B}"] = cuda_ms(call(new), 20)
+            say(f"graph timing: {name} B={B}: {r[f'ms_B{B}']:.4f} ms")
     return rec
 
 
@@ -1574,6 +1671,7 @@ def main(argv):
             + (f"of {base_dir}" if base else "absent"))
         win = serial_windows()
         timing = dp_timing_phase(dev, heter, base, win)
+        timing.update(graph_timing_phase(dev, heter, base))
         window_rec["fw_dp_window"] = serial_window_phase(
             win, window_rec.pop("fw_dp"))
         timing["band_dp_topo"].update(

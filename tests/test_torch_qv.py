@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from abpoa_tpu.params import Params
+from test_torch_graph_update import _jax_graph_update
 
 # paths spelled out here (not imported from conftest) so the gpu tests
 # also run with --noconftest on a host without JAX
@@ -110,7 +111,6 @@ def test_graph_update_qv_ref_equals_jax_kernel():
     a weighted read 2): the plain wmode-1 graph update equals the JAX
     graph kernel's wmode-1 body on the packed state, topo maps and
     flags."""
-    import jax.numpy as jnp
     from abpoa_tpu.graph import POAGraph
     from abpoa_tpu.ops import poa_loop as pls
     from abpoa_tpu_torch.ops import poa_loop as tpl
@@ -134,10 +134,7 @@ def test_graph_update_qv_ref_equals_jax_kernel():
     _res, s16w, misc2, qc, qw = _round_inputs(graphs, params, q, ws[2],
                                               cfg.LS, cfg.Wq)
     qlen = np.full(B, len(q), np.int32)
-    jout = pls.graph_update_packed(
-        cfg, ps, jnp.asarray(s16w.numpy()), jnp.asarray(misc2.numpy()),
-        jnp.asarray(qlen), pls.pack_qp4(cfg, jnp.asarray(qc)),
-        qw=pls.pack_qw(cfg, jnp.asarray(qw)), interpret=True)
+    jout = _jax_graph_update(cfg, ps, s16w, misc2, qlen, qc, qw)
     tout = tgu.graph_update_packed(
         tcfg, convert.packed_state(ps, "cpu"), s16w, misc2,
         torch.from_numpy(qlen), tpl.pack_qp4(tcfg, torch.from_numpy(qc)),
@@ -154,6 +151,73 @@ def test_graph_update_qv_ref_equals_jax_kernel():
     # reads' weights), not edge counts
     st, *_ = tpl.unpack_state(tcfg, tout)
     assert int(st.out_w.max()) > 60
+
+
+def _tie_round():
+    """One wmode-1 round of two seq.fa instances (weighted reads 0 and 1,
+    query read 2): in each, a matched node u is followed by an insertion,
+    so the round gives u a second out-edge, and that base's weight is
+    set to the weight of u's first edge (instance 0: a tie, the first
+    slot must win max_remain's heaviest-edge chase) or one more
+    (instance 1). Returns (JAX cfg, init_state_np's tuple, s16w, misc,
+    qlen, qc, qw, the two nodes u)."""
+    from abpoa_tpu.graph import POAGraph
+    from abpoa_tpu.ops import poa_loop as pls
+    from test_torch_graph_update import _resolving
+    params = Params().post_set()
+    reads = _reads("seq.fa", 5)
+    (ws,) = _weights([reads])
+    B = 2
+    cfg = _jax_cfg(params, max(len(q) for q in reads), B, 192)
+    graphs = []
+    for r0 in (0, 1):
+        g = POAGraph()
+        g.add_graph_alignment(params, reads[r0], ws[r0], [], None, 0, True)
+        g.topological_sort(params)
+        graphs.append(g)
+    st, i2n, n2i, remain = pls.init_state_np(graphs, cfg)
+    q = reads[2]
+    _res, s16w, misc2, qc, qw = _round_inputs(graphs, params, q, ws[2],
+                                              cfg.LS, cfg.Wq)
+    from test_torch_graph_update import _oracle_steps
+    nodes = []
+    for b, g in enumerate(graphs):
+        _r, steps, misc = _oracle_steps(g, params, q, cfg.LS)
+        res = _resolving(st, i2n, b, steps, misc, qc[b], len(q))
+        k = next(k for k, (op, u, match, col) in enumerate(res[:-1])
+                 if match and u > 1 and st.n_out[b, u] == 1
+                 and res[k + 1][0] == 1)
+        u = res[k][1]
+        qw[b, res[k + 1][3] - 1] = int(st.out_w[b, u, 0]) + b
+        nodes.append(u)
+    qlen = np.full(B, len(q), np.int32)
+    return cfg, (st, i2n, n2i, remain), s16w, misc2, qlen, qc, qw, nodes
+
+
+def test_graph_update_qv_tied_edges_equal_jax_kernel():
+    """max_remain's first-max rule under qv weights: a node's new
+    out-edge ties its old one (instance 0) or outweighs it by one
+    (instance 1); the plain wmode-1 graph update equals the JAX graph
+    kernel on the packed state (remain rides in ctrl), the topo maps and
+    the flags, and the ties are in the state."""
+    from abpoa_tpu_torch.ops import poa_loop as tpl
+    from abpoa_tpu_torch.ops import graph_update as tgu
+    from abpoa_tpu_torch import convert
+    from abpoa_tpu.ops import poa_loop as pls
+    from test_torch_graph_update import _assert_rounds_equal
+    cfg, state, s16w, misc2, qlen, qc, qw, nodes = _tie_round()
+    tcfg = convert.loop_config(cfg)
+    ps = pls.pack_state(cfg, *state)
+    jout = _jax_graph_update(cfg, ps, s16w, misc2, qlen, qc, qw)
+    tout = tgu.graph_update_packed(
+        tcfg, convert.packed_state(ps, "cpu"), s16w, misc2,
+        torch.from_numpy(qlen), tpl.pack_qp4(tcfg, torch.from_numpy(qc)),
+        qw=tpl.pack_qw(tcfg, torch.from_numpy(qw)))
+    _assert_rounds_equal(jout, tout, [0, 0])
+    st = tpl.unpack_state(tcfg, tout)[0]
+    for b, u in enumerate(nodes):
+        assert int(st.n_out[b, u]) == 2
+        assert int(st.out_w[b, u, 1]) - int(st.out_w[b, u, 0]) == b
 
 
 def test_convert_carries_the_wide_state():
@@ -265,6 +329,25 @@ def test_graph_kernel_qv_equals_ref_on_gpu(cuda_device):
         assert ref.fail.tolist() == [0, 0]
         g.add_graph_alignment(params, q, ws[r], res[0].cigar, None, r, True)
         ps = ker
+
+
+@pytest.mark.gpu
+def test_graph_kernel_qv_tied_edges_on_gpu(cuda_device):
+    """The wmode-1 kernel against the plain version on the tie round of
+    test_graph_update_qv_tied_edges_equal_jax_kernel, and B6 on the
+    graph it leaves."""
+    from abpoa_tpu_torch.ops import poa_loop as tpl
+    from abpoa_tpu_torch import convert
+    from test_torch_graph_update import _kernel_vs_ref
+    cfg, state, s16w, misc2, qlen, qc, qw, _nodes = _tie_round()
+    tcfg = convert.loop_config(cfg)
+    dev = cuda_device
+    ps = tpl.pack_state(tcfg, *convert.loop_inputs(*state, dev))
+    args = (s16w.to(dev), misc2.to(dev), torch.from_numpy(qlen).to(dev),
+            tpl.pack_qp4(tcfg, torch.from_numpy(qc).to(dev)))
+    _ker, ref = _kernel_vs_ref(tcfg, ps, args,
+                               tpl.pack_qw(tcfg, torch.from_numpy(qw).to(dev)))
+    assert ref.fail.tolist() == [0, 0]
 
 
 @pytest.mark.gpu

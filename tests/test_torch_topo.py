@@ -208,3 +208,33 @@ def test_topo_kernel_equals_ref_on_gpu(cuda_device):
             assert torch.equal(a.cpu(), b.cpu()), r
         assert k[2].tolist() == [True, False]
         assert isinstance(remain_ref(cfg, st), torch.Tensor)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [192, 6000])
+def test_topo_kernel_staged_and_global_on_gpu(cuda_device, R):
+    """B6 in its two instances: the graphs of the sticky edge round (one
+    failed instance beside a live one) at R=192 (staged in shared
+    memory) and padded to R=6000 (past it: the state is read from
+    device memory); i2n, n2i and ok equal the plain version's."""
+    from abpoa_tpu_torch import convert
+    from abpoa_tpu_torch.ops import topo as ttopo
+    from test_torch_graph_update import _edge_round
+    cfg, (st, *_), *_rest = _edge_round("sticky")
+    tcfg = convert.loop_config(cfg)._replace(R=R)
+    assert ttopo.staged(tcfg) == (R == 192)
+    pad = []
+    for x in st:
+        x = np.asarray(x)
+        if x.ndim > 1:
+            x = np.concatenate(
+                [x, np.zeros((x.shape[0], R - x.shape[1]) + x.shape[2:],
+                             x.dtype)], axis=1)
+        pad.append(x)
+    gst = convert.gstate(type(st)(*pad), cuda_device)
+    got = ttopo.topo_batch(tcfg, gst)
+    exp = ttopo.topo_batch_ref(tcfg, gst)
+    torch.cuda.synchronize()
+    for a, b in zip(got, exp):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert got[2].tolist() == [False, True]
