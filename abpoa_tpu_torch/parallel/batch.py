@@ -39,9 +39,22 @@ algorithm's capacity rule and is counted in ``fallbacks``. A device or
 kernel fault is never caught. A round whose one instance needs more
 plane memory than the budget (``_plane_budget``) raises ``RuntimeError``
 naming the bytes.
+
+Data parallelism (``BatchPOA(devices=[...])``, the counterpart of the
+JAX package's ``mesh=``): the path and its geometry are decided once for
+the whole batch (the device loop's ``LoopConfig``, each round group's
+``round_plan``); the live instances then split into contiguous shards
+in global order (``multihost.shard_bounds``), one per entry of the
+device list, and every shard runs that plan with its own batch size.
+Each shard launches on a CUDA stream of its own (entries may repeat a
+card), all shards are launched before any result is fetched, and all
+launches come from the calling thread (the wrappers' launch counts are
+plain integers). The outputs equal the single-device run byte for byte.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import threading
 import time
 from typing import NamedTuple
@@ -58,6 +71,7 @@ from ..ops import layout as L
 from ..ops import poa_loop as pl
 from ..ops.steps import decode_steps_batch, replay_steps, unpack_steps16
 from ..align.export import repad_dense
+from .multihost import shard_bounds
 
 # two sub-batches pipeline the device loop against the host replay once
 # the batch has at least this many live instances
@@ -174,12 +188,53 @@ def _loop_geometry(params, instances, wmax=None):
     return cfg
 
 
-def _plane_budget(dev) -> int:
-    """Bytes one DP launch's planes may take on `dev`."""
+def _plane_budget(dev, in_flight: int = 1) -> int:
+    """Bytes one DP launch's planes may take on `dev` when `in_flight`
+    launches share the card (shards of one batch on one card each take
+    their part of the share). The CPU runs one launch at a time."""
     if dev.type == "cuda":
         free, _total = torch.cuda.mem_get_info(dev)
-        return int(free * PLANE_BUDGET_SHARE)
+        return int(free * PLANE_BUDGET_SHARE / in_flight)
     return CPU_PLANE_BUDGET
+
+
+class _Shard(NamedTuple):
+    """One entry of a BatchPOA's device list."""
+    dev: torch.device
+    stream: object     # its own torch.cuda.Stream; None: the device's
+    #                    current stream (one device, no list) or the CPU
+    in_flight: int     # shards of the list on the same card
+
+
+@contextlib.contextmanager
+def _on(shard: _Shard):
+    """Make the shard's device and stream current (nothing on the CPU):
+    the wrappers launch on torch.cuda.current_stream(dev), and tensors
+    allocated here belong to the shard's stream."""
+    if shard.dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(shard.dev):
+        stream = shard.stream or torch.cuda.current_stream(shard.dev)
+        with torch.cuda.stream(stream):
+            yield
+
+
+def _enqueue_fetch(shard: _Shard, tensors):
+    """Enqueue copies of `tensors` to pinned host memory on the shard's
+    stream and record an event on that same stream after them. Returns
+    (host tensors, event); on the CPU (the tensors, None)."""
+    if shard.dev.type != "cuda":
+        return list(tensors), None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    with _on(shard):
+        stream = torch.cuda.current_stream(shard.dev)
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    return host, ev
 
 
 class RoundPlan(NamedTuple):
@@ -192,6 +247,7 @@ class RoundPlan(NamedTuple):
     arrs: list        # per instance, the make_pallas_inputs tuple
     chunk: int        # instances per launch (the plane-memory budget)
     step_cap: int     # step-stream fetch cap
+    per: int          # plane bytes an instance
 
     def stack(self, part, dev):
         """The kernel's stacked input tensors for instances `part`."""
@@ -199,7 +255,7 @@ class RoundPlan(NamedTuple):
                 .to(dev) for i in range(len(self.arrs[0]))]
 
 
-def round_plan(params, dgs, dev, seeded=False) -> RoundPlan:
+def round_plan(params, dgs, dev, seeded=False, budget=None) -> RoundPlan:
     """The dispatch rule of one round's group of exports (re-padded to
     one geometry): the topo-mode band kernel when the band fits a block
     (at most 1024 lanes, 16 predecessor slots, segments that fit its
@@ -213,8 +269,9 @@ def round_plan(params, dgs, dev, seeded=False) -> RoundPlan:
     non-fresh (band state and row mask from the export), and there is no
     third branch: the banded-tile kernel has no row mask.
 
-    A round whose one instance's planes or tiles exceed the budget
-    raises ``RuntimeError`` naming the bytes."""
+    budget: the plane bytes a launch may take (default
+    ``_plane_budget(dev)``). A round whose one instance's planes or tiles
+    exceed the budget raises ``RuntimeError`` naming the bytes."""
     from ..align.export import make_pallas_inputs, pick_WB
     from ..ops import band_dp, fw_dp, tile_dp
     R = dgs[0].R
@@ -233,7 +290,8 @@ def round_plan(params, dgs, dev, seeded=False) -> RoundPlan:
     made = [make_pallas_inputs(dg, params, WB, force_Wq=WqB if band else Wq,
                                bt_lmax=LMAX) for dg in dgs]
     c0 = made[0][0]
-    budget = _plane_budget(dev)
+    if budget is None:
+        budget = _plane_budget(dev)
     if band:
         cfg = band_dp.BandConfig(
             gap_mode=c0.gap_mode, pn=c0.pn, R=R, WB=WB, Wq=WqB, P=P_,
@@ -266,7 +324,7 @@ def round_plan(params, dgs, dev, seeded=False) -> RoundPlan:
     qmax = max(d.qlen for d in dgs)
     step_cap = min(hard_cap, (qmax + max(96, qmax // 4) + 63) // 64 * 64)
     return RoundPlan(band, name, kernel, cfg, [m[1] for m in made], chunk,
-                     step_cap)
+                     step_cap, per)
 
 
 class BatchPOA:
@@ -277,15 +335,34 @@ class BatchPOA:
     generate_consensus / output on them like the single-instance API).
     device: "cuda" (the kernels, the default) or "cpu" (their plain
     versions); there is no fallback from one to the other.
+    devices: a device list ("cuda:i" strings, torch.devices or "cpu";
+    entries may repeat) that replaces `device`: the batch's instances
+    split into one contiguous shard per entry, each launched on a stream
+    of its own (see the module docstring).
     """
 
-    def __init__(self, params: Params, device="cuda"):
+    def __init__(self, params: Params, device="cuda", devices=None):
         import dataclasses
+        from collections import Counter
         self.params = params
         # the oracle rebuilds (capacity fallbacks, amb_strand retries)
         # run on the host oracle whatever engine params names
         self.host_params = dataclasses.replace(params, engine="numpy")
-        self.device = resolve_device(device)
+        if devices is None:
+            devs = [resolve_device(device)]
+        else:
+            devs = [resolve_device(d) for d in devices]
+            if not devs:
+                raise ValueError("BatchPOA: devices is an empty list")
+        self.device = devs[0]
+        on_card = Counter(d for d in devs if d.type == "cuda")
+        self._shards = [_Shard(d, torch.cuda.Stream(d)
+                               if devices is not None and d.type == "cuda"
+                               else None, on_card.get(d, 1))
+                        for d in devs]
+        # per shard: its device and the instances it ran, summed over
+        # the launches of the run (a round group counts once per round)
+        self.shards = [{"device": str(d), "instances": 0} for d in devs]
         self.dp_cells = 0          # DP cells computed on the device
         self.dp_seconds = 0.0      # wall time of the device phases
         self.dp_intervals = []     # (t0, t1) per device phase
@@ -444,36 +521,60 @@ def batch_msa_from_files(params, fns, out, device="cuda"):
 
 
 def _dispatch(bp, group, dgs, r, seeded=False):
-    """Launch one round's DP + walk for a score-width group (in memory
-    chunks) and fetch misc and the capped step words (and, for seeded
-    windows, the band state of each window's rows). Yields one pending
-    handle per launch. The int64 words are fetched, not the band
-    kernel's int16 delta stream: at 64 instances the words' copy took
-    0.19 ms and the stream's copy and host decode 2.91 ms (chip_smoke.py
-    phase 3f, NVIDIA H100 80GB HBM3, 700.00 W)."""
-    dev = bp.device
-    plan = round_plan(bp.params, dgs, dev, seeded)
+    """Launch one round's DP + walk for a score-width group and fetch
+    misc and the capped step words (and, for seeded windows, the band
+    state of each window's rows). Yields one pending handle per launch.
+
+    The plan (kernel, geometry, fetch cap) is decided once for the whole
+    group, under the smallest budget of the shards' cards; the group then
+    splits into one contiguous share per shard, each chunked by its own
+    card's budget. Launches go out in waves, one chunk of every shard,
+    each wave launched whole before its results are fetched. The int64
+    words are fetched, not the band kernel's int16 delta stream: at 64
+    instances the words' copy took 0.19 ms and the stream's copy and
+    host decode 2.91 ms (chip_smoke.py phase 3f, NVIDIA H100 80GB HBM3,
+    700.00 W)."""
+    shards = bp._shards
+    budgets = [_plane_budget(sh.dev, sh.in_flight) for sh in shards]
+    plan = round_plan(bp.params, dgs, shards[0].dev, seeded,
+                      budget=min(budgets))
     step_cap = plan.step_cap
     if bp.s16_cap is not None:
         step_cap = max(2, min(step_cap, int(bp.s16_cap)))
-    for c0 in range(0, len(dgs), plan.chunk):
-        part = slice(c0, c0 + plan.chunk)
+    shares = []
+    for i, sh in enumerate(shards):
+        lo, hi = shard_bounds(len(dgs), len(shards), i)
+        bp.shards[i]["instances"] += hi - lo
+        chunk = budgets[i] // plan.per
+        shares.append([(sh, slice(c0, min(c0 + chunk, hi)))
+                       for c0 in range(lo, hi, chunk)])
+    for wave in itertools.zip_longest(*shares):
         t0 = time.perf_counter()
-        out = plan.kernel(plan.cfg, *plan.stack(part, dev))
-        misc = out.misc.cpu().numpy()
-        steps = out.steps[:, :step_cap].cpu().numpy()
-        pend = dict(group=group[part], r=r, misc=misc, steps=steps,
-                    steps_dev=out.steps)
-        if seeded:
-            nmax = max(d.n_rows for d in dgs[part])
-            pend["mpl"] = out.mpl[:, :nmax].cpu().numpy()
-            pend["mpr"] = out.mpr[:, :nmax].cpu().numpy()
-        t1 = time.perf_counter()
-        bp.launches[plan.name] += 1
-        bp.dp_seconds += t1 - t0
-        bp.dp_intervals.append((t0, t1))
-        bp.dp_cells += int(misc[:, L.M_CELLS].sum())
-        yield pend
+        launched = []
+        for sh, part in filter(None, wave):
+            with _on(sh):
+                inputs = plan.stack(part, sh.dev)
+                out = plan.kernel(plan.cfg, *inputs)
+                fetch = [out.misc, out.steps[:, :step_cap]]
+                if seeded:
+                    nmax = max(d.n_rows for d in dgs[part])
+                    fetch += [out.mpl[:, :nmax], out.mpr[:, :nmax]]
+            bp.launches[plan.name] += 1
+            host, ev = _enqueue_fetch(sh, fetch)
+            launched.append((part, host, ev, out.steps, inputs))
+        for part, host, ev, steps_dev, _inputs in launched:
+            if ev is not None:
+                ev.synchronize()
+            host = [h.numpy() for h in host]
+            pend = dict(group=group[part], r=r, misc=host[0],
+                        steps=host[1], steps_dev=steps_dev)
+            if seeded:
+                pend["mpl"], pend["mpr"] = host[2], host[3]
+            t1 = time.perf_counter()
+            bp.dp_seconds += t1 - t0
+            bp.dp_intervals.append((t0, t1))
+            bp.dp_cells += int(host[0][:, L.M_CELLS].sum())
+            yield pend
 
 
 class _Rounds:
@@ -727,11 +828,15 @@ class _DeviceLoop:
         self.instances = instances
         self.cfg = cfg
 
-    def _launch(self, part):
-        """Build one sub-batch's inputs, enqueue its loop and the copies of
-        its results to pinned host memory. Returns the pending handle."""
+    def _launch(self, shard, part):
+        """Build one sub-batch's inputs on the shard's device and stream,
+        enqueue its loop and the copies of its results to pinned host
+        memory there, with an event recorded on that stream after them.
+        Returns the pending handle, which holds the inputs until the
+        event has completed, so no input's memory goes back to the
+        caching allocator while the loop may still read it."""
         bp, params = self.bp, self.bp.params
-        dev = bp.device
+        dev = shard.dev
         cfg = self.cfg._replace(B=len(part))
         graphs = [self.abs_[k].graph for k in part]
         st, i2n, n2i, remain = pl.init_state_np(graphs, cfg)
@@ -746,34 +851,27 @@ class _DeviceLoop:
                 ql[r, b] = len(q)
                 if cfg.wmode:
                     qw[r, b, :len(q)] = bp._weight(k, r + 1, q)
-
-        def put(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(
-                dev, non_blocking=True)
-        st_d = pl.GState(*(put(x) for x in st))
-        psF, misc_d, s16_d = pl.poa_device_loop(
-            cfg, st_d, put(i2n), put(n2i), put(remain), put(qc), put(ql),
-            put(pl.make_scal_base(params, cfg)), int(params.wb),
-            int(round(params.wf * 1000)),
-            qw_rounds=put(qw) if cfg.wmode else None)
         maxlen = int(ql.max())
         cap = min(cfg.LS, (maxlen + max(96, maxlen // 4) + 63) // 64 * 64)
         if bp.s16_cap is not None:
             cap = max(2, min(cap, int(bp.s16_cap)))
-        s16_cap_d = s16_d[:, :, :cap // 2].contiguous()
-        if dev.type == "cuda":
-            # copies into pinned memory right after this part's last
-            # kernel, so the host waits for this part alone
-            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    for t in (misc_d, s16_cap_d, psF.fail)]
-            for h, t in zip(host, (misc_d, s16_cap_d, psF.fail)):
-                h.copy_(t, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-        else:
-            host = [misc_d, s16_cap_d, psF.fail]
-            ev = None
-        return part, cfg, host, ev, s16_d
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(
+                dev, non_blocking=True)
+        with _on(shard):
+            inputs = [pl.GState(*(put(x) for x in st))] + [
+                put(x) for x in (i2n, n2i, remain, qc, ql,
+                                 pl.make_scal_base(params, cfg))]
+            qw_d = put(qw) if cfg.wmode else None
+            psF, misc_d, s16_d = pl.poa_device_loop(
+                cfg, *inputs, int(params.wb), int(round(params.wf * 1000)),
+                qw_rounds=qw_d)
+            s16_cap_d = s16_d[:, :, :cap // 2].contiguous()
+        # the copies run on the shard's stream right after this part's
+        # last kernel, so the host waits for this part alone
+        host, ev = _enqueue_fetch(shard, (misc_d, s16_cap_d, psF.fail))
+        return part, cfg, host, ev, s16_d, (inputs, qw_d)
 
     def run(self):
         bp, params = self.bp, self.bp.params
@@ -785,15 +883,24 @@ class _DeviceLoop:
                                              None, 0, True)
                 ab.graph.topological_sort(params)
         live = [k for k, reads in enumerate(instances) if len(reads) >= 2]
-        if len(live) >= SPLIT_MIN:
-            mid = (len(live) + 1) // 2
-            parts = [live[:mid], live[mid:]]
-        else:
-            parts = [live]
+        # one contiguous shard of the live instances per device entry;
+        # two sub-batches within a shard pipeline its loop against the
+        # host replay
+        parts = []
+        for i, shard in enumerate(bp._shards):
+            lo, hi = shard_bounds(len(live), len(bp._shards), i)
+            mine = live[lo:hi]
+            bp.shards[i]["instances"] += len(mine)
+            if len(mine) >= SPLIT_MIN:
+                mid = (len(mine) + 1) // 2
+                parts += [(shard, mine[:mid]), (shard, mine[mid:])]
+            elif mine:
+                parts.append((shard, mine))
         bp.used_device_loop = True
+        bp.rounds += self.cfg.NR
         t_prev = time.perf_counter()
-        pends = [self._launch(part) for part in parts]
-        for part, cfg, host, ev, s16_d in pends:
+        pends = [self._launch(shard, part) for shard, part in parts]
+        for part, cfg, host, ev, s16_d, _inputs in pends:
             if ev is not None:
                 ev.synchronize()
             misc, s16w, failv = (h.numpy() for h in host)
@@ -802,7 +909,6 @@ class _DeviceLoop:
             bp.dp_seconds += t1 - t_prev
             bp.dp_intervals.append((t_prev, t1))
             t_prev = t1
-            bp.rounds += cfg.NR
             ok_mask = failv == 0
             bp.fallbacks += int((~ok_mask).sum())
             for b, k in enumerate(part):

@@ -67,6 +67,20 @@ Phases (each prints its own lines; any failed check exits non-zero):
      oracle's bytes (--engine numpy) with the serial engine's launch
      counts; -l -m 2 over 4 such files runs one B3 launch per round past
      4096 rows, no fallback, the oracle's bytes; e2e of each
+  13. shards -- BatchPOA(devices=...) over every visible card, or
+     ["cuda:0", "cuda:0"] on one card (each shard on its own stream):
+     64 x heter.fa golden with B1 and B2 once a round and sub-batch of
+     every shard, -m 1 and -m 2 equal to the serial oracle with the
+     plan's kernel once a round on every shard with work, N_SEEDED
+     config-5 instances equal to the oracle of their trim class, and
+     parallel/dryrun.py's dryrun_multidevice; e2e medians beside the
+     single-device ones of phases 4, 6 and 11
+  14. processes -- python -m abpoa_tpu_torch.parallel.scaling --procs 2
+     --device cuda (two fresh processes, gloo gather on process 0) over
+     64 x heter.fa (golden x 64) and --seeded --config5 over 64 instances
+     (the serial oracle); the 1-process and 2-process rates
+  15. fuzz -- abpoa_tpu_torch/tools/fuzz_device_loop.py on the card: 30
+     round-mode seeds, 10 batch-mode seeds, all clean
   3f. (run last, after the end-to-end phases) B1, B3 and B4 timed at the
      table's shape (B=8), at the B their path launches (B1 32, B3/B4 64,
      B4 1 per -S window), B5 at B=1 on heter.fa round 14, and sweep only
@@ -84,6 +98,7 @@ serial -S windows of 3f, 3e's round under round_B64_* keys; phase 3f's
 times as extra keys); the last line is {"ok": true, "device": {...}}.
 
     python chip_smoke.py --dp-only   # phases 1-3e and 3f, then stop
+    python chip_smoke.py --multi-only   # phases 1, 2 and 13-15
     python chip_smoke.py --baseline build/base   # 3f beside that checkout
 """
 import io
@@ -105,6 +120,7 @@ N_SEEDED = 256   # config-5-shaped instances of the seeded phase (1024
 #                  took over 60 s a run on the host's share of the work)
 QV_SEED = 77     # seed of the qv weights (integers in [1, 60) per base)
 REPS = 3         # timed slice runs after one warm-up
+E2E = {}         # single-device e2e medians by cell, for phase 13
 
 # the bound of a kernel: the larger of its bytes (inputs read once,
 # outputs written once) over the H100's HBM rate and its int32
@@ -513,6 +529,7 @@ def round_path_phase(dev, heter, n_inst=N_INST):
             check(all(c == [exp] for c in cons) and bp.fallbacks == 0,
                   f"round path {flag}: timed run != serial oracle")
         med = statistics.median(e2e)
+        E2E[f"heter64 {flag}"] = med
         say(f"round path {flag}: e2e {med:.4f} s median of {REPS} "
             f"{[round(x, 4) for x in e2e]}, device phases (upload, kernel, "
             f"fetch) {statistics.median(busy):.4f} s, host (sort, export, "
@@ -1008,10 +1025,10 @@ def window_kernel_phase(dev, heter):
     rounds = []
     plan0 = batch.round_plan
 
-    def capture(params_, dgs, dev_, seeded=False):
+    def capture(params_, dgs, dev_, seeded=False, **kw):
         if seeded:
             rounds.append(list(dgs))
-        return plan0(params_, dgs, dev_, seeded)
+        return plan0(params_, dgs, dev_, seeded, **kw)
     batch.round_plan = capture
     try:
         BatchPOA(params, device=dev).run_seeded(config5(heter, N_INST))
@@ -1598,6 +1615,7 @@ def seeded_phase(dev, heter):
         else:
             e2e.append(secs)
     med = statistics.median(e2e)
+    E2E["seeded-c5"] = med
     busy = bp.dp_busy_seconds()
     say(f"seeded: e2e {med:.4f} s median of {REPS} "
         f"{[round(x, 4) for x in e2e]}, windows/s {bp.windows / med:.1f}, "
@@ -1606,11 +1624,217 @@ def seeded_phase(dev, heter):
     return launches
 
 
+def shard_devices():
+    """Phase 13's device list: every visible card, or cuda:0 twice on a
+    host with one (two shards share the card, each on its own stream)."""
+    import torch
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n >= 2 else ["cuda:0"] * 2
+
+
+def seeded_text(params, insts):
+    """The port's serial oracle output (consensus FASTA) of each of
+    `insts`, on the host."""
+    import dataclasses
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.alphabet import decode_table
+    host = dataclasses.replace(params, engine="numpy")
+    dt = decode_table(5)
+    out = []
+    for inst in insts:
+        buf = io.StringIO()
+        ABPOA().msa(host, [bytes(dt[b] for b in q).decode() for q in inst],
+                    out=buf)
+        out.append(buf.getvalue())
+    return out
+
+
+def shards_phase(heter):
+    """BatchPOA(devices=...) over shard_devices(): 64 x heter.fa (golden,
+    B1/B2 once a round and sub-batch of every shard), -m 1 and -m 2 (the
+    serial oracle, the plan's kernel once a round on every shard with
+    work), N_SEEDED config-5 instances (the oracle of each trim class) and
+    the dry run; e2e medians beside the single-device ones."""
+    import torch
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
+    from abpoa_tpu_torch.parallel.batch import SPLIT_MIN
+    from abpoa_tpu_torch.parallel.dryrun import dryrun_multidevice
+    from abpoa_tpu_torch.parallel.multihost import shard_bounds
+    t_phase = time.perf_counter()
+    devs = shard_devices()
+    D = len(devs)
+    cards = len(set(devs))
+    say(f"shards: device list {devs} ({cards} card(s)"
+        + (", one card shared: not scaling" if cards == 1 else "") + ")")
+    sizes = [hi - lo for lo, hi in (shard_bounds(N_INST, D, i)
+                                    for i in range(D))]
+    n_sub = sum(2 if n >= SPLIT_MIN else int(n > 0) for n in sizes)
+    gold = GOLD.read_text().split("\n")[1]
+    med = {}
+
+    def timed(params, insts, **kw):
+        bp = BatchPOA(params, devices=devs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cons = bp.run_consensus(insts, **kw)
+        torch.cuda.synchronize()
+        return bp, cons, time.perf_counter() - t0
+
+    # device loop: 64 x heter.fa
+    reset_launches()
+    bp, cons, first = timed(Params().post_set(), [heter] * N_INST)
+    got = launches_now()
+    want = (len(heter) - 1) * n_sub
+    check(all(c == [gold] for c in cons) and bp.fallbacks == 0
+          and bp.used_device_loop, "shards: 64 x heter.fa != golden")
+    check(got["band_dp"] == got["graph_update"] == want
+          and got["band_dp_topo"] == got["fw_dp"] == got["tile_dp"]
+          == got["topo"] == 0,
+          f"shards: launches {got}, expected B1 = B2 = {want}")
+    e2e = []
+    for _ in range(REPS):
+        bp, cons, secs = timed(Params().post_set(), [heter] * N_INST)
+        check(all(c == [gold] for c in cons) and bp.fallbacks == 0,
+              "shards: timed run != golden")
+        e2e.append(secs)
+    med["heter64"] = statistics.median(e2e)
+    say(f"shards: {N_INST} x heter.fa golden over {D} shards "
+        f"{[s['instances'] for s in bp.shards]}, fallbacks 0, B1 = B2 = "
+        f"{want} launches ({n_sub} sub-batches x {len(heter) - 1} rounds), "
+        f"first run {first:.4f} s, e2e {med['heter64']:.4f} s median of "
+        f"{REPS} {[round(x, 4) for x in e2e]}")
+
+    # round path: -m 1 (B4), -m 2 (B3)
+    for flag, mode, name in (("-m 1", LOCAL_MODE, "fw_dp"),
+                             ("-m 2", EXTEND_MODE, "band_dp_topo")):
+        def params():
+            p = Params()
+            p.align_mode = mode
+            return p.post_set()
+        exp = serial_consensus(params(), HETER)
+        reset_launches()
+        bp, cons, secs = timed(params(), [heter] * N_INST)
+        got = launches_now()
+        plan = bp.rounds * min(D, N_INST)
+        check(all(c == [exp] for c in cons) and bp.fallbacks == 0
+              and not bp.used_device_loop,
+              f"shards {flag}: consensus != serial oracle")
+        check(got[name] == bp.launches[name] == plan
+              and sum(got.values()) == plan,
+              f"shards {flag}: launches {got}, plan {plan}")
+        med[f"heter64 {flag}"] = secs
+        say(f"shards {flag}: {N_INST} x heter.fa == serial oracle, "
+            f"fallbacks 0, {name} launched {plan} = {bp.rounds} rounds x "
+            f"{min(D, N_INST)} shards, one run {secs:.4f} s")
+
+    # seeded windows: N_SEEDED config-5 instances
+    params = seeded_params()
+    insts = config5(heter, N_SEEDED)
+    exp = seeded_text(params, insts[:5])
+    e2e = []
+    for rep in range(REPS + 1):
+        reset_launches()
+        bp, cons, secs = timed(params, insts, seeded=True)
+        got = launches_now()
+        check(all(f">Consensus_sequence\n{c[0]}\n" == exp[k % 5]
+                  and len(c) == 1 for k, c in enumerate(cons)),
+              "shards seeded: consensus != serial oracle of its trim class")
+        check(bp.fallbacks == 0 and got["band_dp_topo"] > 0
+              and {k: got[k] for k in bp.launches} == bp.launches
+              and got["band_dp"] == got["graph_update"] == 0,
+              f"shards seeded: fallbacks {bp.fallbacks}, launches {got}, "
+              f"plan {bp.launches}")
+        if rep:
+            e2e.append(secs)
+    med["seeded-c5"] = statistics.median(e2e)
+    say(f"shards seeded: {N_SEEDED} config-5 instances == serial oracle, "
+        f"fallbacks 0, {bp.windows} windows, launches {bp.launches}, e2e "
+        f"{med['seeded-c5']:.4f} s median of {REPS} "
+        f"{[round(x, 4) for x in e2e]}")
+
+    t0 = time.perf_counter()
+    summary = dryrun_multidevice(devs)
+    say(f"shards dryrun: {summary}, {time.perf_counter() - t0:.3f} s")
+    say("shards: e2e (s) over " + str(devs) + " against one device: "
+        + json.dumps({k: [v, E2E.get(k, "not run")]
+                      for k, v in med.items()}))
+    say(f"shards: phase {time.perf_counter() - t_phase:.1f} s")
+    return med
+
+
+def procs_phase():
+    """The launcher with --procs 2 on the card: 64 x heter.fa (golden x
+    64), then --seeded --config5 over 64 instances (the serial oracle of
+    each trim class); the 1-process and 2-process rates."""
+    import tempfile
+    t_phase = time.perf_counter()
+    params = seeded_params()
+    exp_seeded = seeded_text(params, config5(reads_of(HETER), 5))
+    out = {}
+    for name, extra, want in (
+            ("plain", [], GOLD.read_text() * N_INST),
+            ("seeded", ["--seeded", "--config5"],
+             "".join(exp_seeded[k % 5] for k in range(N_INST)))):
+        with tempfile.TemporaryDirectory() as tmp:
+            fa = pathlib.Path(tmp) / "gathered.fa"
+            cmd = [sys.executable, "-m", "abpoa_tpu_torch.parallel.scaling",
+                   "--procs", "2", "--device", "cuda",
+                   "--instances", str(N_INST), "--fixture", "heter.fa",
+                   "--out", str(fa)] + extra
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                               text=True, timeout=400)
+            secs = time.perf_counter() - t0
+            check(r.returncode == 0, f"procs {name}: launcher exited "
+                  f"{r.returncode}:\n{r.stdout}\n{r.stderr[-4000:]}")
+            got = fa.read_text()
+        lines = [json.loads(x) for x in r.stdout.strip().splitlines()]
+        summary = lines[-1]
+        check(got == want, f"procs {name}: gathered bytes != expected")
+        check(lines[2]["text_bytes"] is None
+              and lines[1]["text_bytes"] == len(got)
+              and all(ln["foreign_modules"] == [] for ln in lines[:-1])
+              and all(ln["fallbacks"] == 0 for ln in lines[:-1]),
+              f"procs {name}: worker lines {lines[:-1]}")
+        out[name] = summary
+        say(f"procs {name}: 2 processes gathered {N_INST} outputs == "
+            + ("golden" if name == "plain" else "serial oracle")
+            + f"; rate 1 process {summary['windows_per_s_1host']:.2f}/s, "
+            f"2 processes {summary['windows_per_s_Nhosts']:.2f}/s, "
+            f"cards {summary['cards']}"
+            + (" (one card shared: not scaling)" if summary["cards"] == 1
+               else "") + f"; launcher {secs:.1f} s")
+    say(f"procs: phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def fuzz_phase():
+    """The device-loop fuzzer on the card: 30 round-mode seeds, 10
+    batch-mode seeds, all clean."""
+    import contextlib
+    from abpoa_tpu_torch.tools.fuzz_device_loop import main as fuzz
+    for mode, n in (("round", 30), ("batch", 10)):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fuzz(["--n", str(n), "--start", "0", "--device", "cuda",
+                       "--mode", mode, "--keep-going"])
+        lines = buf.getvalue().strip().splitlines()
+        check(rc == 0, f"fuzz {mode}: " + "\n".join(
+            ln for ln in lines if "FAIL" in ln or "ERROR" in ln))
+        say(f"fuzz {mode}: {n} seeds clean "
+            f"({sum(' ok ' in ln for ln in lines)} ok, "
+            f"{sum('skip' in ln for ln in lines)} skipped at init), "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
 def main(argv):
     # --dp-only: the card, the build, phases 3-3e (the kernels against
     # their plain versions) and 3f (the DP kernels' times), then stop;
     # --baseline DIR: phase 3f also times an earlier checkout's DP kernels
     dp_only = "--dp-only" in argv
+    multi_only = "--multi-only" in argv
     base_dir = argv[argv.index("--baseline") + 1] if "--baseline" in argv \
         else None
     try:
@@ -1647,8 +1871,16 @@ def main(argv):
     say(f"build: {build_s:.3f} s ({', '.join(p.name for p in libs.values())}"
         f"; nvcc {_build.build_seconds or 0:.3f} s)")
 
-    # ---- 3. device-loop kernels vs plain ----
     heter = reads_of(HETER)
+    if multi_only:
+        # ---- 13-15 alone: shards, processes, the fuzzer ----
+        shards_phase(heter)
+        procs_phase()
+        fuzz_phase()
+        say(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
+
+    # ---- 3. device-loop kernels vs plain ----
     rec = kernel_phase(dev, heter)
 
     # ---- 3b. round-path kernels vs plain ----
@@ -1719,6 +1951,7 @@ def main(argv):
         check(all(c == [gold] for c in cons) and bp.fallbacks == 0,
               "slice: timed run != golden")
     med = statistics.median(e2e)
+    E2E["heter64"] = med
     say(f"slice: e2e {med:.4f} s median of {REPS} {[round(x, 4) for x in e2e]}"
         f", device-loop phase {bp.dp_busy_seconds():.4f} s, dp_cells "
         f"{bp.dp_cells}, dp_cells/s {bp.dp_cells / med:.1f}")
@@ -1757,6 +1990,15 @@ def main(argv):
 
     # ---- 12. long reads: past 4096 graph nodes ----
     long_rec = long_read_phase()
+
+    # ---- 13. shards: BatchPOA(devices=...) ----
+    shards_phase(heter)
+
+    # ---- 14. processes: the launcher, gloo gather ----
+    procs_phase()
+
+    # ---- 15. the device-loop fuzzer ----
+    fuzz_phase()
 
     # ---- 3f, after the end-to-end phases (its buffers and builds do not
     # weigh on their times) ----
