@@ -50,9 +50,22 @@ Each shard launches on a CUDA stream of its own (entries may repeat a
 card), all shards are launched before any result is fetched, and all
 launches come from the calling thread (the wrappers' launch counts are
 plain integers). The outputs equal the single-device run byte for byte.
+
+Host/device pipeline (``BatchPOA(pipeline=True)``, the default, as in
+the JAX package): a round-path batch of 4 or more instances splits
+round-robin into ``min(N_SHARDS, n // 4)`` shards, and a seeded batch
+of 8 or more into two groups (instance k in group k % 2). Each shard
+keeps its own round counter, re-pads to its own maxima and plans its
+own rounds; every idle shard's round is prepared and launched on
+streams of its own, then the oldest shard in flight is collected and
+fused while the others' rounds are on the device (``_pipeline``,
+``_Job``). ``pipeline=False``, or a smaller batch, runs every round in
+lockstep: the one-shard case of the same code. The outputs equal the
+lockstep run byte for byte; launch counts follow each shard's plan.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import threading
@@ -131,10 +144,12 @@ def _make_aligners(instances, params, init=None):
 def _step_stream(pend, steps, b, nst):
     """Instance b's step words. A stream longer than the fetch cap (long
     deletion runs) is refetched from the device tensor kept in the
-    pending handle."""
+    pending handle, on the stream of the shard that wrote it (another
+    shard's kernel may be in flight on its own stream)."""
     srow = steps[b]
     if nst > srow.shape[0]:
-        srow = pend["steps_dev"][b, :nst].cpu().numpy()
+        with _on(pend["shard"]):
+            srow = pend["steps_dev"][b, :nst].cpu().numpy()
     return srow
 
 
@@ -222,8 +237,9 @@ def _on(shard: _Shard):
 
 def _enqueue_fetch(shard: _Shard, tensors):
     """Enqueue copies of `tensors` to pinned host memory on the shard's
-    stream and record an event on that same stream after them. Returns
-    (host tensors, event); on the CPU (the tensors, None)."""
+    stream and record an event (one that can be timed) on that same
+    stream after them. Returns (host tensors, event); on the CPU (the
+    tensors, None)."""
     if shard.dev.type != "cuda":
         return list(tensors), None
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -232,7 +248,7 @@ def _enqueue_fetch(shard: _Shard, tensors):
         stream = torch.cuda.current_stream(shard.dev)
         for h, t in zip(host, tensors):
             h.copy_(t, non_blocking=True)
-        ev = torch.cuda.Event()
+        ev = torch.cuda.Event(enable_timing=True)
         ev.record(stream)
     return host, ev
 
@@ -339,9 +355,14 @@ class BatchPOA:
     entries may repeat) that replaces `device`: the batch's instances
     split into one contiguous shard per entry, each launched on a stream
     of its own (see the module docstring).
+    pipeline: overlap host work with device rounds, as the JAX package
+    does (see the module docstring); False runs every round in lockstep.
     """
 
-    def __init__(self, params: Params, device="cuda", devices=None):
+    N_SHARDS = 4      # pipeline shards of the round path at most
+
+    def __init__(self, params: Params, device="cuda", devices=None,
+                 pipeline=True):
         import dataclasses
         from collections import Counter
         self.params = params
@@ -355,6 +376,7 @@ class BatchPOA:
             if not devs:
                 raise ValueError("BatchPOA: devices is an empty list")
         self.device = devs[0]
+        self.pipeline = pipeline
         on_card = Counter(d for d in devs if d.type == "cuda")
         self._shards = [_Shard(d, torch.cuda.Stream(d)
                                if devices is not None and d.type == "cuda"
@@ -363,6 +385,11 @@ class BatchPOA:
         # per shard: its device and the instances it ran, summed over
         # the launches of the run (a round group counts once per round)
         self.shards = [{"device": str(d), "instances": 0} for d in devs]
+        # per pipeline shard of the last round-path or seeded run: its
+        # instances, its rounds and its launches by kernel (one entry in
+        # lockstep)
+        self.pipeline_shards = []
+        self._lane_sets = {}
         self.dp_cells = 0          # DP cells computed on the device
         self.dp_seconds = 0.0      # wall time of the device phases
         self.dp_intervals = []     # (t0, t1) per device phase
@@ -379,6 +406,27 @@ class BatchPOA:
         self._weights = None       # per-instance per-read qv weights
         self._rid0 = []
         self._lock = threading.Lock()
+
+    def _lanes(self, n_shards):
+        """The device entries of each of `n_shards` pipeline shards. One
+        shard runs on the device list itself; with more, every shard has
+        a stream of its own on each entry, and a launch's plane budget is
+        divided among the launches that may share a card at once."""
+        if n_shards == 1:
+            return [self._shards]
+        if n_shards not in self._lane_sets:
+            self._lane_sets[n_shards] = [
+                [_Shard(sh.dev, torch.cuda.Stream(sh.dev)
+                        if sh.dev.type == "cuda" else None,
+                        sh.in_flight * n_shards) for sh in self._shards]
+                for _ in range(n_shards)]
+        return self._lane_sets[n_shards]
+
+    def _pipeline_records(self, members):
+        self.pipeline_shards = [
+            {"instances": len(m), "rounds": 0,
+             "launches": dict.fromkeys(self.launches, 0)} for m in members]
+        return self.pipeline_shards
 
     def _amb_flagged(self, ab, q, score: int) -> bool:
         """Ambiguous-strand retry threshold (ref abpoa_align.c:315)."""
@@ -474,12 +522,13 @@ class BatchPOA:
         return list(_host_pool().map(cons_one, abs_))
 
 
-def batch_msa_from_files(params, fns, out, device="cuda"):
+def batch_msa_from_files(params, fns, out, device="cuda", pipeline=True):
     """Batched CLI list mode (-l): one POA instance per input file, outputs
     rendered in file order, byte-identical to running abpoa_msa1 serially
     per file (ref src/abpoa_align.c:439-503). Incremental graphs (-i):
     every instance restores the same initial graph before its reads
-    fuse."""
+    fuse. pipeline: BatchPOA's. Returns the BatchPOA that ran (its
+    counters), or None when no file had a record."""
     from ..seqio import read_seqs
     from ..alphabet import encode_table
     tab = encode_table(params.m)
@@ -500,14 +549,14 @@ def batch_msa_from_files(params, fns, out, device="cuda"):
             weights.append([[ord(c) - 32 for c in r.qual] if r.qual
                             else [1] * len(r.seq) for r in recs])
     if not instances:
-        return
+        return None
     init = None
     if params.incr_fn:
         from ..gfa import restore_graph
 
         def init(ab):
             restore_graph(ab, params)
-    bp = BatchPOA(params, device)
+    bp = BatchPOA(params, device, pipeline=pipeline)
     # -S/-p in global mode: seeded window rounds (ref abpoa_msa)
     seeded = (not (params.disable_seeding and not params.progressive_poa)
               and params.align_mode == GLOBAL_MODE)
@@ -518,63 +567,141 @@ def batch_msa_from_files(params, fns, out, device="cuda"):
         # the input file's record names
         ab.names = list(ab.names[:ab.n_seq - len(nm)]) + nm
         ab.output(params, out)
+    return bp
 
 
-def _dispatch(bp, group, dgs, r, seeded=False):
-    """Launch one round's DP + walk for a score-width group and fetch
-    misc and the capped step words (and, for seeded windows, the band
-    state of each window's rows). Yields one pending handle per launch.
+def _pipeline(n_shards, prepare, finish):
+    """The host/device schedule of the JAX package's ``_run_pipelined``
+    (and of its two seeded groups): every idle shard with rounds left is
+    prepared and launched (``prepare(s)``: the shard's next round with
+    its launch half done, or None when it has no round left); then the
+    oldest shard in flight is collected and fused (``finish(s,
+    pending)``) and its slot freed. One shard is lockstep: each round is
+    launched, then collected at once."""
+    pending = [None] * n_shards
+    done = [False] * n_shards
+    fifo = collections.deque()
+    while True:
+        for s in range(n_shards):
+            if pending[s] is None and not done[s]:
+                pending[s] = prepare(s)
+                if pending[s] is None:
+                    done[s] = True
+                else:
+                    fifo.append(s)
+        if not fifo:
+            return
+        s = fifo.popleft()
+        finish(s, pending[s])
+        pending[s] = None
 
-    The plan (kernel, geometry, fetch cap) is decided once for the whole
-    group, under the smallest budget of the shards' cards; the group then
-    splits into one contiguous share per shard, each chunked by its own
-    card's budget. Launches go out in waves, one chunk of every shard,
-    each wave launched whole before its results are fetched. The int64
-    words are fetched, not the band kernel's int16 delta stream: at 64
-    instances the words' copy took 0.19 ms and the stream's copy and
-    host decode 2.91 ms (chip_smoke.py phase 3f, NVIDIA H100 80GB HBM3,
-    700.00 W)."""
-    shards = bp._shards
-    budgets = [_plane_budget(sh.dev, sh.in_flight) for sh in shards]
-    plan = round_plan(bp.params, dgs, shards[0].dev, seeded,
-                      budget=min(budgets))
-    step_cap = plan.step_cap
-    if bp.s16_cap is not None:
-        step_cap = max(2, min(step_cap, int(bp.s16_cap)))
-    shares = []
-    for i, sh in enumerate(shards):
-        lo, hi = shard_bounds(len(dgs), len(shards), i)
-        bp.shards[i]["instances"] += hi - lo
-        chunk = budgets[i] // plan.per
-        shares.append([(sh, slice(c0, min(c0 + chunk, hi)))
-                       for c0 in range(lo, hi, chunk)])
-    for wave in itertools.zip_longest(*shares):
+
+class _Job:
+    """The device work of one round (or window round) of one pipeline
+    shard: the DP + walk of each score-width group, split over the
+    shard's device entries (``lanes``) and chunked by their memory
+    budgets.
+
+    Constructing a job is the launch half: the first group's plan
+    (kernel, geometry, fetch cap) is decided under the smallest budget
+    of the lanes' cards, the group splits into one contiguous share per
+    lane, and the first wave (one chunk of every lane) is launched, its
+    results copied to pinned host memory behind an event on each lane's
+    stream; nothing waits. ``collect`` is the collect half: it waits on
+    each launch's event and yields what the fusion reads (misc, the
+    capped step words, for seeded windows the band state of each
+    window's rows), then launches the next wave or group. Each launch
+    handle keeps its inputs and outputs until its wave has been
+    collected. The int64 words are fetched, not the band kernel's int16
+    delta stream: at 64 instances the words' copy took 0.19 ms and the
+    stream's copy and host decode 2.91 ms (chip_smoke.py phase 3f,
+    NVIDIA H100 80GB HBM3, 700.00 W).
+
+    A launch's device phase (upload, kernel, fetch) is timed from the
+    host clock before its upload: on a card to that time plus the
+    device time between an event before the upload and the fetch's
+    event, on the CPU to the end of the plain version; so the interval
+    does not grow while the host fuses another shard."""
+
+    def __init__(self, bp, lanes, groups, r, rec, seeded=False):
+        self.bp, self.lanes, self.r = bp, lanes, r
+        self.rec, self.seeded = rec, seeded
+        self.groups = iter(groups)     # (instances, exports) per pn
+        self.waves = iter(())
+        self.handles = self._launch_next()
+
+    def _plan(self, group, dgs):
+        bp = self.bp
+        budgets = [_plane_budget(sh.dev, sh.in_flight) for sh in self.lanes]
+        plan = round_plan(bp.params, dgs, self.lanes[0].dev, self.seeded,
+                          budget=min(budgets))
+        self.step_cap = plan.step_cap
+        if bp.s16_cap is not None:
+            self.step_cap = max(2, min(self.step_cap, int(bp.s16_cap)))
+        shares = []
+        for i, sh in enumerate(self.lanes):
+            lo, hi = shard_bounds(len(dgs), len(self.lanes), i)
+            bp.shards[i]["instances"] += hi - lo
+            chunk = budgets[i] // plan.per
+            shares.append([(sh, slice(c0, min(c0 + chunk, hi)))
+                           for c0 in range(lo, hi, chunk)])
+        self.plan, self.group, self.dgs = plan, group, dgs
+        self.waves = itertools.zip_longest(*shares)
+
+    def _launch_next(self):
+        wave = next(self.waves, None)
+        if wave is None:
+            nxt = next(self.groups, None)
+            if nxt is None:
+                return []
+            self._plan(*nxt)
+            wave = next(self.waves)
+        return [self._launch(sh, part) for sh, part in filter(None, wave)]
+
+    def _launch(self, sh, part):
+        bp, plan = self.bp, self.plan
         t0 = time.perf_counter()
-        launched = []
-        for sh, part in filter(None, wave):
-            with _on(sh):
-                inputs = plan.stack(part, sh.dev)
-                out = plan.kernel(plan.cfg, *inputs)
-                fetch = [out.misc, out.steps[:, :step_cap]]
-                if seeded:
-                    nmax = max(d.n_rows for d in dgs[part])
-                    fetch += [out.mpl[:, :nmax], out.mpr[:, :nmax]]
-            bp.launches[plan.name] += 1
-            host, ev = _enqueue_fetch(sh, fetch)
-            launched.append((part, host, ev, out.steps, inputs))
-        for part, host, ev, steps_dev, _inputs in launched:
-            if ev is not None:
-                ev.synchronize()
-            host = [h.numpy() for h in host]
-            pend = dict(group=group[part], r=r, misc=host[0],
-                        steps=host[1], steps_dev=steps_dev)
-            if seeded:
-                pend["mpl"], pend["mpr"] = host[2], host[3]
-            t1 = time.perf_counter()
-            bp.dp_seconds += t1 - t0
-            bp.dp_intervals.append((t0, t1))
-            bp.dp_cells += int(host[0][:, L.M_CELLS].sum())
-            yield pend
+        start = None
+        with _on(sh):
+            if sh.dev.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(torch.cuda.current_stream(sh.dev))
+            inputs = plan.stack(part, sh.dev)
+            out = plan.kernel(plan.cfg, *inputs)
+            fetch = [out.misc, out.steps[:, :self.step_cap]]
+            if self.seeded:
+                nmax = max(d.n_rows for d in self.dgs[part])
+                fetch += [out.mpl[:, :nmax], out.mpr[:, :nmax]]
+        bp.launches[plan.name] += 1
+        self.rec["launches"][plan.name] += 1
+        host, ev = _enqueue_fetch(sh, fetch)
+        return dict(shard=sh, group=self.group[part], host=host, ev=ev,
+                    start=start, t0=t0, t_done=time.perf_counter(),
+                    out=out, inputs=inputs)
+
+    def collect(self):
+        while self.handles:
+            for h in self.handles:
+                yield self._fetched(h)
+            self.handles = []          # free the wave before the next plan
+            self.handles = self._launch_next()
+
+    def _fetched(self, h):
+        bp = self.bp
+        if h["ev"] is not None:
+            h["ev"].synchronize()
+            t1 = h["t0"] + h["start"].elapsed_time(h["ev"]) / 1e3
+        else:
+            t1 = h["t_done"]
+        host = [x.numpy() for x in h["host"]]
+        pend = dict(group=h["group"], r=self.r, misc=host[0], steps=host[1],
+                    steps_dev=h["out"].steps, shard=h["shard"])
+        if self.seeded:
+            pend["mpl"], pend["mpr"] = host[2], host[3]
+        bp.dp_seconds += t1 - h["t0"]
+        bp.dp_intervals.append((h["t0"], t1))
+        bp.dp_cells += int(host[0][:, L.M_CELLS].sum())
+        return pend
 
 
 class _Rounds:
@@ -588,24 +715,59 @@ class _Rounds:
         self.instances = instances
 
     def run(self):
+        """The rounds of every instance. From 4 instances on (pipeline
+        on) the instances split round-robin into S = min(N_SHARDS, n //
+        4) shards, each with its own round counter, and ``_pipeline``
+        overlaps one shard's host work with the others' device rounds;
+        every prepared shard round counts in ``rounds``, as in the JAX
+        package. Else one shard in lockstep, where a round with no DP
+        (read 0 only) is not counted."""
+        bp, instances = self.bp, self.instances
+        n = len(instances)
+        pipelined = bp.pipeline and n >= 4
+        S = min(bp.N_SHARDS, max(1, n // 4)) if pipelined else 1
+        members = [list(range(s, n, S)) for s in range(S)]
+        lanes = bp._lanes(S)
+        recs = bp._pipeline_records(members)
+        n_rounds = [max((len(instances[k]) for k in m), default=0)
+                    for m in members]
+        next_r = [0] * S
+
+        def prepare(s):
+            if next_r[s] >= n_rounds[s]:
+                return None
+            next_r[s] += 1
+            return self._prepare(members[s], next_r[s] - 1, lanes[s],
+                                 recs[s], pipelined)
+
+        def finish(_s, job):
+            for pend in job.collect():
+                self._collect(pend)
+        _pipeline(S, prepare, finish)
+
+    def _prepare(self, members, r, lanes, rec, count_empty):
+        """Round r of one shard's instances, up to its launch: read-0
+        fusion, then sort + export on the host pool, a re-pad to this
+        shard's R/W/P/O maxima and one plan per score-width group."""
         bp, params = self.bp, self.bp.params
         abs_, instances = self.abs_, self.instances
-        n_rounds = max((len(r) for r in instances), default=0)
-        for r in range(n_rounds):
-            live = [k for k, reads in enumerate(instances) if r < len(reads)]
-            # first read / empty graph: straight fusion, no DP
-            todo = []
-            for k in live:
-                ab, q = abs_[k], instances[k][r]
-                if ab.graph.node_n <= 2:
-                    ab.graph.add_graph_alignment(params, q,
-                                                 bp._weight(k, r, q), [],
-                                                 None, bp._rid(k, r), True)
-                else:
-                    todo.append(k)
-            if not todo:
+        todo = []
+        for k in members:
+            if r >= len(instances[k]):
                 continue
-            # two-pass export: natural buckets, then re-pad to group max
+            ab, q = abs_[k], instances[k][r]
+            # first read / empty graph: straight fusion, no DP
+            if ab.graph.node_n <= 2:
+                ab.graph.add_graph_alignment(params, q, bp._weight(k, r, q),
+                                             [], None, bp._rid(k, r), True)
+            else:
+                todo.append(k)
+        if todo or count_empty:
+            bp.rounds += 1
+            rec["rounds"] += 1
+        groups = []
+        if todo:
+            # two-pass export: natural buckets, then re-pad to shard max
             from ..align.export import export_dense
 
             def sort_export(k):
@@ -620,10 +782,9 @@ class _Rounds:
             O_ = max(d.O for d in nat.values())
             for pn in sorted({d.pn for d in nat.values()}):
                 group = [k for k in todo if nat[k].pn == pn]
-                dgs = [repad_dense(nat[k], R, W, P_, O_) for k in group]
-                for pend in _dispatch(bp, group, dgs, r):
-                    self._collect(pend)
-            bp.rounds += 1
+                groups.append((group, [repad_dense(nat[k], R, W, P_, O_)
+                                       for k in group]))
+        return _Job(bp, lanes, groups, r, rec)
 
     def _collect(self, pend):
         """Fuse a launch's results into the host graphs (per instance, on
@@ -737,42 +898,72 @@ class _Windows:
                                           arena=ab.arena)
 
     def run(self):
-        # the host work runs on the calling thread: it is short Python and
-        # numpy steps per window, which a thread pool only serialises on
-        # the GIL (3-4x slower per window, measured)
+        """Window rounds until every generator is done. From 8 instances
+        on (pipeline on) two groups, instance k in group k % 2, take
+        turns through ``_pipeline``: while one group's window round is
+        on the device, the other's results are applied, its generators
+        advance and its next windows are exported. The host work runs on
+        the calling thread: it is short Python and numpy steps per
+        window, which a thread pool only serialises on the GIL (3-4x
+        slower per window, measured)."""
         bp = self.bp
-        started = [self._start(k) for k in range(len(self.instances))]
+        n = len(self.instances)
+        S = 2 if bp.pipeline and n >= 8 else 1
+        members = [[k for k in range(n) if k % S == s] for s in range(S)]
+        started = [self._start(k) for k in range(n)]
         self.gens = [gen for gen, _ in started]
-        reqs = {k: req for k, (_, req) in enumerate(started)
-                if req is not None}
-        while reqs:
-            todo = sorted(reqs)
-            dgs = {k: self._export(k, reqs[k]) for k in todo}
-            results = {}
-            for k in todo:
-                if dgs[k] is None:
-                    # an empty window has no DP: the oracle, as in the JAX
-                    # package (an empty graph aligns nothing)
-                    if self.abs_[k].graph.node_n > 2:
-                        bp.empty_windows += 1
-                    results[k] = self._oracle(k, reqs[k])
-            live = [k for k in todo if dgs[k] is not None]
-            if live:
-                R = max(dgs[k].R for k in live)
-                W = max(dgs[k].W for k in live)
-                P_ = max(dgs[k].P for k in live)
-                O_ = max(dgs[k].O for k in live)
-                for pn in sorted({dgs[k].pn for k in live}):
-                    group = [k for k in live if dgs[k].pn == pn]
-                    padded = [repad_dense(dgs[k], R, W, P_, O_)
-                              for k in group]
-                    for pend in _dispatch(bp, group, padded, bp.rounds,
-                                          seeded=True):
-                        results.update(self._apply(pend, reqs, dgs))
-                bp.windows += len(live)
-            bp.rounds += 1
-            reqs = {k: req for k in todo
-                    if (req := self._advance(k, results[k])) is not None}
+        reqs = [{k: started[k][1] for k in m if started[k][1] is not None}
+                for m in members]
+        lanes = bp._lanes(S)
+        recs = bp._pipeline_records(members)
+
+        def prepare(s):
+            return self._prepare(reqs[s], lanes[s], recs[s]) if reqs[s] \
+                else None
+
+        def finish(s, state):
+            reqs[s] = self._finish(reqs[s], *state)
+        _pipeline(S, prepare, finish)
+
+    def _prepare(self, reqs, lanes, rec):
+        """One group's window round up to its launch: each pending
+        window exported (subgraph + row mask), re-padded to the round's
+        maxima, one plan per score-width group. Returns (instances,
+        exports, host-only instances, job)."""
+        bp = self.bp
+        todo = sorted(reqs)
+        dgs = {k: self._export(k, reqs[k]) for k in todo}
+        host_only = [k for k in todo if dgs[k] is None]
+        # an empty window has no DP: the oracle, as in the JAX package
+        # (an empty graph aligns nothing)
+        bp.empty_windows += sum(self.abs_[k].graph.node_n > 2
+                                for k in host_only)
+        live = [k for k in todo if dgs[k] is not None]
+        groups = []
+        if live:
+            R = max(dgs[k].R for k in live)
+            W = max(dgs[k].W for k in live)
+            P_ = max(dgs[k].P for k in live)
+            O_ = max(dgs[k].O for k in live)
+            for pn in sorted({dgs[k].pn for k in live}):
+                group = [k for k in live if dgs[k].pn == pn]
+                groups.append((group, [repad_dense(dgs[k], R, W, P_, O_)
+                                       for k in group]))
+            bp.windows += len(live)
+        job = _Job(bp, lanes, groups, rec["rounds"], rec, seeded=True)
+        bp.rounds += 1
+        rec["rounds"] += 1
+        return todo, dgs, host_only, job
+
+    def _finish(self, reqs, todo, dgs, host_only, job):
+        """Collect one group's window round: the oracle for its
+        host-only windows, the device results applied, each generator
+        advanced. Returns the group's next requests."""
+        results = {k: self._oracle(k, reqs[k]) for k in host_only}
+        for pend in job.collect():
+            results.update(self._apply(pend, reqs, dgs))
+        return {k: req for k in todo
+                if (req := self._advance(k, results[k])) is not None}
 
     def _advance(self, k, result):
         """Send instance k's window result to its generator (which fuses

@@ -22,9 +22,16 @@ batch: random heterogeneous batches through ``BatchPOA(devices=...)
 shard count (1-3, repeating the card on a host with fewer), -s with a
 reverse-complemented read, a forced step-stream fetch cap of 2-64 (long
 streams refetch) and qv weights (integers 1-59: the graph kernel's
-wmode 1). It fails on any byte difference, and on fallbacks beyond the
-instances that the oracle's capacity rule flags (a graph past the loop's
-node, edge or aligned-list capacity, or a band past its segments).
+wmode 1); then, from a second stream (so the draws above stay those of
+the seed), the host/device pipeline on or off, the instance count
+(raised to 3, 4, 8 or 16, across the pipeline's thresholds, with
+instances of 2-4 reads of 40-150 bp) and the
+path: the device loop, or the round path in extend mode (-m 2). It fails
+on any byte difference, on a pipeline shard count other than the
+thresholds give, on a round-path fallback, and on device-loop fallbacks
+beyond the instances that the oracle's capacity rule flags (a graph past
+the loop's node, edge or aligned-list capacity, or a band past its
+segments).
 
 A failing seed prints its parameters and the run exits 1; rerun it with
 --start SEED --n 1. Out of scope: the shapes of ROADMAP.md C3 (bands over
@@ -270,7 +277,7 @@ def run_batch_seed(seed: int, device="cpu") -> str:
     """One batch-mode seed; raises AssertionError on a mismatch."""
     import torch
     from ..parallel.batch import BatchPOA
-    from ..params import Params
+    from ..params import Params, GLOBAL_MODE, EXTEND_MODE
     rng = np.random.default_rng(888_000 + seed)
     n_shards = int(rng.integers(1, 4))
     if device == "cpu":
@@ -295,18 +302,37 @@ def run_batch_seed(seed: int, device="cpu") -> str:
         insts[k][r] = _revcomp(insts[k][r])
     weights = ([[rng.integers(1, 60, len(q)).tolist() for q in reads]
                 for reads in insts] if qv else None)
+    rng2 = np.random.default_rng(889_000 + seed)
+    pipeline = bool(rng2.random() < 0.5)
+    rounds = bool(rng2.random() < 0.5)
+    for _ in range(int(rng2.choice([3, 4, 8, 16])) - len(insts)):
+        insts.append(_gen_instance(rng2, int(rng2.integers(40, 150)),
+                                   int(rng2.integers(2, 5)), sub_p, ind_p))
+        if qv:
+            weights.append([rng2.integers(1, 60, len(q)).tolist()
+                            for q in insts[-1]])
     params = Params(gap_open1=gaps[0], gap_ext1=gaps[1], gap_open2=gaps[2],
-                    gap_ext2=gaps[3], wb=wb, amb_strand=amb).post_set()
+                    gap_ext2=gaps[3], wb=wb, amb_strand=amb,
+                    align_mode=EXTEND_MODE if rounds else GLOBAL_MODE
+                    ).post_set()
     exp, _abs = _oracle(params, insts, weights)
-    bp = BatchPOA(params, devices=devices)
+    bp = BatchPOA(params, devices=devices, pipeline=pipeline)
     bp.s16_cap = cap
     got = bp.run_consensus(insts, weights=weights)
-    desc = (f"shards={n_shards} n={n_inst} gaps={gaps} wb={wb} amb={amb} "
-            f"cap={cap} qv={qv}")
-    assert bp.used_device_loop, (desc, "the batch left the device loop")
+    n = len(insts)
+    desc = (f"shards={n_shards} n={n} gaps={gaps} wb={wb} amb={amb} "
+            f"cap={cap} qv={qv} pipeline={pipeline} "
+            f"path={'rounds' if rounds else 'loop'}")
+    assert bp.used_device_loop != rounds, (desc, "the batch took the "
+                                           "other path")
     bad = [k for k, (g, e) in enumerate(zip(got, exp)) if g != e]
     assert not bad, (desc, "consensus differs at instances", bad)
-    if bp.fallbacks:
+    if rounds:
+        want = min(BatchPOA.N_SHARDS, n // 4) if pipeline and n >= 4 else 1
+        assert len(bp.pipeline_shards) == want, \
+            (desc, f"{len(bp.pipeline_shards)} pipeline shards")
+        assert bp.fallbacks == 0, (desc, f"{bp.fallbacks} fallbacks")
+    elif bp.fallbacks:
         cfg = bp._loop_eligible(insts)
         flagged = sum(_capacity_flags(params, insts, weights, cfg))
         assert bp.fallbacks <= flagged, \

@@ -24,7 +24,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
   3d. B2's wmode-1 instance (qv weights) vs plain on the last round of
      64 x heter.fa with qv weights (rng 77), bit-equal; times
   3e. B3 non-fresh and B4 under the row mask vs plain on a real window
-     round of 64 config-5-shaped instances (-S), bit-equal; times
+     round of 64 config-5-shaped instances (-S, lockstep), bit-equal;
+     times
   4. device loop -- BatchPOA(device="cuda").run_consensus over
      64 x heter.fa: golden consensus bytes, no oracle fallback, every
      round through both kernels (launch counts); e2e seconds, DP cells/s
@@ -35,9 +36,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
   5. list mode -- batch_msa_from_files over 4 x heter.fa writes the
      golden bytes 4 times
   6. round path -- run_consensus over 64 x heter.fa with -m 1 (full-width
-     kernel) and -m 2 (topo band kernel): the consensus of the port's
-     serial oracle, no fallback, launch counts equal to the dispatch
-     plan; e2e seconds, device-phase seconds, DP cells/s
+     kernel) and -m 2 (topo band kernel), in the default mode (the
+     host/device pipeline: 4 shards of 16): the consensus of the port's
+     serial oracle, no fallback, each shard's launches and rounds equal
+     to its plan; e2e seconds, device-phase seconds, DP cells/s
   7. round-path list mode -- 4 x seq.fa with -m 1, -m 2, -b -1 and
      4 x prot.fa with -c give their goldens 4 times; -i seq.gfa equals
      the port's serial output
@@ -81,6 +83,15 @@ Phases (each prints its own lines; any failed check exits non-zero):
      (the serial oracle); the 1-process and 2-process rates
   15. fuzz -- abpoa_tpu_torch/tools/fuzz_device_loop.py on the card: 30
      round-mode seeds, 10 batch-mode seeds, all clean
+  16. pipeline -- BatchPOA(pipeline=True) against pipeline=False in one
+     call, in turns (lockstep, pipelined, pipelined, lockstep, lockstep,
+     pipelined after one checked warm-up each): heter64-local and
+     heter64-extend (run_consensus, the serial oracle), seeded-c5
+     (N_SEEDED instances, run_seeded: the oracle of each trim class) and
+     -l -m 1 over 64 x heter.fa (batch_msa_from_files, the CLI's list
+     mode: the serial CLI's bytes 64 times); every run without fallback,
+     each shard's launches as its plan implies; e2e medians of 3, device
+     busy seconds and launches per shard of each mode
   3f. (run last, after the end-to-end phases) B1, B3 and B4 timed at the
      table's shape (B=8), at the B their path launches (B1 32, B3/B4 64,
      B4 1 per -S window), B5 at B=1 on heter.fa round 14, and sweep only
@@ -91,14 +102,19 @@ Phases (each prints its own lines; any failed check exits non-zero):
      window of a CLI -S run (B=1, its serial path) bit-equal to the plain
      version, mean times a window; the round path's step fetch at
      heter64-extend's last round, as the int16 delta stream (and its host
-     decode) and as the int64 words
+     decode) and as the int64 words; B3 and B4 also at B=16 (a pipeline
+     shard of 64 instances); in 3e, B3 non-fresh on its window round's
+     exports repeated to B=128 (a seeded group of 256 instances) and
+     B=256 (their lockstep round)
 The line before the last is the kernels' JSON record (the window
 kernels as band_dp_topo_window: phase 3e's round, and fw_dp_window: the
-serial -S windows of 3f, 3e's round under round_B64_* keys; phase 3f's
+serial -S windows of 3f, 3e's round under round_B64_* keys, and 3e's
+round at B=128 and 256 under round_B128_ms, round_B256_ms; phase 3f's
 times as extra keys); the last line is {"ok": true, "device": {...}}.
 
     python chip_smoke.py --dp-only   # phases 1-3e and 3f, then stop
     python chip_smoke.py --multi-only   # phases 1, 2 and 13-15
+    python chip_smoke.py --pipeline-only   # phases 1, 2 and 16
     python chip_smoke.py --baseline build/base   # 3f beside that checkout
 """
 import io
@@ -480,6 +496,35 @@ def serial_consensus(params, path):
     return out.getvalue().split("\n")[1]
 
 
+def round_shard_plan(bp, insts, name, entries=1):
+    """What each pipeline shard of a round-path run of `insts` must
+    record (alike instances: one score width and one memory chunk a
+    round): from 4 instances with the pipeline on, S = min(N_SHARDS, n //
+    4) shards, instance k in shard k % S, each counting its rounds from
+    read 0; else one lockstep shard counting its DP rounds. Every DP
+    round launches `name` once on each of `entries` device entries with
+    work."""
+    n = len(insts)
+    piped = bp.pipeline and n >= 4
+    S = min(bp.N_SHARDS, max(1, n // 4)) if piped else 1
+    want = []
+    for s in range(S):
+        mine = insts[s::S]
+        nr = max(len(i) for i in mine)
+        dp = sum(min(entries, sum(len(i) > r for i in mine))
+                 for r in range(1, nr))
+        want.append({"instances": len(mine),
+                     "rounds": nr if piped else nr - 1,
+                     "launches": {k: dp * (k == name) for k in bp.launches}})
+    return want
+
+
+def mode_of(bp):
+    n = len(bp.pipeline_shards)
+    return (f"pipelined, {n} shards" if bp.pipeline and n > 1 else
+            "lockstep" if not bp.pipeline else "pipeline on, one shard")
+
+
 def round_path_phase(dev, heter, n_inst=N_INST):
     """64 x heter.fa through the round path in local and extend mode."""
     import torch
@@ -506,17 +551,23 @@ def round_path_phase(dev, heter, n_inst=N_INST):
         check(bp.fallbacks == 0, f"round path {flag}: {bp.fallbacks} "
               "oracle fallbacks")
         # the instances are alike: one score-width group and one memory
-        # chunk per round, so one launch of the planned kernel per round
-        plan = {k: bp.rounds if k == name else 0 for k in bp.launches}
+        # chunk per shard round, so one launch of the planned kernel per
+        # shard round after read 0
+        want = round_shard_plan(bp, [heter] * n_inst, name)
+        plan = {k: sum(w["launches"][k] for w in want) for k in bp.launches}
         round_got = {k: got[k] for k in bp.launches}
-        check(round_got == bp.launches == plan and bp.rounds > 0
+        check(bp.pipeline_shards == want and round_got == bp.launches
+              == plan and bp.rounds == sum(w["rounds"] for w in want)
               and got["band_dp"] == 0 and got["graph_update"] == 0,
-              f"round path {flag}: launches {got}, dispatch plan "
-              f"{bp.launches}, rounds {bp.rounds}")
-        say(f"round path {flag}: {n_inst} x heter.fa == serial oracle "
-            f"consensus, fallbacks 0, rounds {bp.rounds}, launches "
-            f"{round_got} == dispatch plan {bp.launches} (device-loop "
-            f"kernels 0), first run {first_s:.4f} s")
+              f"round path {flag} ({mode_of(bp)}): launches {got}, "
+              f"dispatch plan {bp.launches}, rounds {bp.rounds}, shards "
+              f"{bp.pipeline_shards}, expected {want}")
+        say(f"round path {flag} ({mode_of(bp)}): {n_inst} x heter.fa == "
+            f"serial oracle consensus, fallbacks 0, rounds {bp.rounds} "
+            f"{[w['rounds'] for w in want]}, launches {round_got} == "
+            f"dispatch plan {bp.launches} == shard plans "
+            f"{[w['launches'][name] for w in want]} (device-loop kernels "
+            f"0), first run {first_s:.4f} s")
         e2e, busy = [], []
         for _ in range(REPS):
             bp = BatchPOA(params(), device=dev)
@@ -1031,7 +1082,9 @@ def window_kernel_phase(dev, heter):
         return plan0(params_, dgs, dev_, seeded, **kw)
     batch.round_plan = capture
     try:
-        BatchPOA(params, device=dev).run_seeded(config5(heter, N_INST))
+        # lockstep: one window round of every instance at a time
+        BatchPOA(params, device=dev, pipeline=False).run_seeded(
+            config5(heter, N_INST))
     finally:
         batch.round_plan = plan0
 
@@ -1072,6 +1125,21 @@ def window_kernel_phase(dev, heter):
                          cells * OPS_PER_CELL[params.gap_mode])
         rec[name] = dict(max_abs_err=dm, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=bby)
+        if name == "band_dp_topo":
+            # the window round's exports repeated to a seeded group of 256
+            # instances (B=128) and to their lockstep round (B=256)
+            for B in (128, 256):
+                big = batch.round_plan(params, [dgs[i % len(dgs)]
+                                                for i in range(B)],
+                                       dev, seeded=True)
+                big_args = big.stack(slice(None), dev)
+                rec[name][f"round_B{B}_ms"] = cuda_ms(
+                    lambda: (lambda: big.kernel(big.cfg, *big_args)), 10)
+                del big_args
+            say(f"kernels: {name} ({what}) on the window round at B="
+                + ", ".join(f"{k[7:-3]} {v:.4f} ms"
+                            for k, v in rec[name].items()
+                            if k.startswith("round_B")))
         say(f"kernels: {name} ({what}) == plain on a window round (B="
             f"{len(dgs)}, {partial(dgs)} partial masks, R={plan.cfg.R}, "
             f"{'WB=%d' % plan.cfg.WB if plan.band else 'Wq=%d' % plan.cfg.Wq}"
@@ -1242,7 +1310,8 @@ def serial_window_phase(win, round_rec):
 def dp_timing_phase(dev, heter, base, win):
     """B1, B3 and B4 at the table's shape (B=8), at the B their path
     launches (B1: 32, the device loop's sub-batch; B3/B4: 64 on the round
-    path; B4: 1 per window on the serial -S path, `win`, the mean over one
+    path in lockstep, 16 in a pipeline shard of 64 instances; B4: 1 per
+    window on the serial -S path, `win`, the mean over one
     run's windows), B5 at B=1 (the serial engine's last read of heter.fa)
     and sweep only (bt_lmax = 0: the kernels return before
     the walk); with `base` (baseline_kernels), each beside an earlier
@@ -1268,7 +1337,7 @@ def dp_timing_phase(dev, heter, base, win):
                                               zdrop=100)),
                          ("fw_dp", mk(align_mode=LOCAL_MODE))):
         dgs = round_exports(params, rot, 4)
-        for B, dd in ((8, dgs), (64, dgs * 8)):
+        for B, dd in ((8, dgs), (16, dgs * 2), (64, dgs * 8)):
             plan = round_plan(params, dd, dev)
             check(plan.name == name, f"dp timing: dispatch {plan.name}")
             cases.append((name, B, plan.kernel,
@@ -1716,17 +1785,20 @@ def shards_phase(heter):
         reset_launches()
         bp, cons, secs = timed(params(), [heter] * N_INST)
         got = launches_now()
-        plan = bp.rounds * min(D, N_INST)
+        want = round_shard_plan(bp, [heter] * N_INST, name, D)
+        plan = sum(w["launches"][name] for w in want)
         check(all(c == [exp] for c in cons) and bp.fallbacks == 0
               and not bp.used_device_loop,
               f"shards {flag}: consensus != serial oracle")
         check(got[name] == bp.launches[name] == plan
-              and sum(got.values()) == plan,
-              f"shards {flag}: launches {got}, plan {plan}")
+              and sum(got.values()) == plan and bp.pipeline_shards == want,
+              f"shards {flag} ({mode_of(bp)}): launches {got}, plan {plan}"
+              f", shards {bp.pipeline_shards}, expected {want}")
         med[f"heter64 {flag}"] = secs
-        say(f"shards {flag}: {N_INST} x heter.fa == serial oracle, "
-            f"fallbacks 0, {name} launched {plan} = {bp.rounds} rounds x "
-            f"{min(D, N_INST)} shards, one run {secs:.4f} s")
+        say(f"shards {flag} ({mode_of(bp)}): {N_INST} x heter.fa == serial "
+            f"oracle, fallbacks 0, {name} launched {plan} = "
+            f"{plan // D} DP shard rounds x {D} device entries, one run "
+            f"{secs:.4f} s")
 
     # seeded windows: N_SEEDED config-5 instances
     params = seeded_params()
@@ -1829,12 +1901,122 @@ def fuzz_phase():
             f"{time.perf_counter() - t0:.1f} s")
 
 
+def pipeline_phase(heter):
+    """BatchPOA(pipeline=True) against pipeline=False on the cells of the
+    round and seeded paths, in turns within this call (F, T, T, F, F, T
+    after one checked warm-up of each): heter64-local, heter64-extend,
+    seeded-c5 and -l -m 1 over N_INST x heter.fa. Every run equals the
+    serial oracle with no fallback; the round-path cells' shards launch
+    and count rounds as their plans imply, the seeded cell's launches
+    equal its dispatch plan and its windows those of lockstep. Returns
+    {cell: {mode: {e2e, runs, busy, rounds, launches per shard}}}."""
+    import torch
+    from abpoa_tpu_torch import BatchPOA, batch_msa_from_files
+    from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
+    t_phase = time.perf_counter()
+
+    def mode_params(mode):
+        p = Params()
+        p.align_mode = mode
+        return p.post_set()
+    insts = [heter] * N_INST
+    c5 = config5(heter, N_SEEDED)
+    sp = seeded_params()
+    c5_exp = seeded_text(sp, c5[:5])
+    list_exp = run_cli(["--engine", "numpy", "-m", "1",
+                        str(HETER)])[0] * N_INST
+
+    def batch_cell(mode, name):
+        exp = serial_consensus(mode_params(mode), HETER)
+
+        def run(pipe):
+            bp = BatchPOA(mode_params(mode), device="cuda", pipeline=pipe)
+            cons = bp.run_consensus(insts)
+            check(all(c == [exp] for c in cons),
+                  f"pipeline {name} ({mode_of(bp)}): != serial oracle")
+            return bp, round_shard_plan(bp, insts, name)
+        return run
+
+    def seeded_run(pipe):
+        bp = BatchPOA(sp, device="cuda", pipeline=pipe)
+        cons = bp.run_consensus(c5, seeded=True)
+        check(all(f">Consensus_sequence\n{c[0]}\n" == c5_exp[k % 5]
+                  and len(c) == 1 for k, c in enumerate(cons)),
+              f"pipeline seeded-c5 ({mode_of(bp)}): != serial oracle")
+        check(len(bp.pipeline_shards) == (2 if pipe else 1)
+              and [r["instances"] for r in bp.pipeline_shards]
+              == ([N_SEEDED // 2] * 2 if pipe else [N_SEEDED]),
+              f"pipeline seeded-c5: groups {bp.pipeline_shards}")
+        return bp, None
+
+    def list_run(pipe):
+        out = io.StringIO()
+        bp = batch_msa_from_files(mode_params(LOCAL_MODE),
+                                  [str(HETER)] * N_INST, out,
+                                  device="cuda", pipeline=pipe)
+        check(out.getvalue() == list_exp,
+              f"pipeline -l -m 1 ({mode_of(bp)}): != the serial CLI")
+        return bp, round_shard_plan(bp, insts, "fw_dp")
+
+    cells = {"heter64-local": batch_cell(LOCAL_MODE, "fw_dp"),
+             "heter64-extend": batch_cell(EXTEND_MODE, "band_dp_topo"),
+             "seeded-c5": seeded_run, "-l -m 1": list_run}
+    res = {}
+    for cell, run in cells.items():
+        r = res[cell] = {}
+        for pipe in (False, True):
+            reset_launches()
+            bp, want = run(pipe)
+            got = launches_now()
+            round_got = {k: got[k] for k in bp.launches}
+            check(bp.fallbacks == 0 and not bp.used_device_loop
+                  and round_got == bp.launches and got["band_dp"]
+                  == got["graph_update"] == got["topo"] == 0,
+                  f"pipeline {cell} ({mode_of(bp)}): fallbacks "
+                  f"{bp.fallbacks}, launches {got}, plan {bp.launches}")
+            check(want is None or bp.pipeline_shards == want,
+                  f"pipeline {cell} ({mode_of(bp)}): shards "
+                  f"{bp.pipeline_shards}, expected {want}")
+            r["pipelined" if pipe else "lockstep"] = {
+                "shards": len(bp.pipeline_shards), "rounds": bp.rounds,
+                "launches_per_shard": [
+                    {k: v for k, v in x["launches"].items() if v}
+                    for x in bp.pipeline_shards],
+                "windows": bp.windows, "runs": []}
+        check(r["pipelined"]["windows"] == r["lockstep"]["windows"],
+              f"pipeline {cell}: windows differ between the modes")
+        for pipe in (False, True, True, False, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bp, _want = run(pipe)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(bp.fallbacks == 0, f"pipeline {cell}: timed run fell back")
+            m = r["pipelined" if pipe else "lockstep"]
+            m["runs"].append(secs)
+            m["busy"] = bp.dp_busy_seconds()
+        for mode in ("lockstep", "pipelined"):
+            m = r[mode]
+            m["e2e"] = statistics.median(m["runs"])
+            say(f"pipeline {cell} {mode}: e2e {m['e2e']:.4f} s median of "
+                f"{len(m['runs'])} {[round(x, 4) for x in m['runs']]}, "
+                f"device busy {m['busy']:.4f} s, {m['shards']} shard(s), "
+                f"rounds {m['rounds']}, launches per shard "
+                f"{m['launches_per_shard']}")
+        say(f"pipeline {cell}: pipelined / lockstep e2e "
+            f"{r['pipelined']['e2e'] / r['lockstep']['e2e']:.4f}")
+    say("pipeline: " + json.dumps(res))
+    say(f"pipeline: phase {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main(argv):
     # --dp-only: the card, the build, phases 3-3e (the kernels against
     # their plain versions) and 3f (the DP kernels' times), then stop;
     # --baseline DIR: phase 3f also times an earlier checkout's DP kernels
     dp_only = "--dp-only" in argv
     multi_only = "--multi-only" in argv
+    pipeline_only = "--pipeline-only" in argv
     base_dir = argv[argv.index("--baseline") + 1] if "--baseline" in argv \
         else None
     try:
@@ -1872,6 +2054,11 @@ def main(argv):
         f"; nvcc {_build.build_seconds or 0:.3f} s)")
 
     heter = reads_of(HETER)
+    if pipeline_only:
+        # ---- 16 alone: pipelined against lockstep ----
+        pipeline_phase(heter)
+        say(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     if multi_only:
         # ---- 13-15 alone: shards, processes, the fuzzer ----
         shards_phase(heter)
@@ -2000,6 +2187,9 @@ def main(argv):
     # ---- 15. the device-loop fuzzer ----
     fuzz_phase()
 
+    # ---- 16. the host/device pipeline against lockstep ----
+    pipeline_phase(heter)
+
     # ---- 3f, after the end-to-end phases (its buffers and builds do not
     # weigh on their times) ----
     timing = dp_phase()
@@ -2033,7 +2223,7 @@ def main(argv):
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         **{k: v for k, v in r.items()
-                           if k.startswith("round_B64_") or k == "plain_on"},
+                           if k.startswith("round_B") or k == "plain_on"},
                         **timing.get(name, {})})
     say(f"long reads e2e (s): {json.dumps(long_rec)}")
     say(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -4,9 +4,10 @@
 * round mode, seeds 0-2 (one per gap set; seed 0 also the split round):
   every round of the port's device_round equals the oracle and the host
   graph;
-* batch mode, two seeds (three shards each; one with -s and a
-  reverse-complemented read, qv weights and a forced fetch cap): the
-  sharded BatchPOA equals the serial oracle;
+* batch mode, three seeds (three shards each; one with -s and a
+  reverse-complemented read, qv weights and a forced fetch cap; one on
+  the round path with the pipeline on): the sharded BatchPOA equals the
+  serial oracle;
 * the capacity rule flags an instance of unrelated reads and no
   instance of one read set;
 * a corrupted step word makes the fuzzer report a failure (exit 1).
@@ -29,7 +30,7 @@ def test_round_mode_seed_is_clean(seed, capsys):
         assert "split=both" in out
 
 
-@pytest.mark.parametrize("seed", [3, 6])
+@pytest.mark.parametrize("seed", [3, 6, 8])
 def test_batch_mode_seed_is_clean(seed, capsys):
     from abpoa_tpu_torch.tools.fuzz_device_loop import main
     assert main(["--n", "1", "--start", str(seed), "--device", "cpu",
@@ -38,6 +39,8 @@ def test_batch_mode_seed_is_clean(seed, capsys):
     assert "shards=3" in out and "campaign clean" in out
     if seed == 6:
         assert "amb=True" in out and "qv=True" in out and "cap=35" in out
+    if seed == 8:
+        assert "pipeline=True path=rounds" in out
 
 
 def test_capacity_rule_flags_unrelated_reads():

@@ -8,8 +8,9 @@ on one GPU.
 For each path of the port over N x tests/data/heter.fa -- the device
 loop (default parameters), the device loop with qv weights (rng 77,
 wmode 1), the round path with -m 1 (full-width DP kernel) and with -m 2
-(topo-mode band DP kernel) -- after one warm-up run (which also builds
-the kernels):
+(topo-mode band DP kernel), each round path in the default host/device
+pipeline and in lockstep (BatchPOA(pipeline=False)) -- after one warm-up
+run (which also builds the kernels):
   * e2e seconds of run_consensus, median of --reps runs (host clock
     around a run that ends in torch.cuda.synchronize());
   * the wall seconds of each host phase of one more run, timed on the
@@ -28,7 +29,8 @@ same e2e, phases and profile, the host phases being seeding and chaining
 the host pool), dispatch (round_plan: make_pallas_inputs), the device
 phases, the window results (band-state write-back, step replay into the
 cigar) and fusion (the request generators' advance, which fuses each
-finished read), plus windows/s.
+finished read), plus windows/s; pipelined (two groups, the default)
+and in lockstep.
 Then the serial device engine through the CLI (``abpoa_tpu_torch.cli``
 main, default flags, tests/data/heter.fa): e2e median of --reps runs,
 and the per-read split of one run into host sort, export
@@ -347,31 +349,35 @@ def main():
              for r in read_seqs(str(HETER))]
     insts = [heter] * args.n_inst
 
-    def maker(mode, seeded=False):
+    def maker(mode, seeded=False, pipeline=True):
         def make():
             p = Params()
             p.align_mode = mode
             p.disable_seeding = not seeded
-            return BatchPOA(p.post_set(), device="cuda")
+            return BatchPOA(p.post_set(), device="cuda", pipeline=pipeline)
         return make
     if args.seeded:
         seeded = [[q[:max(64, len(q) - (k % 5) * 120)] for q in heter]
                   for k in range(args.n_seeded)]
-        recs = [profile_path("seeded (config 5)", maker(GLOBAL_MODE, True),
-                             seeded, args.reps, card, seeded=True)]
+        recs = [profile_path(f"seeded (config 5){tag}",
+                             maker(GLOBAL_MODE, True, pipe), seeded,
+                             args.reps, card, seeded=True)
+                for tag, pipe in (("", True), (" lockstep", False))]
     elif args.serial_only:
         recs = [profile_serial(args.reps, card)]
     else:
         rng = np.random.default_rng(77)
         qv = [[rng.integers(1, 60, len(q)).tolist() for q in reads]
               for reads in insts]
-        recs = [profile_path(name, maker(mode), insts, args.reps, card,
-                             **kw)
-                for name, mode, kw in (
-                    ("device loop", GLOBAL_MODE, {}),
-                    ("device loop qv", GLOBAL_MODE, {"weights": qv}),
-                    ("rounds -m 1", LOCAL_MODE, {}),
-                    ("rounds -m 2", EXTEND_MODE, {}))]
+        recs = [profile_path(name, maker(mode, pipeline=pipe), insts,
+                             args.reps, card, **kw)
+                for name, mode, pipe, kw in (
+                    ("device loop", GLOBAL_MODE, True, {}),
+                    ("device loop qv", GLOBAL_MODE, True, {"weights": qv}),
+                    ("rounds -m 1", LOCAL_MODE, True, {}),
+                    ("rounds -m 1 lockstep", LOCAL_MODE, False, {}),
+                    ("rounds -m 2", EXTEND_MODE, True, {}),
+                    ("rounds -m 2 lockstep", EXTEND_MODE, False, {}))]
         recs.append(profile_serial(args.reps, card))
     for r in recs:
         say(json.dumps(r))
