@@ -253,6 +253,35 @@ def _enqueue_fetch(shard: _Shard, tensors):
     return host, ev
 
 
+class _EventClock:
+    """Places device phases timed by CUDA events on the host clock. The
+    first timing event recorded on a card is that card's anchor, with
+    the host clock read just before it; a phase between two events on
+    that card is the anchor's host time plus the device time from the
+    anchor to each. Phases queued on one stream follow each other as on
+    the card, and a phase does not grow while the host works on
+    something else."""
+
+    def __init__(self):
+        self.anchors = {}
+
+    def mark(self, dev):
+        """A timing event recorded now on dev's current stream."""
+        ev = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev.record(torch.cuda.current_stream(dev))
+        self.anchors.setdefault(dev, (t0, ev))
+        return ev
+
+    def interval(self, dev, start, end):
+        """(t0, t1) on the host clock of the phase from `start` to `end`,
+        two completed events of `dev`."""
+        t_a, anchor = self.anchors[dev]
+        anchor.synchronize()
+        return (t_a + anchor.elapsed_time(start) / 1e3,
+                t_a + anchor.elapsed_time(end) / 1e3)
+
+
 class RoundPlan(NamedTuple):
     """How one round's score-width group runs on the device."""
     band: bool        # topo-mode band kernel
@@ -393,11 +422,14 @@ class BatchPOA:
         self.dp_cells = 0          # DP cells computed on the device
         self.dp_seconds = 0.0      # wall time of the device phases
         self.dp_intervals = []     # (t0, t1) per device phase
+        self.clock = _EventClock()  # places event-timed phases
         self.fallbacks = 0         # instances rebuilt on the oracle
         self.rounds = 0
         self.windows = 0           # seeded windows aligned on the device
         self.empty_windows = 0     # seeded windows with no bases (no DP)
         self.used_device_loop = False
+        self.h2d_bytes = 0         # bytes the launches upload and their
+        self.d2h_bytes = 0         # fetches copy back (no refetch)
         self.launches = {"band_dp_topo": 0, "fw_dp": 0,  # round-path plan
                          "tile_dp": 0}
         self.precompute_cons = False   # consensus inside the replay pool
@@ -617,11 +649,12 @@ class _Job:
     stream's copy and host decode 2.91 ms (chip_smoke.py phase 3f,
     NVIDIA H100 80GB HBM3, 700.00 W).
 
-    A launch's device phase (upload, kernel, fetch) is timed from the
-    host clock before its upload: on a card to that time plus the
+    A launch's device phase (upload, kernel, fetch) is on a card the
     device time between an event before the upload and the fetch's
-    event, on the CPU to the end of the plain version; so the interval
-    does not grow while the host fuses another shard."""
+    event, placed on the host clock by ``BatchPOA.clock``; on the CPU
+    the host clock from before the upload to the end of the plain
+    version. Either way the interval does not grow while the host fuses
+    another shard."""
 
     def __init__(self, bp, lanes, groups, r, rec, seeded=False):
         self.bp, self.lanes, self.r = bp, lanes, r
@@ -664,8 +697,7 @@ class _Job:
         start = None
         with _on(sh):
             if sh.dev.type == "cuda":
-                start = torch.cuda.Event(enable_timing=True)
-                start.record(torch.cuda.current_stream(sh.dev))
+                start = bp.clock.mark(sh.dev)
             inputs = plan.stack(part, sh.dev)
             out = plan.kernel(plan.cfg, *inputs)
             fetch = [out.misc, out.steps[:, :self.step_cap]]
@@ -675,6 +707,8 @@ class _Job:
         bp.launches[plan.name] += 1
         self.rec["launches"][plan.name] += 1
         host, ev = _enqueue_fetch(sh, fetch)
+        bp.h2d_bytes += sum(t.numel() * t.element_size() for t in inputs)
+        bp.d2h_bytes += sum(t.numel() * t.element_size() for t in host)
         return dict(shard=sh, group=self.group[part], host=host, ev=ev,
                     start=start, t0=t0, t_done=time.perf_counter(),
                     out=out, inputs=inputs)
@@ -690,16 +724,16 @@ class _Job:
         bp = self.bp
         if h["ev"] is not None:
             h["ev"].synchronize()
-            t1 = h["t0"] + h["start"].elapsed_time(h["ev"]) / 1e3
+            t0, t1 = bp.clock.interval(h["shard"].dev, h["start"], h["ev"])
         else:
-            t1 = h["t_done"]
+            t0, t1 = h["t0"], h["t_done"]
         host = [x.numpy() for x in h["host"]]
         pend = dict(group=h["group"], r=self.r, misc=host[0], steps=host[1],
                     steps_dev=h["out"].steps, shard=h["shard"])
         if self.seeded:
             pend["mpl"], pend["mpr"] = host[2], host[3]
-        bp.dp_seconds += t1 - h["t0"]
-        bp.dp_intervals.append((h["t0"], t1))
+        bp.dp_seconds += t1 - t0
+        bp.dp_intervals.append((t0, t1))
         bp.dp_cells += int(host[0][:, L.M_CELLS].sum())
         return pend
 
@@ -1022,10 +1056,12 @@ class _DeviceLoop:
     def _launch(self, shard, part):
         """Build one sub-batch's inputs on the shard's device and stream,
         enqueue its loop and the copies of its results to pinned host
-        memory there, with an event recorded on that stream after them.
-        Returns the pending handle, which holds the inputs until the
-        event has completed, so no input's memory goes back to the
-        caching allocator while the loop may still read it."""
+        memory there, with an event recorded on that stream after them
+        and a timing event (``BatchPOA.clock``) before its upload.
+        Returns the pending handle, which
+        holds the inputs until the event has completed, so no input's
+        memory goes back to the caching allocator while the loop may
+        still read it."""
         bp, params = self.bp, self.bp.params
         dev = shard.dev
         cfg = self.cfg._replace(B=len(part))
@@ -1048,9 +1084,13 @@ class _DeviceLoop:
             cap = max(2, min(cap, int(bp.s16_cap)))
 
         def put(x):
+            bp.h2d_bytes += x.nbytes
             return torch.from_numpy(np.ascontiguousarray(x)).to(
                 dev, non_blocking=True)
+        start = None
         with _on(shard):
+            if dev.type == "cuda":
+                start = bp.clock.mark(dev)
             inputs = [pl.GState(*(put(x) for x in st))] + [
                 put(x) for x in (i2n, n2i, remain, qc, ql,
                                  pl.make_scal_base(params, cfg))]
@@ -1062,7 +1102,8 @@ class _DeviceLoop:
         # the copies run on the shard's stream right after this part's
         # last kernel, so the host waits for this part alone
         host, ev = _enqueue_fetch(shard, (misc_d, s16_cap_d, psF.fail))
-        return part, cfg, host, ev, s16_d, (inputs, qw_d)
+        bp.d2h_bytes += sum(h.numel() * h.element_size() for h in host)
+        return part, cfg, host, (start, ev), s16_d, (inputs, qw_d)
 
     def run(self):
         bp, params = self.bp, self.bp.params
@@ -1089,16 +1130,23 @@ class _DeviceLoop:
                 parts.append((shard, mine))
         bp.used_device_loop = True
         bp.rounds += self.cfg.NR
+        # dp_seconds: host clock from the launches to each fetch, as in
+        # the JAX package; dp_intervals: on a card the event-timed device
+        # phase of each sub-batch (BatchPOA.clock), on the CPU the host
+        # clock
         t_prev = time.perf_counter()
-        pends = [self._launch(shard, part) for shard, part in parts]
-        for part, cfg, host, ev, s16_d, _inputs in pends:
+        pends = [(shard, self._launch(shard, part))
+                 for shard, part in parts]
+        for shard, (part, cfg, host, (start, ev), s16_d, _inputs) in pends:
             if ev is not None:
                 ev.synchronize()
             misc, s16w, failv = (h.numpy() for h in host)
             s16 = s16w.view(np.int16)
             t1 = time.perf_counter()
             bp.dp_seconds += t1 - t_prev
-            bp.dp_intervals.append((t_prev, t1))
+            bp.dp_intervals.append(
+                (t_prev, t1) if ev is None
+                else bp.clock.interval(shard.dev, start, ev))
             t_prev = t1
             ok_mask = failv == 0
             bp.fallbacks += int((~ok_mask).sum())

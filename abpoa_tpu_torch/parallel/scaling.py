@@ -34,25 +34,14 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-
 REPO = pathlib.Path(__file__).resolve().parents[2]
 FOREIGN = ("abpoa_tpu", "jax", "jaxlib")
 
 
 def _load_instances(fixture: str, n: int, config5=False):
-    from ..alphabet import encode_table
-    from ..seqio import read_seqs
-    path = pathlib.Path(fixture)
-    if not path.exists():
-        path = REPO / "tests" / "data" / fixture
-    tab = encode_table(5)
-    reads = [tab[np.frombuffer(r.seq.encode(), dtype=np.uint8)]
-             for r in read_seqs(str(path))]
-    if config5:
-        return [[q[:max(64, len(q) - (k % 5) * 120)] for q in reads]
-                for k in range(n)]
-    return [reads] * n
+    from ..workload import load_reads, seeded_instances
+    reads = load_reads(fixture)
+    return seeded_instances(reads, n) if config5 else [reads] * n
 
 
 def _params(args):

@@ -92,6 +92,12 @@ Phases (each prints its own lines; any failed check exits non-zero):
      mode: the serial CLI's bytes 64 times); every run without fallback,
      each shard's launches as its plan implies; e2e medians of 3, device
      busy seconds and launches per shard of each mode
+  17. bench -- python -m abpoa_tpu_torch.bench in a subprocess with
+     ABPOA_BENCH_SEEDED=256 and ABPOA_BENCH_BUDGET_S=150: exit code 0, a
+     parsed last line with 3 reps (reps_insufficient false), the golden
+     and oracle gates passed, no fallback, 0 < dp_busy_seconds < the e2e
+     median, the card's name in the extras; the record printed on a
+     line of its own (adds about a minute to a run)
   3f. (run last, after the end-to-end phases) B1, B3 and B4 timed at the
      table's shape (B=8), at the B their path launches (B1 32, B3/B4 64,
      B4 1 per -S window), B5 at B=1 on heter.fa round 14, and sweep only
@@ -115,10 +121,12 @@ times as extra keys); the last line is {"ok": true, "device": {...}}.
     python chip_smoke.py --dp-only   # phases 1-3e and 3f, then stop
     python chip_smoke.py --multi-only   # phases 1, 2 and 13-15
     python chip_smoke.py --pipeline-only   # phases 1, 2 and 16
+    python chip_smoke.py --bench-only   # phases 1, 2 and 17
     python chip_smoke.py --baseline build/base   # 3f beside that checkout
 """
 import io
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -138,15 +146,6 @@ QV_SEED = 77     # seed of the qv weights (integers in [1, 60) per base)
 REPS = 3         # timed slice runs after one warm-up
 E2E = {}         # single-device e2e medians by cell, for phase 13
 
-# the bound of a kernel: the larger of its bytes (inputs read once,
-# outputs written once) over the H100's HBM rate and its int32
-# operations over the card's int32 rate (132 SMs x 64 INT32 lanes x
-# 1.98 GHz boost clock = 16.7e12 op/s, NVIDIA Hopper white paper)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 operations of one DP cell's recurrence (adds and maxes of H, E,
-# F), by gap mode: linear 5, affine 11, convex 17
-OPS_PER_CELL = {0: 5, 1: 11, 2: 17}
 
 
 def say(*a):
@@ -194,13 +193,6 @@ def launches_now():
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
-
-
-def bound(nbytes_, ops):
-    """(bound_ms, bound_by) of a call that moves nbytes_ and does ops."""
-    tb = nbytes_ / HBM_BYTES_PER_S
-    to = ops / INT32_OPS_PER_S
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def cuda_ms(fn, n):
@@ -278,6 +270,7 @@ def kernel_phase(dev, heter):
     inputs of real rounds: round 1 (state after read 0) and the last
     round (state after the kernels ran every earlier round, with
     mismatch bundles)."""
+    from abpoa_tpu_torch.ops.roofline import OPS_PER_CELL, bound
     import torch
     from abpoa_tpu_torch.params import Params
     from abpoa_tpu_torch.ops import poa_loop as pl
@@ -421,6 +414,7 @@ def round_inputs(dev, params, insts, k):
 def round_kernel_phase(dev, heter):
     """B3 (topo band) and B4 (full width) against their plain versions on
     the round path's inputs of real rounds."""
+    from abpoa_tpu_torch.ops.roofline import OPS_PER_CELL, bound
     import torch
     from abpoa_tpu_torch.params import (Params, LOCAL_MODE, EXTEND_MODE)
     from abpoa_tpu_torch.ops import band_dp as bd, fw_dp as fw
@@ -640,6 +634,7 @@ def tile_inputs(params, insts, k, WB=None):
 
 def tile_kernel_phase(dev, heter):
     """B5 against its plain version on the serial engine's inputs."""
+    from abpoa_tpu_torch.ops.roofline import OPS_PER_CELL, bound
     import torch
     from abpoa_tpu_torch.params import Params, EXTEND_MODE
     from abpoa_tpu_torch.ops import tile_dp as td
@@ -780,6 +775,7 @@ def cli_list_phase(n_reads):
 def split_round_phase(dev, heter):
     """Every round of N_CMP rotated heter.fa instances through the split
     and the packed device round; then B6 against its plain version."""
+    from abpoa_tpu_torch.ops.roofline import bound
     import numpy as np
     import torch
     from abpoa_tpu_torch import convert
@@ -878,6 +874,7 @@ def qv_kernel_phase(dev, heter):
     """B2's wmode-1 instance against its plain version on the last round
     of the 64 x heter.fa qv batch (the state brought there through both
     kernels)."""
+    from abpoa_tpu_torch.ops.roofline import bound
     import torch
     from abpoa_tpu_torch.params import Params
     from abpoa_tpu_torch.ops import poa_loop as pl
@@ -1026,13 +1023,6 @@ def qv_loop_phase(dev, heter):
     return launches
 
 
-def config5(reads, n):
-    """bench.py's config-5 shape: instance k's reads trimmed at the end
-    by (k % 5) * 120 bases (at least 64 kept)."""
-    return [[q[:max(64, len(q) - (k % 5) * 120)] for q in reads]
-            for k in range(n)]
-
-
 def seeded_params():
     from abpoa_tpu_torch.params import Params
     p = Params()
@@ -1067,6 +1057,8 @@ def window_kernel_phase(dev, heter):
     between their anchors, so its masks are full), at the dispatch's
     shapes (the band plan, and the full-width plan forced on the same
     exports)."""
+    from abpoa_tpu_torch.ops.roofline import OPS_PER_CELL, bound
+    from abpoa_tpu_torch.workload import seeded_instances
     import torch
     from abpoa_tpu_torch import BatchPOA
     from abpoa_tpu_torch.ops import band_dp as bd, fw_dp as fw
@@ -1084,7 +1076,7 @@ def window_kernel_phase(dev, heter):
     try:
         # lockstep: one window round of every instance at a time
         BatchPOA(params, device=dev, pipeline=False).run_seeded(
-            config5(heter, N_INST))
+            seeded_instances(heter, N_INST))
     finally:
         batch.round_plan = plan0
 
@@ -1270,6 +1262,7 @@ def serial_window_phase(win, round_rec):
     window (CUDA events), the plain version's (host clock, CPU) and the
     mean bound a window. round_rec (phase 3e's B=64 window round, plain
     on the card) is kept beside it under round_B64_* keys."""
+    from abpoa_tpu_torch.ops.roofline import OPS_PER_CELL, bound
     import torch
     from abpoa_tpu_torch.ops import fw_dp as fw
     from abpoa_tpu_torch.ops import layout as L
@@ -1640,6 +1633,7 @@ def seeded_phase(dev, heter):
     instance's consensus equals the port's serial oracle of its trim
     class, no fallback, the window kernels' launches equal the dispatch
     plan; e2e median of REPS, windows/s, DP cells/s."""
+    from abpoa_tpu_torch.workload import seeded_instances
     import dataclasses
     import torch
     from abpoa_tpu_torch import BatchPOA
@@ -1647,7 +1641,7 @@ def seeded_phase(dev, heter):
     from abpoa_tpu_torch.consensus import generate_consensus
     from abpoa_tpu_torch.alphabet import decode_table
     params = seeded_params()
-    insts = config5(heter, N_SEEDED)
+    insts = seeded_instances(heter, N_SEEDED)
     host = dataclasses.replace(params, engine="numpy")
     dt = decode_table(5)
     exp = []
@@ -1724,6 +1718,7 @@ def shards_phase(heter):
     serial oracle, the plan's kernel once a round on every shard with
     work), N_SEEDED config-5 instances (the oracle of each trim class) and
     the dry run; e2e medians beside the single-device ones."""
+    from abpoa_tpu_torch.workload import seeded_instances
     import torch
     from abpoa_tpu_torch import BatchPOA
     from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
@@ -1802,7 +1797,7 @@ def shards_phase(heter):
 
     # seeded windows: N_SEEDED config-5 instances
     params = seeded_params()
-    insts = config5(heter, N_SEEDED)
+    insts = seeded_instances(heter, N_SEEDED)
     exp = seeded_text(params, insts[:5])
     e2e = []
     for rep in range(REPS + 1):
@@ -1839,10 +1834,11 @@ def procs_phase():
     """The launcher with --procs 2 on the card: 64 x heter.fa (golden x
     64), then --seeded --config5 over 64 instances (the serial oracle of
     each trim class); the 1-process and 2-process rates."""
+    from abpoa_tpu_torch.workload import seeded_instances
     import tempfile
     t_phase = time.perf_counter()
     params = seeded_params()
-    exp_seeded = seeded_text(params, config5(reads_of(HETER), 5))
+    exp_seeded = seeded_text(params, seeded_instances(reads_of(HETER), 5))
     out = {}
     for name, extra, want in (
             ("plain", [], GOLD.read_text() * N_INST),
@@ -1910,6 +1906,7 @@ def pipeline_phase(heter):
     and count rounds as their plans imply, the seeded cell's launches
     equal its dispatch plan and its windows those of lockstep. Returns
     {cell: {mode: {e2e, runs, busy, rounds, launches per shard}}}."""
+    from abpoa_tpu_torch.workload import seeded_instances
     import torch
     from abpoa_tpu_torch import BatchPOA, batch_msa_from_files
     from abpoa_tpu_torch.params import Params, LOCAL_MODE, EXTEND_MODE
@@ -1920,7 +1917,7 @@ def pipeline_phase(heter):
         p.align_mode = mode
         return p.post_set()
     insts = [heter] * N_INST
-    c5 = config5(heter, N_SEEDED)
+    c5 = seeded_instances(heter, N_SEEDED)
     sp = seeded_params()
     c5_exp = seeded_text(sp, c5[:5])
     list_exp = run_cli(["--engine", "numpy", "-m", "1",
@@ -2010,6 +2007,50 @@ def pipeline_phase(heter):
     return res
 
 
+def bench_phase():
+    """The port's bench (python -m abpoa_tpu_torch.bench) in a fresh
+    process at N_SEEDED seeded instances and a 150 s budget: its last
+    record landed whole, its gates passed and its device numbers are the
+    card's."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, ABPOA_BENCH_SEEDED=str(N_SEEDED),
+               ABPOA_BENCH_BUDGET_S="150", PYTHONPATH=str(ROOT))
+    env.pop("ABPOA_BENCH_INNER", None)
+    out = subprocess.run([sys.executable, "-m", "abpoa_tpu_torch.bench"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0,
+          f"bench: exit code {out.returncode}\n{out.stdout[-2000:]}\n"
+          f"{out.stderr[-3000:]}")
+    last = json.loads(out.stdout.strip().splitlines()[-1])
+    ex = last["extras"]
+    seeded = ex.get("seeded", {})
+    check(last["metric"] == "dp_cells_per_s" and last["value"] > 0,
+          f"bench: no headline value {last}")
+    check(ex["reps"] >= 3 and not ex["reps_insufficient"],
+          f"bench: reps {ex['reps']}")
+    check(ex["gates"]["golden"] is True and ex["fallbacks"] == 0
+          and ex["device_loop"], f"bench: headline gates {ex['gates']}")
+    check(seeded.get("gates", {}).get("oracle") is True
+          and seeded.get("fallbacks") == 0
+          and seeded.get("instances") == N_SEEDED,
+          f"bench: seeded phase {seeded}")
+    check(0 < ex["dp_busy_seconds"] < ex["e2e_seconds_median"],
+          f"bench: dp_busy_seconds {ex['dp_busy_seconds']}, e2e median "
+          f"{ex['e2e_seconds_median']}")
+    kind = torch.cuda.get_device_name(0)
+    check(ex["device"] == kind and str(ex["card"]).startswith(kind),
+          f"bench: device {ex['device']!r}, card {ex['card']!r}")
+    say(json.dumps(last))
+    say(f"bench: value {last['value']:.1f} cells/s, vs_baseline "
+        f"{last['vs_baseline']}, e2e median {ex['e2e_seconds_median']:.4f} "
+        f"s, busy {ex['dp_busy_seconds']:.4f} s, seeded "
+        f"{seeded.get('windows_per_s', 0):.1f} windows/s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv):
     # --dp-only: the card, the build, phases 3-3e (the kernels against
     # their plain versions) and 3f (the DP kernels' times), then stop;
@@ -2017,6 +2058,7 @@ def main(argv):
     dp_only = "--dp-only" in argv
     multi_only = "--multi-only" in argv
     pipeline_only = "--pipeline-only" in argv
+    bench_only = "--bench-only" in argv
     base_dir = argv[argv.index("--baseline") + 1] if "--baseline" in argv \
         else None
     try:
@@ -2054,6 +2096,11 @@ def main(argv):
         f"; nvcc {_build.build_seconds or 0:.3f} s)")
 
     heter = reads_of(HETER)
+    if bench_only:
+        # ---- 17 alone: the port's bench ----
+        bench_phase()
+        say(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     if pipeline_only:
         # ---- 16 alone: pipelined against lockstep ----
         pipeline_phase(heter)
@@ -2189,6 +2236,9 @@ def main(argv):
 
     # ---- 16. the host/device pipeline against lockstep ----
     pipeline_phase(heter)
+
+    # ---- 17. the port's bench ----
+    bench_phase()
 
     # ---- 3f, after the end-to-end phases (its buffers and builds do not
     # weigh on their times) ----

@@ -9,6 +9,9 @@
   golden bytes; a qv-weighted batch runs the loop (wmode 1) and equals
   the oracle under its weights; a round past the packed step word raises
   NotImplementedError.
+* The loop's busy time: on the CPU the host clock, inside the run, with
+  the outputs and counters of the oracle and a one-instance run; on a
+  GPU CUDA-event time, below the host-clocked dp_seconds.
 * On a GPU: the loop through the kernels equals the plain loop.
 Exact equality everywhere.
 """
@@ -212,6 +215,40 @@ def test_slice_heter_golden():
     assert bp.rounds == len(heter) - 1
 
 
+def _timed_loop(instances, device):
+    """(BatchPOA, consensus, host clock before, after) of one loop run."""
+    import time
+    from abpoa_tpu_torch import BatchPOA
+    bp = BatchPOA(convert.params(Params().post_set()), device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    cons = bp.run_consensus(instances)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return bp, cons, t0, time.perf_counter()
+
+
+def test_loop_busy_time_on_the_cpu():
+    """16 instances (two sub-batches): on the CPU each device phase
+    stays on the host clock, so the busy time is the host-clocked
+    dp_seconds and lies inside the run; the outputs and the counters
+    equal the serial oracle's and a one-instance run's."""
+    reads = _reads("seq.fa", 5)
+    cpu = torch.device("cpu")
+    one, _, _, _ = _timed_loop([reads], cpu)
+    bp, cons, t0, t1 = _timed_loop([reads] * 16, cpu)
+    assert cons == _serial_oracle([reads], Params().post_set()) * 16
+    assert bp.used_device_loop and bp.fallbacks == 0
+    assert bp.rounds == len(reads) - 1
+    assert bp.dp_cells == 16 * one.dp_cells > 0
+    assert len(bp.dp_intervals) == 2
+    assert all(t0 <= a <= b <= t1 for a, b in bp.dp_intervals)
+    assert bp.dp_busy_seconds() == pytest.approx(bp.dp_seconds)
+    assert bp.dp_busy_seconds() <= t1 - t0
+    assert bp.h2d_bytes > 0 and bp.d2h_bytes > 0
+
+
 def test_list_mode_golden():
     """batch_msa_from_files: one instance per file, golden bytes each."""
     from abpoa_tpu_torch import batch_msa_from_files
@@ -370,6 +407,28 @@ def _turned_away(what, device):
         got.append([bytes(dt[b] for b in s).decode()
                     for s in ab.cons.cons_base[:ab.cons.n_cons]])
     assert got == _serial_oracle(instances, params)
+
+
+@pytest.mark.gpu
+def test_loop_busy_time_is_event_timed_on_gpu(cuda_device):
+    """64 x heter.fa (two sub-batches on one stream) on the card: each
+    device phase is CUDA-event time placed on the host clock, inside the
+    run, the second after the first; their union is below the
+    host-clocked dp_seconds; golden output, one B1 and one B2 launch per
+    round and sub-batch."""
+    from abpoa_tpu_torch.ops.band_dp import band_poa_dp_packed
+    from abpoa_tpu_torch.ops.graph_update import graph_update_packed
+    heter = _reads("heter.fa")
+    _timed_loop([heter] * 64, cuda_device)          # warm-up (build)
+    band_poa_dp_packed.launches = graph_update_packed.launches = 0
+    bp, cons, t0, t1 = _timed_loop([heter] * 64, cuda_device)
+    gold = (GOLDEN_SAN / "heter_cons.fa").read_text().split("\n")[1]
+    assert cons == [[gold]] * 64 and bp.fallbacks == 0
+    assert band_poa_dp_packed.launches == graph_update_packed.launches \
+        == 2 * (len(heter) - 1)
+    (a0, b0), (a1, b1) = bp.dp_intervals
+    assert t0 <= a0 < b0 <= a1 + 1e-6 and a1 < b1 <= t1
+    assert 0 < bp.dp_busy_seconds() < bp.dp_seconds
 
 
 @pytest.mark.gpu

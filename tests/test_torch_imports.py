@@ -1,5 +1,6 @@
 """abpoa_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports the JAX package (abpoa_tpu) or JAX.
+chip_smoke.py, imports the JAX package (abpoa_tpu), JAX, or the root
+bench.py (which drives the JAX package; the port has its own bench).
 
 * An AST scan of every abpoa_tpu_torch/**/*.py and chip_smoke.py finds
   no such import statement and no importlib/__import__ call naming one.
@@ -16,7 +17,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"abpoa_tpu", "jax", "jaxlib"}
+FORBIDDEN = {"abpoa_tpu", "jax", "jaxlib", "bench"}
 SOURCES = sorted((ROOT / "abpoa_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
@@ -48,7 +49,10 @@ def _bad_imports(path):
 
 
 NEW_IN_SLICES = ["cli.py", "plot.py", "pyabpoa.py", "align/engine_torch.py",
-                 "ops/tile_dp.py", "ops/topo.py", "seed.py"]
+                 "ops/tile_dp.py", "ops/topo.py", "seed.py", "bench.py",
+                 "ops/roofline.py", "examples/example.py",
+                 "examples/sub_example.py", "examples/batch_example.py",
+                 "workload.py"]
 
 
 def test_no_import_of_the_jax_package_or_jax():
@@ -67,12 +71,14 @@ def test_scan_finds_a_forbidden_import(tmp_path):
     src.write_text("import abpoa_tpu_torch.ops\n"
                    "from abpoa_tpu_torch import BatchPOA\n"
                    "from .params import Params\n"
+                   "from abpoa_tpu_torch import bench\n"
                    "import jax.numpy as jnp\n"
+                   "import bench\n"
                    "def f():\n"
                    "    from abpoa_tpu.graph import POAGraph\n"
                    "    importlib.import_module('jaxlib')\n")
     assert sorted(m for _line, m in _bad_imports(src)) == \
-        ["abpoa_tpu.graph", "jax.numpy", "jaxlib"]
+        ["abpoa_tpu.graph", "bench", "jax.numpy", "jaxlib"]
 
 
 RUN = """
