@@ -29,9 +29,10 @@ Counterpart of the device wrappers of ``abpoa_tpu/align/engine_jax.py``
   ``align/__init__.py`` sends it where the JAX package does (the host
   oracle) and counts it in ``empty_windows``;
 * any graph, window or query runs: the kernels' step words have 30 row
-  and 31 column bits; a launch whose tiles or planes exceed the device
-  memory budget (``parallel/batch.py`` ``_plane_budget``) raises
-  ``RuntimeError`` naming the bytes.
+  and 31 column bits; an alignment whose B5 tiles or B4 planes exceed
+  the device memory budget (``parallel/batch.py`` ``_plane_budget``)
+  runs on the host oracle instead (the JAX package runs its XLA tier
+  there), counted in ``over_budget``.
 
 The kernels' wrappers count their launches; ``reroutes`` counts the B5
 results re-run on B4, by flag.
@@ -42,12 +43,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..params import GLOBAL_MODE, EXTEND_MODE
+from ..params import GLOBAL_MODE, EXTEND_MODE, SRC_NODE_ID, SINK_NODE_ID
 from ..ops import layout as L
 from .engine_np import AlignResult
 
 reroutes = {"M_OVFL": 0, "M_FAIL": 0}
 empty_windows = 0   # subgraph windows with no query bases (no DP)
+over_budget = 0     # alignments over the memory budget (the oracle)
 
 
 def _run(kernel, cfg, arrs, dev):
@@ -57,20 +59,26 @@ def _run(kernel, cfg, arrs, dev):
     return out, out.misc[0].cpu().numpy()
 
 
-def _fits(name, nbytes, dev):
-    """Raise RuntimeError when one launch's tiles or planes exceed the
-    device memory budget."""
+def _fits(nbytes, dev):
+    """Whether one launch's tiles or planes fit the device memory
+    budget."""
     from ..parallel.batch import _plane_budget
-    budget = _plane_budget(dev)
-    if nbytes > budget:
-        raise RuntimeError(f"{name} needs {nbytes} bytes of tiles or planes "
-                           f"for one alignment, over the device memory "
-                           f"budget of {budget} bytes")
+    return nbytes <= _plane_budget(dev)
+
+
+def _oracle(graph, params, beg_node_id, end_node_id, query):
+    """The alignment on the host oracle, counted in over_budget."""
+    global over_budget
+    from .engine_np import align_sequence_to_subgraph
+    over_budget += 1
+    return align_sequence_to_subgraph(graph, params, beg_node_id,
+                                      end_node_id, query)
 
 
 def _full_width(dg, params, dev):
-    """B4 over one export (whole graph or window): (out, misc row). A
-    walk dead end is the reference's own backtrack failure: it raises."""
+    """B4 over one export (whole graph or window): (out, misc row), or
+    None when its planes exceed the budget. A walk dead end is the
+    reference's own backtrack failure: it raises."""
     from .export import make_pallas_inputs
     from ..ops.fw_dp import FWConfig, fw_plane_bytes, fw_poa_dp_batch
     Wq = (dg.qlen // 128 + 1) * 128
@@ -80,7 +88,8 @@ def _full_width(dg, params, dev):
     fwc = FWConfig(cfg.gap_mode, cfg.align_mode, cfg.pn, cfg.R, Wq, cfg.P,
                    cfg.O, cfg.m, cfg.use_zdrop, lmax,
                    banded=params.wb >= 0)
-    _fits("fw_dp", fw_plane_bytes(fwc), dev)
+    if not _fits(fw_plane_bytes(fwc), dev):
+        return None
     out, misc = _run(fw_poa_dp_batch, fwc, arrs, dev)
     if params.ret_cigar and misc[L.M_FAIL]:
         raise RuntimeError("Error in backtrack: the full-width walk "
@@ -119,7 +128,8 @@ def align_sequence_to_graph_device(graph, params, query,
     if banded and params.align_mode in (GLOBAL_MODE, EXTEND_MODE):
         WB = pick_WB(params, dg.qlen, dg.pn)
         cfg, arrs = make_pallas_inputs(dg, params, WB, bt_lmax=lmax)
-        _fits("tile_dp", tile_plane_bytes(cfg), dev)
+        if not _fits(tile_plane_bytes(cfg), dev):
+            return _oracle(graph, params, SRC_NODE_ID, SINK_NODE_ID, query)
         out, misc = _run(tile_poa_dp_batch, cfg, arrs[:10], dev)
         flag = ("M_OVFL" if misc[L.M_OVFL] else
                 "M_FAIL" if params.ret_cigar and misc[L.M_FAIL] else None)
@@ -127,7 +137,10 @@ def align_sequence_to_graph_device(graph, params, query,
             reroutes[flag] += 1
             out = None
     if out is None:
-        out, misc = _full_width(dg, params, dev)
+        fw = _full_width(dg, params, dev)
+        if fw is None:
+            return _oracle(graph, params, SRC_NODE_ID, SINK_NODE_ID, query)
+        out, misc = fw
     if banded:
         n = dg.n_rows
         i2n = np.asarray(graph.index_to_node_id[:n], dtype=np.int64)
@@ -148,7 +161,10 @@ def align_sequence_to_subgraph_device(graph, params, beg_node_id,
     end_index = int(graph.node_id_to_index[end_node_id])
     dg = export_dense(graph, params, query, beg_index=beg_index,
                       end_index=end_index)
-    out, misc = _full_width(dg, params, dev)
+    fw = _full_width(dg, params, dev)
+    if fw is None:
+        return _oracle(graph, params, beg_node_id, end_node_id, query)
+    out, misc = fw
     if params.wb >= 0:
         # only the live rows carry band state: the oracle never touches
         # the rows outside the row mask

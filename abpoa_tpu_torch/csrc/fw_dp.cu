@@ -759,7 +759,9 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
   while (!done && nst < a.LS) {
     const u64 wd = (u64)BT[(size_t)i * Wq + j];
     const bool curM = (cur & BT_M) != 0;
-    const bool zero_stop = local && ((wd >> BL::HZ) & 1);
+    // local mode ends on the zero cell itself, whatever move its
+    // conditions would allow
+    if (local && ((wd >> BL::HZ) & 1)) break;
     const int mp = (int)(wd >> BL::MP) & NONE;
     const bool m_possible = mp != NONE;
     bool e_possible, f_possible;
@@ -811,8 +813,8 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
     if (gm != LINEAR_GAP) use_f = use_f && (cur & BT_F);
     bool use_m2 = !use_m1 && !use_e && !use_f && if_ && m_possible;
     if (gm != LINEAR_GAP) use_m2 = use_m2 && curM;
-    const bool any_hit = (use_m1 || use_e || use_f || use_m2) && !zero_stop;
-    fail = fail || !(any_hit || zero_stop);
+    const bool any_hit = use_m1 || use_e || use_f || use_m2;
+    fail = fail || !any_hit;
     const bool use_m = use_m1 || use_m2;
     if (any_hit) {
       const int op_code = use_m ? 0 : (use_e ? 2 : 1);
@@ -828,7 +830,7 @@ __global__ void __launch_bounds__(MAX_NT) fw_dp_kernel(FwArgs a) {
     if (use_m) if_ = false;
     i = new_i;
     j = new_j;
-    done = fail || zero_stop || new_i <= 0 || new_j <= 0;
+    done = fail || new_i <= 0 || new_j <= 0;
   }
   DP_PROBE(7)
   DP_PROBE_SAVE(limit, nst)

@@ -612,10 +612,12 @@ def fw_poa_dp_batch_ref(cfg: FWConfig, scal, bases, pre_idx, pre_n,
         new_cur = torch.where(use_m, L.BT_ALL, torch.where(
             use_e, e_op_sel, torch.where(use_f, f_op_sel, cur))).to(I32)
         fail = fail | (act & ~(any_hit | zero_stop))
-        i = torch.where(act, new_i, i)
-        j = torch.where(act, new_j, j)
-        cur = torch.where(act, new_cur, cur)
-        if_ = torch.where(act & use_m, False, if_)
+        # the walk moves only with a step: local mode ends on the zero
+        # cell itself, whatever move its conditions would allow
+        i = torch.where(emit, new_i, i)
+        j = torch.where(emit, new_j, j)
+        cur = torch.where(emit, new_cur, cur)
+        if_ = torch.where(emit & use_m, False, if_)
         done = done | (act & (fail | zero_stop | (new_i <= 0)
                               | (new_j <= 0)))
     misc[:, L.M_NSTEPS] = nst

@@ -35,10 +35,11 @@ live rows only.
 
 An instance whose device result is unusable (band overflow, walk dead
 end, graph capacity) is rebuilt on the bit-exact oracle: that is the
-algorithm's capacity rule and is counted in ``fallbacks``. A device or
-kernel fault is never caught. A round whose one instance needs more
-plane memory than the budget (``_plane_budget``) raises ``RuntimeError``
-naming the bytes.
+algorithm's capacity rule and is counted in ``fallbacks``. So is every
+instance of a round group whose one instance needs more plane memory
+than the budget (``_plane_budget``): the group has no launch (the JAX
+package runs its XLA tier there). A device or kernel fault is never
+caught.
 
 Data parallelism (``BatchPOA(devices=[...])``, the counterpart of the
 JAX package's ``mesh=``): the path and its geometry are decided once for
@@ -286,11 +287,12 @@ class RoundPlan(NamedTuple):
     """How one round's score-width group runs on the device."""
     band: bool        # topo-mode band kernel
     name: str         # "band_dp_topo", "fw_dp" or "tile_dp"
-    kernel: object    # band_poa_dp_batch, fw_poa_dp_batch or
-    #                   tile_poa_dp_batch
+    kernel: object    # band_poa_dp_batch, fw_poa_dp_batch,
+    #                   tile_poa_dp_batch, or None ("oracle")
     cfg: object       # its BandConfig / FWConfig / PallasDPConfig
     arrs: list        # per instance, the make_pallas_inputs tuple
-    chunk: int        # instances per launch (the plane-memory budget)
+    chunk: int        # instances per launch (the plane-memory budget;
+    #                   0: one instance exceeds it)
     step_cap: int     # step-stream fetch cap
     per: int          # plane bytes an instance
 
@@ -315,8 +317,9 @@ def round_plan(params, dgs, dev, seeded=False, budget=None) -> RoundPlan:
     third branch: the banded-tile kernel has no row mask.
 
     budget: the plane bytes a launch may take (default
-    ``_plane_budget(dev)``). A round whose one instance's planes or tiles
-    exceed the budget raises ``RuntimeError`` naming the bytes."""
+    ``_plane_budget(dev)``). A group whose one instance's planes or tiles
+    exceed the budget gets the plan "oracle" (no kernel, chunk 0): its
+    instances go to the oracle."""
     from ..align.export import make_pallas_inputs, pick_WB
     from ..ops import band_dp, fw_dp, tile_dp
     R = dgs[0].R
@@ -356,11 +359,7 @@ def round_plan(params, dgs, dev, seeded=False, budget=None) -> RoundPlan:
             kernel, name = tile_dp.tile_poa_dp_batch, "tile_dp"
     chunk = budget // per
     if chunk < 1:
-        raise RuntimeError(
-            f"a {'window' if seeded else 'round'} whose band does not fit "
-            f"a block (WB={WB}, R={R}, P={P_}) needs {per} bytes of "
-            f"{name} planes an instance, over the device memory budget of "
-            f"{budget} bytes")
+        kernel, name, chunk = None, "oracle", 0
     # adaptive fetch cap: the walk is bounded by rows + qlen, but the
     # typical path is ~qlen + a few deletions; the rare longer stream is
     # refetched from the device tensor
@@ -644,7 +643,10 @@ class _Job:
     capped step words, for seeded windows the band state of each
     window's rows), then launches the next wave or group. Each launch
     handle keeps its inputs and outputs until its wave has been
-    collected. The int64 words are fetched, not the band kernel's int16
+    collected. A group planned "oracle" (one instance's planes over the
+    budget) launches nothing: collect yields its instances flagged
+    M_OVFL, which the fusion sends to the oracle and counts in
+    ``fallbacks``. The int64 words are fetched, not the band kernel's int16
     delta stream: at 64 instances the words' copy took 0.19 ms and the
     stream's copy and host decode 2.91 ms (chip_smoke.py phase 3f,
     NVIDIA H100 80GB HBM3, 700.00 W).
@@ -671,6 +673,10 @@ class _Job:
         self.step_cap = plan.step_cap
         if bp.s16_cap is not None:
             self.step_cap = max(2, min(self.step_cap, int(bp.s16_cap)))
+        self.plan, self.group, self.dgs = plan, group, dgs
+        if plan.kernel is None:
+            self.waves = iter(())
+            return
         shares = []
         for i, sh in enumerate(self.lanes):
             lo, hi = shard_bounds(len(dgs), len(self.lanes), i)
@@ -678,7 +684,6 @@ class _Job:
             chunk = budgets[i] // plan.per
             shares.append([(sh, slice(c0, min(c0 + chunk, hi)))
                            for c0 in range(lo, hi, chunk)])
-        self.plan, self.group, self.dgs = plan, group, dgs
         self.waves = itertools.zip_longest(*shares)
 
     def _launch_next(self):
@@ -688,6 +693,8 @@ class _Job:
             if nxt is None:
                 return []
             self._plan(*nxt)
+            if self.plan.kernel is None:
+                return [dict(group=self.group, oracle=True)]
             wave = next(self.waves)
         return [self._launch(sh, part) for sh, part in filter(None, wave)]
 
@@ -722,6 +729,15 @@ class _Job:
 
     def _fetched(self, h):
         bp = self.bp
+        if h.get("oracle"):
+            # no launch: each instance comes back with the capacity flag
+            # M_OVFL, which sends it to the oracle
+            n = len(h["group"])
+            misc = np.zeros((n, L.M_NMISC), np.int32)
+            misc[:, L.M_OVFL] = 1
+            empty = np.zeros((n, 0), np.int64)
+            return dict(group=h["group"], r=self.r, misc=misc, steps=empty,
+                        steps_dev=None, shard=None, mpl=empty, mpr=empty)
         if h["ev"] is not None:
             h["ev"].synchronize()
             t0, t1 = bp.clock.interval(h["shard"].dev, h["start"], h["ev"])

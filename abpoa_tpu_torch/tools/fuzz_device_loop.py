@@ -31,11 +31,12 @@ on any byte difference, on a pipeline shard count other than the
 thresholds give, on a round-path fallback, and on device-loop fallbacks
 beyond the instances that the oracle's capacity rule flags (a graph past
 the loop's node, edge or aligned-list capacity, or a band past its
-segments).
+segments), the rule run on the forward-only oracle, as the loop runs.
 
 A failing seed prints its parameters and the run exits 1; rerun it with
---start SEED --n 1. Out of scope: the shapes of ROADMAP.md C3 (bands over
-1024 lanes, partial row masks, more than 253 predecessors).
+--start SEED --n 1. Out of scope: bands over 1024 lanes, partial row
+masks and more than 253 predecessors (the shape classes of the CLI's
+fuzzer, ``fuzz_ref --shapes``, reach them).
 """
 from __future__ import annotations
 
@@ -333,8 +334,13 @@ def run_batch_seed(seed: int, device="cpu") -> str:
             (desc, f"{len(bp.pipeline_shards)} pipeline shards")
         assert bp.fallbacks == 0, (desc, f"{bp.fallbacks} fallbacks")
     elif bp.fallbacks:
+        # the loop runs forward-only (the host finishes a -s read's rc
+        # retry from its first flagged round), so its graphs are those of
+        # the forward-only oracle
         cfg = bp._loop_eligible(insts)
-        flagged = sum(_capacity_flags(params, insts, weights, cfg))
+        flagged = sum(_capacity_flags(
+            dataclasses.replace(params, amb_strand=False), insts, weights,
+            cfg))
         assert bp.fallbacks <= flagged, \
             (desc, f"{bp.fallbacks} fallbacks, {flagged} flagged")
     return f"ok ({desc}, fallbacks {bp.fallbacks})"

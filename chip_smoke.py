@@ -82,7 +82,7 @@ Phases (each prints its own lines; any failed check exits non-zero):
      64 x heter.fa (golden x 64) and --seeded --config5 over 64 instances
      (the serial oracle); the 1-process and 2-process rates
   15. fuzz -- abpoa_tpu_torch/tools/fuzz_device_loop.py on the card: 30
-     round-mode seeds, 10 batch-mode seeds, all clean
+     round-mode seeds, 11 batch-mode seeds, all clean
   16. pipeline -- BatchPOA(pipeline=True) against pipeline=False in one
      call, in turns (lockstep, pipelined, pipelined, lockstep, lockstep,
      pipelined after one checked warm-up each): heter64-local and
@@ -98,6 +98,15 @@ Phases (each prints its own lines; any failed check exits non-zero):
      and oracle gates passed, no fallback, 0 < dp_busy_seconds < the e2e
      median, the card's name in the extras; the record printed on a
      line of its own (adds about a minute to a run)
+  18. cli fuzz -- abpoa_tpu_torch/tools/fuzz_ref.py on the card: the
+     CLI (serial engine, or -l through batch_msa_from_files) against
+     its host oracle (--engine numpy) on gen_case seeds 0-199, list
+     seeds 0-29 and seeds 0-3 of each shape class (wide, long, hub,
+     svmask) serially and under -l: every seed clean, every shape
+     reached with its kernel launched, B1-B5 each launched in the
+     phase; a line a row with seeds, clean, reached, launches and
+     seconds (sized to ~115 s: 300, 40 and 6 seeds took 168.0 s after
+     the phases before it, on an NVIDIA H100 80GB HBM3 at 700 W)
   3f. (run last, after the end-to-end phases) B1, B3 and B4 timed at the
      table's shape (B=8), at the B their path launches (B1 32, B3/B4 64,
      B4 1 per -S window), B5 at B=1 on heter.fa round 14, and sweep only
@@ -122,6 +131,7 @@ times as extra keys); the last line is {"ok": true, "device": {...}}.
     python chip_smoke.py --multi-only   # phases 1, 2 and 13-15
     python chip_smoke.py --pipeline-only   # phases 1, 2 and 16
     python chip_smoke.py --bench-only   # phases 1, 2 and 17
+    python chip_smoke.py --fuzz-only   # phases 1, 2 and 18
     python chip_smoke.py --baseline build/base   # 3f beside that checkout
 """
 import io
@@ -145,6 +155,9 @@ N_SEEDED = 256   # config-5-shaped instances of the seeded phase (1024
 QV_SEED = 77     # seed of the qv weights (integers in [1, 60) per base)
 REPS = 3         # timed slice runs after one warm-up
 E2E = {}         # single-device e2e medians by cell, for phase 13
+FUZZ_SERIAL = 200  # phase 18's seeds: gen_case, list mode, and each
+FUZZ_LIST = 30     # shape class and mode
+FUZZ_SHAPES = 4
 
 
 
@@ -1878,11 +1891,12 @@ def procs_phase():
 
 
 def fuzz_phase():
-    """The device-loop fuzzer on the card: 30 round-mode seeds, 10
-    batch-mode seeds, all clean."""
+    """The device-loop fuzzer on the card: 30 round-mode seeds, 11
+    batch-mode seeds (seed 10: an -s read the loop sends to the oracle,
+    which the forward-only capacity rule flags), all clean."""
     import contextlib
     from abpoa_tpu_torch.tools.fuzz_device_loop import main as fuzz
-    for mode, n in (("round", 30), ("batch", 10)):
+    for mode, n in (("round", 30), ("batch", 11)):
         t0 = time.perf_counter()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -2051,6 +2065,62 @@ def bench_phase():
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def cli_fuzz_phase():
+    """The CLI's differential fuzzer on the card (python -m
+    abpoa_tpu_torch.tools.fuzz_ref, in this process): FUZZ_SERIAL
+    gen_case seeds, FUZZ_LIST list seeds and FUZZ_SHAPES seeds of each
+    shape class serially and under -l, the port's CLI on the card
+    against its host oracle (--engine numpy). Every seed clean (equal
+    bytes, failure for failure); every shape seed reached its shape and
+    launched the kernel the shape should reach (``run_shape_case``);
+    over the phase, every kernel of the CLI's paths (B1-B5) launched.
+    One line a row: seeds, clean, shapes reached, launches, seconds."""
+    import collections
+    import shutil
+    import tempfile
+    from abpoa_tpu_torch.tools import fuzz_ref
+    t_phase = time.perf_counter()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="abpoa_cli_fuzz."))
+    sides = fuzz_ref.Sides("cuda", workdir=work)
+    rows = [("serial", FUZZ_SERIAL, lambda s: fuzz_ref.run_case(s, sides)),
+            ("list", FUZZ_LIST,
+             lambda s: fuzz_ref.run_case(s, sides, list_mode=True))]
+    for cls in fuzz_ref.SHAPES:
+        for lm in (False, True):
+            rows.append((cls + (" -l" if lm else ""), FUZZ_SHAPES,
+                         lambda s, c=cls, lm=lm:
+                         fuzz_ref.run_shape_case(c, s, sides, lm)))
+    bad = []
+    reset_launches()
+    try:
+        for name, n, run in rows:
+            t0 = time.perf_counter()
+            clean = reached = 0
+            launched = collections.Counter()
+            for seed in range(n):
+                res = run(seed)
+                clean += res.ok
+                reached += bool(res.reached)
+                launched.update(res.launches)
+                if not res.ok:
+                    bad.append(f"{name} seed {seed}: {res.descr} args "
+                               f"{' '.join(res.args)}")
+            say(f"cli fuzz {name}: {n} seeds, {clean} clean"
+                + (f", {reached} reached its shape"
+                   if name not in ("serial", "list") else "")
+                + f", launches {dict(launched)}, "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    got = launches_now()
+    check(not bad, "cli fuzz: " + "\n".join(bad))
+    check(all(got[k] for k in ("band_dp", "graph_update", "band_dp_topo",
+                               "fw_dp", "tile_dp")),
+          f"cli fuzz: a kernel of the CLI's paths never launched: {got}")
+    say(f"cli fuzz: launches {got}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv):
     # --dp-only: the card, the build, phases 3-3e (the kernels against
     # their plain versions) and 3f (the DP kernels' times), then stop;
@@ -2059,6 +2129,7 @@ def main(argv):
     multi_only = "--multi-only" in argv
     pipeline_only = "--pipeline-only" in argv
     bench_only = "--bench-only" in argv
+    fuzz_only = "--fuzz-only" in argv
     base_dir = argv[argv.index("--baseline") + 1] if "--baseline" in argv \
         else None
     try:
@@ -2099,6 +2170,11 @@ def main(argv):
     if bench_only:
         # ---- 17 alone: the port's bench ----
         bench_phase()
+        say(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if fuzz_only:
+        # ---- 18 alone: the CLI's differential fuzzer ----
+        cli_fuzz_phase()
         say(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     if pipeline_only:
@@ -2239,6 +2315,9 @@ def main(argv):
 
     # ---- 17. the port's bench ----
     bench_phase()
+
+    # ---- 18. the CLI's differential fuzzer ----
+    cli_fuzz_phase()
 
     # ---- 3f, after the end-to-end phases (its buffers and builds do not
     # weigh on their times) ----

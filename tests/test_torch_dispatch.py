@@ -17,12 +17,17 @@ whose full-width planes the redesign changed (linear: one more). Past
 4096 rows (synthetic exports, tests/test_torch_dp_edges.py synth_dense)
 the same rule holds with no raise: B3 while the band fits a block (past
 8192 rows too), B4 past that, B5 when B4's planes exceed the budget, and
-a clear error naming the bytes when one instance's tiles exceed it
-too.
+the plan "oracle" (no kernel, chunk 0, the bytes of one instance in
+``per``) when one instance's tiles exceed it too, or a window's planes
+(the seeded rounds have no third branch).
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
+
+DATA = pathlib.Path(__file__).resolve().parent / "data"
 
 
 # (round, kernel, chunk) of every round before the redesign of B3/B4;
@@ -211,12 +216,13 @@ def test_round_plan_past_4096_rows(case, monkeypatch):
 
 def test_round_plan_past_the_budget_names_the_bytes(monkeypatch):
     """A window whose band does not fit a block and whose planes exceed
-    the budget, and a round whose tiles exceed it too, raise
-    RuntimeError naming the bytes (no fallback)."""
-    with pytest.raises(RuntimeError, match="bytes"):
-        _synth_plan(5000, 256 << 20, monkeypatch, seeded=True, wb=400)
-    with pytest.raises(RuntimeError, match="bytes"):
-        _synth_plan(5000, 16 << 20, monkeypatch, wb=400)
+    the budget, and a round whose tiles exceed it too, get the plan
+    "oracle": no kernel, no chunk, and the bytes one instance would need
+    in ``per`` (the batch paths send the group to the oracle)."""
+    for budget, seeded in ((256 << 20, True), (16 << 20, False)):
+        plan = _synth_plan(5000, budget, monkeypatch, seeded=seeded, wb=400)
+        assert (plan.name, plan.kernel, plan.chunk) == ("oracle", None, 0)
+        assert plan.per > budget
 
 
 def test_plane_sizes_equal_the_wrappers_allocations():
@@ -239,3 +245,82 @@ def test_plane_sizes_equal_the_wrappers_allocations():
         assert H.untyped_storage().nbytes() == \
             bd.band_nplanes(gm) * 3 * 64 * 128 * 4
 
+
+
+@pytest.mark.parametrize("qlen,name", [(16000, "band_dp_topo"),
+                                       (16500, "fw_dp")])
+def test_round_plan_band_segments_past_1023_take_b4(qlen, name):
+    """B3 keeps a band segment in 10 bits: a round whose query spans
+    1024 segments or more (16,500 bases: 32-bit scores, 16 lanes a
+    segment, 1064 segments) goes to B4 though its band fits a block;
+    16,000 bases (16-bit scores, 32 lanes, 504 segments) stay on B3."""
+    import dataclasses
+    from test_torch_dp_edges import _params, synth_dense
+    from abpoa_tpu_torch.align.export import score_dispatch
+    from abpoa_tpu_torch.parallel import batch
+    p = _params()
+    dg = synth_dense(p, 2000, seed=3)
+    q = np.random.default_rng(3).integers(0, 4, qlen)
+    pn, inf_min = score_dispatch(p, dg.n_rows, qlen)
+    W = (qlen // 128 + 1) * 128
+    qcol = np.zeros(W, np.int32)
+    qcol[1:qlen + 1] = q
+    dg = dataclasses.replace(dg, qlen=qlen, pn=pn, inf_min=inf_min,
+                             qcol=qcol, W=W)
+    plan = batch.round_plan(p, [dg], torch.device("cpu"))
+    assert plan.name == name and plan.cfg.R == 2048
+    WqB = (W + plan.cfg.WB - 1) // plan.cfg.WB * plan.cfg.WB \
+        if plan.band else W
+    assert (WqB // pn < 1024) == (name == "band_dp_topo")
+
+
+def _cli_bytes(argv, out):
+    from abpoa_tpu_torch import cli
+    assert cli.main([*argv, "-o", str(out)]) == 0
+    return out.read_bytes()
+
+
+@pytest.mark.parametrize("args", [[], ["-S"]], ids=["B5", "S-windows"])
+def test_serial_engine_over_the_budget_runs_the_oracle(args, tmp_path,
+                                                       monkeypatch):
+    """An alignment whose tiles or planes exceed the budget (here every
+    one: a budget of 1 byte) runs on the oracle and counts in
+    over_budget; the output equals the oracle's, nothing raises."""
+    from abpoa_tpu_torch.align import engine_torch
+    from abpoa_tpu_torch.parallel import batch
+    fa = str(DATA / "seq.fa")
+    want = _cli_bytes([*args, "--engine", "numpy", fa], tmp_path / "o.fa")
+    monkeypatch.setattr(batch, "CPU_PLANE_BUDGET", 1)
+    n0 = engine_torch.over_budget
+    got = _cli_bytes([*args, "--device", "cpu", fa], tmp_path / "t.fa")
+    assert got == want
+    assert engine_torch.over_budget - n0 >= 9   # seq.fa: 10 reads
+
+
+@pytest.mark.parametrize("args", [["-m", "1"], ["-S"]],
+                         ids=["round", "seeded"])
+def test_batch_over_the_budget_falls_back(args, tmp_path, monkeypatch):
+    """A round (or window round) group whose one instance exceeds the
+    budget launches nothing; each instance goes to the oracle, counted
+    in fallbacks; the output equals the oracle's, nothing raises."""
+    from abpoa_tpu_torch import cli
+    from abpoa_tpu_torch.parallel import batch
+    fa = str(DATA / "seq.fa")
+    one = _cli_bytes([*args, "--engine", "numpy", fa], tmp_path / "o.fa")
+    grab = {}
+    orig = batch.batch_msa_from_files
+
+    def keep(*a, **k):
+        grab["bp"] = orig(*a, **k)
+        return grab["bp"]
+    monkeypatch.setattr(batch, "batch_msa_from_files", keep)
+    monkeypatch.setattr(batch, "CPU_PLANE_BUDGET", 1)
+    lst = tmp_path / "in.list"
+    lst.write_text(f"{fa}\n" * 4)
+    got = _cli_bytes([*args, "-l", "--device", "cpu", str(lst)],
+                     tmp_path / "t.fa")
+    bp = grab["bp"]
+    assert got == one * 4
+    assert set(bp.launches.values()) == {0}
+    assert bp.fallbacks == (bp.windows if "-S" in args else 4 * 9)
+    assert bp.fallbacks > 0

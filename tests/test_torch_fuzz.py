@@ -4,10 +4,11 @@
 * round mode, seeds 0-2 (one per gap set; seed 0 also the split round):
   every round of the port's device_round equals the oracle and the host
   graph;
-* batch mode, three seeds (three shards each; one with -s and a
-  reverse-complemented read, qv weights and a forced fetch cap; one on
-  the round path with the pipeline on): the sharded BatchPOA equals the
-  serial oracle;
+* batch mode, four seeds (three shards, or two for seed 10; one with -s
+  and a reverse-complemented read, qv weights and a forced fetch cap;
+  one on the round path with the pipeline on; seed 10 an -s read that
+  falls back on the loop, which the forward-only capacity rule flags):
+  the sharded BatchPOA equals the serial oracle;
 * the capacity rule flags an instance of unrelated reads and no
   instance of one read set;
 * a corrupted step word makes the fuzzer report a failure (exit 1).
@@ -30,13 +31,18 @@ def test_round_mode_seed_is_clean(seed, capsys):
         assert "split=both" in out
 
 
-@pytest.mark.parametrize("seed", [3, 6, 8])
+@pytest.mark.parametrize("seed", [3, 6, 8, 10])
 def test_batch_mode_seed_is_clean(seed, capsys):
     from abpoa_tpu_torch.tools.fuzz_device_loop import main
     assert main(["--n", "1", "--start", str(seed), "--device", "cpu",
                  "--mode", "batch"]) == 0
     out = capsys.readouterr().out
-    assert "shards=3" in out and "campaign clean" in out
+    assert f"shards={2 if seed == 10 else 3}" in out
+    assert "campaign clean" in out
+    if seed == 10:
+        # an -s read falls back on the loop: the forward-only oracle's
+        # capacity rule flags its instance
+        assert "amb=True" in out and "path=loop, fallbacks 1" in out
     if seed == 6:
         assert "amb=True" in out and "qv=True" in out and "cap=35" in out
     if seed == 8:

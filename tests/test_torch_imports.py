@@ -1,6 +1,8 @@
 """abpoa_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports the JAX package (abpoa_tpu), JAX, or the root
-bench.py (which drives the JAX package; the port has its own bench).
+chip_smoke.py, imports the JAX package (abpoa_tpu), JAX, the root
+bench.py (which drives the JAX package; the port has its own bench) or
+the root tools/ (tools/fuzz_ref.py, whose generator the port's fuzzer
+copies).
 
 * An AST scan of every abpoa_tpu_torch/**/*.py and chip_smoke.py finds
   no such import statement and no importlib/__import__ call naming one.
@@ -17,7 +19,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"abpoa_tpu", "jax", "jaxlib", "bench"}
+FORBIDDEN = {"abpoa_tpu", "jax", "jaxlib", "bench", "tools", "fuzz_ref"}
 SOURCES = sorted((ROOT / "abpoa_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
@@ -52,7 +54,7 @@ NEW_IN_SLICES = ["cli.py", "plot.py", "pyabpoa.py", "align/engine_torch.py",
                  "ops/tile_dp.py", "ops/topo.py", "seed.py", "bench.py",
                  "ops/roofline.py", "examples/example.py",
                  "examples/sub_example.py", "examples/batch_example.py",
-                 "workload.py"]
+                 "workload.py", "tools/fuzz_ref.py"]
 
 
 def test_no_import_of_the_jax_package_or_jax():
@@ -74,11 +76,15 @@ def test_scan_finds_a_forbidden_import(tmp_path):
                    "from abpoa_tpu_torch import bench\n"
                    "import jax.numpy as jnp\n"
                    "import bench\n"
+                   "from abpoa_tpu_torch.tools import fuzz_ref\n"
+                   "from tools.fuzz_ref import gen_case\n"
+                   "import fuzz_ref\n"
                    "def f():\n"
                    "    from abpoa_tpu.graph import POAGraph\n"
                    "    importlib.import_module('jaxlib')\n")
     assert sorted(m for _line, m in _bad_imports(src)) == \
-        ["abpoa_tpu.graph", "bench", "jax.numpy", "jaxlib"]
+        ["abpoa_tpu.graph", "bench", "fuzz_ref", "jax.numpy", "jaxlib",
+         "tools.fuzz_ref"]
 
 
 RUN = """
