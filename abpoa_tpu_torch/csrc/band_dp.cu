@@ -26,10 +26,16 @@
 // backtrack bits) live in device memory at lane c mod WB, L2-resident
 // between a row's write and its successors' reads. The design shortens
 // the chain:
-// - each thread owns CPT adjacent band positions (rel) in registers; the
-//   predecessor values are loaded once (the first slot's kept for the
-//   backtrack bits), the row before's from registers when the band did
-//   not move, and the query profile's load overlaps the merge;
+// - each thread owns CPT adjacent band positions (rel) in registers, a
+//   template parameter: CPT = 2 up to 1024 lanes, CPT = 4 past them (up
+//   to 2048, node-id mode only; the topo kernel stays at 1024 lanes), so
+//   a block has at most 512 threads (nvcc -Xptxas -v for sm_90a, CUDA
+//   12.8: no spills at two; at four, linear 105 registers and affine 128
+//   without spills, convex 128 with 76 bytes of spill stores and 88 of
+//   loads); the predecessor values are loaded once (the first slot's
+//   kept for the backtrack bits), the row before's from registers when
+//   the band did not move, and the query profile's load overlaps the
+//   merge;
 // - the F (insertion) prefix maxes are a serial max over the thread's
 //   positions, a warp-shuffle scan and one warp reduction across warps;
 //   the row maximum and its tie-break are one 64-bit key, two warp
@@ -49,8 +55,10 @@
 namespace abpoa {
 namespace {
 
-constexpr int CPT = 2;        // band positions a thread owns
-constexpr int MAX_NT = 1024 / CPT;
+constexpr int MAX_NT = 512;   // threads a block, whatever the band
+// bands of up to MAX_WB[nid] lanes: 2 positions a thread up to 1024
+// lanes, 4 past them
+constexpr int MAX_WB_TOPO = 1024, MAX_WB_NID = 2048;
 
 struct BandArgs {
   const int* scal;   // [B, S_NSCAL]
@@ -134,6 +142,7 @@ __device__ __forceinline__ PBand pband(int pw, bool pv) {
 }
 
 // what the row body reads of one predecessor row at the thread's lanes
+template <int CPT>
 struct PredVals {
   int h[CPT];    // H[pred][l]
   int hm[CPT];   // H[pred][l - 1 mod WB]
@@ -141,7 +150,8 @@ struct PredVals {
   int e2[CPT];
 };
 
-__device__ __forceinline__ void load_pred(PredVals& v, const int* H,
+template <int CPT>
+__device__ __forceinline__ void load_pred(PredVals<CPT>& v, const int* H,
                                           const int* E1, const int* E2,
                                           int pred, const int* lane,
                                           bool vec, int WB, int gm) {
@@ -168,7 +178,8 @@ __device__ __forceinline__ void load_pred(PredVals& v, const int* H,
 
 // a predecessor that is the row before at the same lanes, from the
 // registers that hold it
-__device__ __forceinline__ void from_regs(PredVals& v, const int* ph,
+template <int CPT>
+__device__ __forceinline__ void from_regs(PredVals<CPT>& v, const int* ph,
                                           const int* pe1, const int* pe2,
                                           int ph_left) {
 #pragma unroll
@@ -186,8 +197,9 @@ struct Row {
 };
 
 // one predecessor slot's step of the merge at the thread's positions
+template <int CPT>
 __device__ __forceinline__ void merge_pred(
-    const Row& r, const PredVals& v, bool first, const PBand& pb,
+    const Row& r, const PredVals<CPT>& v, bool first, const PBand& pb,
     const int* c, const int* seg, const int* qrow, int gm, int* h,
     int* e1v, int* e2v) {
   const int begc = r.begc, endc = r.endc;
@@ -226,8 +238,9 @@ __device__ __forceinline__ void merge_pred(
 
 // one predecessor slot p's part of the backtrack bits at the thread's
 // positions (4-bit fields, 15 = none: the first slot of each condition)
+template <int CPT>
 __device__ __forceinline__ void bt_pred(
-    const PredVals& v, int p, const PBand& pb, int pn, const int* c,
+    const PredVals<CPT>& v, int p, const PBand& pb, int pn, const int* c,
     const int* qrow, const int* hrow, const int* e1row, const int* e2row,
     int gm, int e1, int oe1, int e2, int oe2, int (*acc)[9]) {
   const int plo = mulw(pb.begc, pn);
@@ -294,9 +307,9 @@ __device__ __forceinline__ int f_bits(int gm, int rel, int hh, int f1,
   return fb;
 }
 
-// one instance per mode and gap mode (GM): the code of a launch holds
-// only the branches it runs
-template <bool NID, int GM>
+// one instance per mode, gap mode (GM) and positions a thread (CPT):
+// the code of a launch holds only the branches it runs
+template <bool NID, int GM, int CPT>
 __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
   extern __shared__ int smem[];
   constexpr int gm = GM;
@@ -462,7 +475,7 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
     // ---- predecessor merges; the first slot's values stay for the
     // backtrack bits ----
     int h[CPT], e1v[CPT], e2v[CPT];
-    PredVals first;
+    PredVals<CPT> first;
     PBand fb;
     {
       const int pred = pre_at(s_pre, P2, R, rid, 0);
@@ -476,7 +489,7 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
     for (int p = 1; p < npre; ++p) {
       const int pred = pre_at(s_pre, P2, R, rid, p);
       const PBand pb = pband(pred == prev ? prev_bsn : s_bsn[pred], true);
-      PredVals v;
+      PredVals<CPT> v;
       if (regs && pred == prev)
         from_regs(v, ph, pe1, pe2, ph_left);
       else
@@ -601,7 +614,7 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
     for (int p = 1; p < npre; ++p) {
       const int pred = pre_at(s_pre, P2, R, rid, p);
       const PBand pb = pband(pred == prev ? prev_bsn : s_bsn[pred], true);
-      PredVals v;
+      PredVals<CPT> v;
       if (regs && pred == prev)
         from_regs(v, ph, pe1, pe2, ph_left);
       else
@@ -643,7 +656,8 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
     DP_PROBE(4)
     // ---- row max with the reference tie-breaks: among maximal in-band
     // cells the lowest lane-in-segment, then the last segment, then the
-    // first: one key ----
+    // first: one key, the lane above 17 bits of segment order (the JAX
+    // kernel's 15 bits overflow from segment 31 of a band on) ----
     u64 kbest = 0;
     if (owns) {
       const int nseg = r.endc - r.begc + 1;
@@ -653,7 +667,7 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
         const int vv = (band[u] && c[u] <= qlen) ? hrow[u] : inf;
         const int prio = lseg == nseg - 1 ? -1 : lseg;
         const int lis = rel[u] >= 0 ? rel[u] & (pn - 1) : rel[u] % pn;
-        const int key = lis * (1 << 15) + (prio * 1024 + lseg + 1024);
+        const int key = lis * (1 << 17) + (prio * 1024 + lseg + 1024);
         const u64 k = best_key(vv, key);
         kbest = k > kbest ? k : kbest;
       }
@@ -686,9 +700,9 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
     const u64 g = warp_max64(lane_id < NW ? s_red[lane_id] : 0);
     const int gmax = (int)((unsigned)(g >> 32) ^ 0x80000000u);
     const int kpick = (int)(~(unsigned)(g & 0xFFFFFFFFu) ^ 0x80000000u);
-    const int aux_pick = (kpick & 0x7FFF) - 1024;
+    const int aux_pick = (kpick & 0x1FFFF) - 1024;
     const int wseg = aux_pick - floordiv(aux_pick, 1024) * 1024;
-    const int maxi = gmax > inf ? (r.begc + wseg) * pn + (kpick >> 15) : -1;
+    const int maxi = gmax > inf ? (r.begc + wseg) * pn + (kpick >> 17) : -1;
     bool stop_now = false;
     if (!NID && a.extend) {
       const bool better = gmax > bs;
@@ -877,16 +891,25 @@ size_t band_smem_bytes(bool nid, int R, int P) {
   return sizeof(int) * ((size_t)(3 + (nid ? 1 : 0) + P / 2) * R + 227);
 }
 
-template <bool NID, int GM>
-int launch_gm(const BandArgs& a, int B, void* stream) {
+template <bool NID, int GM, int CPT>
+int launch_cpt(const BandArgs& a, int B, void* stream) {
   size_t smem = band_smem_bytes(NID, a.R, a.P);
   cudaError_t err = cudaFuncSetAttribute(
-      band_dp_kernel<NID, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      band_dp_kernel<NID, GM, CPT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int NT = (a.WB / CPT + 31) / 32 * 32;
-  band_dp_kernel<NID, GM><<<B, NT, smem, (cudaStream_t)stream>>>(a);
+  band_dp_kernel<NID, GM, CPT><<<B, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// 2 positions a thread up to 1024 lanes, 4 past them (node-id mode)
+template <bool NID, int GM>
+int launch_gm(const BandArgs& a, int B, void* stream) {
+  if constexpr (NID) {
+    if (a.WB > 1024) return launch_cpt<NID, GM, 4>(a, B, stream);
+  }
+  return launch_cpt<NID, GM, 2>(a, B, stream);
 }
 
 // the gap mode's instance (a mode neither linear nor convex is affine)
@@ -901,10 +924,10 @@ unsigned wb_inv(int WB) {
   return (unsigned)(((1ull << 32) + WB - 1) / WB);
 }
 
-// the geometry both entries take: WB a multiple of 32 up to 1024, pn a
+// the geometry both entries take: WB a multiple of 32 up to max_wb, pn a
 // power of two (divisions by it are shifts)
-bool bad_geometry(int WB, int pn) {
-  return WB % 32 || WB > 1024 || pn <= 0 || (pn & (pn - 1)) || WB % pn;
+bool bad_geometry(int WB, int pn, int max_wb) {
+  return WB % 32 || WB > max_wb || pn <= 0 || (pn & (pn - 1)) || WB % pn;
 }
 
 }  // namespace
@@ -924,7 +947,7 @@ extern "C" int band_dp_launch(const int* scal, const int* ctrl,
                               int LS, void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
-  if (bad_geometry(WB, pn) || P % 2 || P > 15)
+  if (bad_geometry(WB, pn, MAX_WB_NID) || P % 2 || P > 15)
     return (int)cudaErrorInvalidValue;
   BandArgs a{scal, ctrl, inp, i2nn, nullptr, qpf, misc, s16w, nullptr,
              nullptr, nullptr, H, E1, E2, BT,
@@ -946,7 +969,7 @@ extern "C" int band_dp_topo_launch(const int* scal, const int* ctrl,
                                    void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
-  if (bad_geometry(WB, pn) || P % 2 || P > 16 || m > 31
+  if (bad_geometry(WB, pn, MAX_WB_TOPO) || P % 2 || P > 16 || m > 31
       || (align_mode != 0 && align_mode != 2))
     return (int)cudaErrorInvalidValue;
   BandArgs a{scal, ctrl, pre, nullptr, mplr0, qpf, misc, nullptr, steps,

@@ -21,12 +21,31 @@
 // (max_remain: heaviest out-edge, first max; remain[SINK] = -1).
 //
 // What bounds it on an H100: latency. An instance's state is a few tens
-// of KB and its work a few thousand steps and nodes, far below the
-// card's byte and operation rates; what costs is chains of dependent
-// loads. The design keeps the instance's packed state in shared memory
-// (copied in, and back IN PLACE, by the whole block: the counterpart of
-// the JAX kernel's input_output_aliases) and takes every chain that is
-// not inherently serial off the one thread:
+// to a few hundred KB and its work a few thousand steps and nodes, far
+// below the card's byte and operation rates; what costs is chains of
+// dependent loads. The state has two residencies, the template
+// parameter GL:
+//   GL = false: the instance's packed state is staged in shared memory
+//     (copied in, and back IN PLACE, by the whole block: the counterpart
+//     of the JAX kernel's input_output_aliases), where it fits one
+//     block's 227 KB (ops/graph_update.py smem_bytes);
+//   GL = true: the kernel works on the packed state in global memory in
+//     place (the wrapper's in/out aliases; an instance's state stays in
+//     L1 and the 50 MB L2); shared memory keeps the in-degrees, the
+//     queue (which doubles as the scans' scratch), both topo maps (the
+//     pointer-doubling buffers), the step stream and the query
+//     (global_smem_bytes: 84,500 bytes in WM 0 and 91,668 in WM 1 at
+//     R = 4096, reads of 3,276 bp). This is the residency past the
+//     shared-memory bound, up to R = 4096: at the default band, qv reads
+//     of 1.9-3.3 kb, unit weights 2.55-3.3 kb. Every write of the fusion
+//     comes after the capacity check's barrier, so a failed fusion leaves
+//     the global state as it was; every phase reads the state its
+//     barrier closed, as in shared memory (global writes of a block are
+//     visible to the whole block after __syncthreads). It costs 1.02-1.03x
+//     the shared-memory residency at R = 1024 (chip_smoke.py phase 4c,
+//     H100 80GB HBM3, 700 W): the state stays in the SM's L1.
+// Either way the design takes every chain that is not inherently serial
+// off the one thread:
 //   * fusion is data parallel over the steps, on the route of the plain
 //     version: each step's topo row and query index come from a block
 //     scan of the row deltas and of the resolving steps; every step
@@ -260,7 +279,7 @@ __device__ __forceinline__ Step step_at(const int* s_steps, int LS, int ej,
   return {enc & 3, enc >> 3};
 }
 
-template <int WM>
+template <int WM, bool GL>
 __global__ void __launch_bounds__(NT, 1) graph_update_kernel(GraphArgs a) {
   extern __shared__ int smem[];
   const int R = a.R, E = a.E, P = a.P, A = a.A;
@@ -268,12 +287,25 @@ __global__ void __launch_bounds__(NT, 1) graph_update_kernel(GraphArgs a) {
   const int b = blockIdx.x, tid = threadIdx.x;
   const int QCAP = R + A + 1, LS = 2 * a.LS2;
   DP_PROBE_INIT
+  int* ctrl_g = a.ctrl + (size_t)b * R;
+  int* outp_g = a.outp + (size_t)b * R * OE;
+  int* inp_g = a.inp + (size_t)b * R * P2;
+  int* alp_g = a.alp + (size_t)b * R * A2;
   Graph<WM> g;
-  g.ctrl = smem;
-  g.outp = g.ctrl + R;
-  g.inp = g.outp + R * OE;
-  g.alp = g.inp + R * P2;
-  int* indeg = g.alp + R * A2;
+  int* indeg;
+  if (GL) {
+    g.ctrl = ctrl_g;
+    g.outp = outp_g;
+    g.inp = inp_g;
+    g.alp = alp_g;
+    indeg = smem;
+  } else {
+    g.ctrl = smem;
+    g.outp = g.ctrl + R;
+    g.inp = g.outp + R * OE;
+    g.alp = g.inp + R * P2;
+    indeg = g.alp + R * A2;
+  }
   int* s_i2n_in = indeg + R;
   int* s_i2nn = s_i2n_in + R;
   int* s_q = s_i2nn + R;
@@ -289,14 +321,12 @@ __global__ void __launch_bounds__(NT, 1) graph_update_kernel(GraphArgs a) {
   int* res = a.work + (size_t)b * 2 * LS;   // by query index
   int* bnid = res + LS;                     // the bundled nid, likewise
 
-  int* ctrl_g = a.ctrl + (size_t)b * R;
-  int* outp_g = a.outp + (size_t)b * R * OE;
-  int* inp_g = a.inp + (size_t)b * R * P2;
-  int* alp_g = a.alp + (size_t)b * R * A2;
-  block_copy(g.ctrl, ctrl_g, R);
-  block_copy(g.outp, outp_g, R * OE);
-  block_copy(g.inp, inp_g, R * P2);
-  block_copy(g.alp, alp_g, R * A2);
+  if (!GL) {
+    block_copy(g.ctrl, ctrl_g, R);
+    block_copy(g.outp, outp_g, R * OE);
+    block_copy(g.inp, inp_g, R * P2);
+    block_copy(g.alp, alp_g, R * A2);
+  }
   block_copy(s_i2n_in, a.i2nn_in + (size_t)b * R, R);
   block_copy(s_steps, a.s16w + (size_t)b * a.LS2, a.LS2);
   block_copy(s_qp4, a.qp4 + (size_t)b * a.Wq4, a.Wq4);
@@ -613,27 +643,37 @@ __global__ void __launch_bounds__(NT, 1) graph_update_kernel(GraphArgs a) {
                     || (!skip && !topo_ok);
   }
   __syncthreads();
-  block_copy(ctrl_g, g.ctrl, R);
   block_copy(a.i2nn_out + (size_t)b * R, s_i2nn, R);
-  block_copy(outp_g, g.outp, R * OE);
-  block_copy(inp_g, g.inp, R * P2);
-  block_copy(alp_g, g.alp, R * A2);
+  if (!GL) {
+    block_copy(ctrl_g, g.ctrl, R);
+    block_copy(outp_g, g.outp, R * OE);
+    block_copy(inp_g, g.inp, R * P2);
+    block_copy(alp_g, g.alp, R * A2);
+  }
   DP_PROBE(5)
   DP_PROBE_SAVE(nn, n_res)
 }
 
-template <int WM>
+// dynamic shared memory of a block: the packed state (GL = false), the
+// in-degrees, both topo maps, the queue, the step stream, the query and
+// (WM 1) its weights; the numbers of ops/graph_update.py smem_bytes and
+// global_smem_bytes
+template <int WM, bool GL>
+size_t smem_bytes(const GraphArgs& a) {
+  const size_t state = GL ? 0 : (size_t)a.R * (1 + out_words<WM>(a.E)
+                                               + a.P / 2 + (a.A + 1) / 2);
+  return sizeof(int) * (state + 3 * (size_t)a.R + (a.R + a.A + 1) + a.LS2
+                        + a.Wq4 + (WM ? a.Wq2 : 0));
+}
+
+template <int WM, bool GL>
 cudaError_t launch(const GraphArgs& a, int B, void* stream) {
-  const int A2 = (a.A + 1) / 2;
-  size_t smem = sizeof(int) * ((size_t)a.R * (4 + out_words<WM>(a.E)
-                                              + a.P / 2 + A2)
-                               + (a.R + a.A + 1) + a.LS2 + a.Wq4
-                               + (WM ? a.Wq2 : 0));
+  const size_t smem = smem_bytes<WM, GL>(a);
   cudaError_t err = cudaFuncSetAttribute(
-      graph_update_kernel<WM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      graph_update_kernel<WM, GL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  graph_update_kernel<WM><<<B, NT, smem, (cudaStream_t)stream>>>(a);
+  graph_update_kernel<WM, GL><<<B, NT, smem, (cudaStream_t)stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -646,6 +686,8 @@ DP_PROBE_EXPORT
 // returns the cudaError_t of the launch.
 // wmode 0 packs node ids into 16-wbits bits of a half; wmode 1 keeps
 // 16-bit ids in full words and reads the weight stream qw (Wq2 words).
+// gmem 0 stages the packed state in shared memory, gmem 1 works on it in
+// global memory (the caller picks: shared memory where it fits).
 // work: int32 scratch of B * 4 * LS2 words (two a forward step).
 extern "C" int graph_update_launch(const int* misc, const int* qlen,
                                    const int* node_n, const int* fail,
@@ -656,7 +698,7 @@ extern "C" int graph_update_launch(const int* misc, const int* qlen,
                                    int* fail_out, int* work, int B, int R,
                                    int E, int P, int A, int LS2, int Wq4,
                                    int Wq2, int wbits, int wmode,
-                                   void* stream) {
+                                   int gmem, void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
   // the queue doubles as the scans' scratch (2 * (NW + 1) ints) and the
@@ -668,9 +710,14 @@ extern "C" int graph_update_launch(const int* misc, const int* qlen,
     return (int)cudaErrorInvalidValue;
   if (wmode == 1 && (qw == nullptr || Wq2 < 1))
     return (int)cudaErrorInvalidValue;
-  if (wmode != 0 && wmode != 1) return (int)cudaErrorInvalidValue;
+  if ((wmode != 0 && wmode != 1) || (gmem != 0 && gmem != 1))
+    return (int)cudaErrorInvalidValue;
   GraphArgs a{misc, qlen, node_n, fail, i2nn_in, s16w, qp4, qw, ctrl, outp,
               inp, alp, i2nn_out, node_n_out, fail_out, work, R, E, P, A,
               LS2, Wq4, Wq2, wbits};
-  return (int)(wmode ? launch<1>(a, B, stream) : launch<0>(a, B, stream));
+  if (gmem)
+    return (int)(wmode ? launch<1, true>(a, B, stream)
+                       : launch<0, true>(a, B, stream));
+  return (int)(wmode ? launch<1, false>(a, B, stream)
+                     : launch<0, false>(a, B, stream));
 }

@@ -36,7 +36,7 @@ SOURCES = {
         "band_dp_topo_launch": [_vp] * 13 + [_int] * 11 + [_vp],
     },
     "graph_update": {
-        "graph_update_launch": [_vp] * 16 + [_int] * 10 + [_vp],
+        "graph_update_launch": [_vp] * 16 + [_int] * 11 + [_vp],
     },
     "fw_dp": {
         "fw_dp_launch": [_vp] * 22 + [_int] * 12 + [_vp],

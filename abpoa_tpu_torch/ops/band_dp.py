@@ -92,9 +92,19 @@ def build_qpf(cfg: BandConfig, mat, qcodes: torch.Tensor) -> torch.Tensor:
     return qpf.reshape(*lead, m * (KW + 1), WB).contiguous()
 
 
+# band lanes a block takes: two a thread up to 1024, four past them in
+# node-id mode (``band_cpt``)
+MAX_WB = {True: 2048, False: 1024}
+
+
+def band_cpt(WB: int) -> int:
+    """Band positions a thread of the kernel owns at WB lanes."""
+    return 2 if WB <= 1024 else 4
+
+
 def _check_geometry(cfg: BandConfig, name: str):
     if (cfg.WB % cfg.pn or cfg.Wq % cfg.WB or cfg.P % 2 or cfg.bt_lmax % 2
-            or cfg.WB > 1024 or cfg.P > 16):
+            or cfg.WB > MAX_WB[cfg.nid] or cfg.P > 16):
         raise ValueError(f"{name}: bad geometry {cfg}")
 
 
@@ -192,10 +202,14 @@ def band_poa_dp_packed(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "band_dp")
     band_poa_dp_packed.launches += 1
+    band_poa_dp_packed.wide_launches += int(band_cpt(cfg.WB) == 4)
     return misc, s16w
 
 
+# launches of the kernel; of its instances of four positions a thread
+# (bands past 1024 lanes)
 band_poa_dp_packed.launches = 0
+band_poa_dp_packed.wide_launches = 0
 
 
 def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
@@ -698,17 +712,18 @@ def _band_ref(cfg: BandConfig, scal, ctrl, pre, qpf, i2nn=None,
 
         # ---- row max with the reference tie-breaks: among the maximal
         # in-band cells, the lowest lane-in-segment, then the last
-        # segment, then the first ----
+        # segment, then the first (the lane above 17 bits of segment
+        # order: the JAX kernel's 15 overflow from band segment 31 on) ----
         lseg = seg - begc
         nseg = endc - begc + 1
         vv = torch.where(band & (c <= qlenc), hrow, infc)
         prio = torch.where(lseg == nseg - 1, -1, lseg)
-        key = (rel % pn) * (1 << 15) + (prio * 1024 + lseg + 1024)
+        key = (rel % pn) * (1 << 17) + (prio * 1024 + lseg + 1024)
         gmax = vv.amax(1, keepdim=True)
         kpick = torch.where(vv == gmax, key, 1 << 30).amin(1, keepdim=True)
-        aux_pick = (kpick & 0x7FFF) - 1024
+        aux_pick = (kpick & 0x1FFFF) - 1024
         wseg = aux_pick - (aux_pick // 1024) * 1024
-        maxi = torch.where(gmax > infc, (begc + wseg) * pn + (kpick >> 15),
+        maxi = torch.where(gmax > infc, (begc + wseg) * pn + (kpick >> 17),
                            -1)[:, 0]
         stop_now = torch.zeros_like(stop)
         if extend:

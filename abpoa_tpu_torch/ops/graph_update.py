@@ -11,8 +11,12 @@ parallel over the steps (block scans number the rows, query bases and
 new nodes; each edge and aligned bundle is written by its own thread),
 the Kahn sort on one thread, max_remain by pointer doubling on the
 other warps while it runs (the source's head says why this equals the
-serial replay). ``graph_update_packed_ref`` reaches the same function
-by vectorized torch operations, so the two check each other:
+serial replay). The instance's packed state sits in shared memory where
+it fits (``smem_bytes``: at the default band, reads up to about 1.9 kb
+with qv weights and 2.55 kb without) and stays in global memory past that
+(``state_in_global``), up to the loop's R = 4096.
+``graph_update_packed_ref`` reaches the same function by vectorized
+torch operations, so the two check each other:
 
   1. vectorized fusion (every node resolution depends only on the
      pre-fusion state; new ids come from a prefix count, the last-node
@@ -51,13 +55,27 @@ def out_words(cfg: LoopConfig) -> int:
 
 
 def smem_bytes(cfg: LoopConfig) -> int:
-    """Dynamic shared memory of one graph-update block (the formula of
-    graph_update_launch): the packed state, both topo maps, in-degrees,
-    the queue, the step stream, the query and (wmode 1) its weights."""
+    """Dynamic shared memory of one graph-update block with the packed
+    state in shared memory (the formula of graph_update_launch): the
+    packed state, both topo maps, in-degrees, the queue, the step
+    stream, the query and (wmode 1) its weights."""
     A2 = (cfg.A + 1) // 2
+    return (global_smem_bytes(cfg)
+            + 4 * cfg.R * (1 + out_words(cfg) + cfg.P // 2 + A2))
+
+
+def global_smem_bytes(cfg: LoopConfig) -> int:
+    """The same with the packed state in global memory: everything but
+    the state (ctrl, outp, inp, alp)."""
     qw = (cfg.Wq + 1) // 2 if cfg.wmode else 0
-    return 4 * (cfg.R * (4 + out_words(cfg) + cfg.P // 2 + A2)
-                + cfg.R + cfg.A + 1 + cfg.LS // 2 + (cfg.Wq + 3) // 4 + qw)
+    return 4 * (3 * cfg.R + cfg.R + cfg.A + 1 + cfg.LS // 2
+                + (cfg.Wq + 3) // 4 + qw)
+
+
+def state_in_global(cfg: LoopConfig) -> bool:
+    """The kernel's residency for cfg: the packed state stays in global
+    memory where it does not fit one block's shared memory."""
+    return smem_bytes(cfg) > MAX_SMEM_BYTES
 
 
 def _check(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen, qp4, qw):
@@ -101,12 +119,13 @@ def graph_update_packed(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen,
     qw [B, ceil(Wq/2)] the packed per-base weights (``pack_qw``), wmode 1
     only.
 
-    CUDA tensors launch ``csrc/graph_update.cu``, which updates
-    ps.ctrl/outp/inp/alp IN PLACE (the counterpart of the JAX kernel's
-    input_output_aliases) and returns them with a new i2nn, node_n and
-    fail; its per-step scratch (two int32 a forward step and instance)
-    comes from PyTorch's caching allocator. CPU tensors run the plain
-    version, which returns new tensors."""
+    CUDA tensors launch ``csrc/graph_update.cu`` (the packed state in
+    shared memory, or in global memory where ``state_in_global``), which
+    updates ps.ctrl/outp/inp/alp IN PLACE (the counterpart of the JAX
+    kernel's input_output_aliases) and returns them with a new i2nn,
+    node_n and fail; its per-step scratch (two int32 a forward step and
+    instance) comes from PyTorch's caching allocator. CPU tensors run
+    the plain version, which returns new tensors."""
     qlen = qlen.to(I32).contiguous()
     _check(cfg, ps, s16w, misc, qlen, qp4, qw)
     if ps.ctrl.device.type == "cpu":
@@ -120,6 +139,7 @@ def graph_update_packed(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen,
     fail = torch.empty_like(ps.fail)
     # per-step scratch: each resolving step's node and bundled node
     work = torch.empty(B, 2 * cfg.LS, dtype=I32, device=dev)
+    gmem = state_in_global(cfg)
     lib = library("graph_update")
     with torch.cuda.device(dev):
         rc = lib.graph_update_launch(
@@ -131,16 +151,21 @@ def graph_update_packed(cfg: LoopConfig, ps: PackedState, s16w, misc, qlen,
             fail.data_ptr(), work.data_ptr(), B, cfg.R, cfg.E, cfg.P, cfg.A,
             s16w.shape[1],
             qp4.shape[1], qw.shape[1] if cfg.wmode else 0, cfg.wbits,
-            cfg.wmode, torch.cuda.current_stream(dev).cuda_stream)
+            cfg.wmode, int(gmem), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "graph_update")
     graph_update_packed.launches += 1
     graph_update_packed.qv_launches += int(cfg.wmode)
+    graph_update_packed.global_launches += int(gmem and not cfg.wmode)
+    graph_update_packed.qv_global_launches += int(gmem and cfg.wmode)
     return PackedState(ps.ctrl, ps.outp, ps.inp, ps.alp, i2nn, node_n, fail)
 
 
-# launches of the kernel, both modes; of its wmode-1 instance alone
+# launches of the kernel, all instances; of its wmode-1 instances; of its
+# global-memory instances in wmode 0 and in wmode 1
 graph_update_packed.launches = 0
 graph_update_packed.qv_launches = 0
+graph_update_packed.global_launches = 0
+graph_update_packed.qv_global_launches = 0
 
 
 # ------------------------------------------------------------------ #

@@ -7,7 +7,9 @@ batch down one of two paths, decided by eligibility alone:
 
 * the device-resident loop (``_DeviceLoop``), when ``_loop_geometry``
   accepts the batch: global mode, banded, nucleotides, no ``-i``
-  restore, 16-bit scores. Read 0 of every instance is fused on the host;
+  restore, 16-bit scores, graphs of at most 4096 nodes and bands of at
+  most 2048 lanes (the JAX package's envelope where its R is uncapped).
+  Read 0 of every instance is fused on the host;
   the remaining reads run as rounds of the device loop
   (``ops/poa_loop.py``: band DP + graph update kernels, no host round
   trip); the host then replays the per-round step streams through the
@@ -80,7 +82,7 @@ from ..api import ABPOA
 from ..params import Params, GLOBAL_MODE, SRC_NODE_ID, SINK_NODE_ID
 
 from ..device import resolve_device
-from ..ops import graph_update
+from ..ops import band_dp
 from ..ops import layout as L
 from ..ops import poa_loop as pl
 from ..ops.steps import decode_steps_batch, replay_steps, unpack_steps16
@@ -169,8 +171,14 @@ def _loop_geometry(params, instances, wmax=None):
     if NR < 1 or maxlen < 1:
         return None
     # node capacity: progressive graphs grow to ~maxlen + variants;
-    # instances that outgrow it fail sticky and go to the oracle
-    R = min(4096, (int(maxlen + max(96, maxlen // 4)) + 63) // 64 * 64)
+    # instances that outgrow it fail sticky and go to the oracle. The
+    # JAX package caps R at 4096 and sends every instance whose graph
+    # outgrows it to the host oracle; here such a batch (reads past
+    # about 3,276 bp) takes the round path instead, which runs it on the
+    # card with no fallback and gives the same bytes
+    R = (int(maxlen + max(96, maxlen // 4)) + 63) // 64 * 64
+    if R > 4096:
+        return None
     R = max(R, 128)
     bits, pn, _ln, inf_min = score_width_dispatch(params, R, maxlen)
     if bits != 16:
@@ -179,8 +187,8 @@ def _loop_geometry(params, instances, wmax=None):
     Wq = ((maxlen // 128) + 1) * 128
     Wq = (Wq + WB - 1) // WB * WB
     LS = (R + Wq + 63) // 64 * 64
-    # one CUDA thread per band lane
-    if Wq >= 32000 or R > 4096 or WB > 1024:
+    # the band kernel's block: up to 512 threads of 2 or 4 lanes each
+    if Wq >= 32000 or WB > band_dp.MAX_WB[True]:
         return None
     if wmax is not None:
         # qv weights: out-edge entries are full words id | w<<16, so
@@ -195,13 +203,11 @@ def _loop_geometry(params, instances, wmax=None):
         wmode, wbits = 0, max(4, int(max_reads).bit_length())
         if wbits > 6 or R > (1 << (16 - wbits)):
             return None
-    cfg = pl.LoopConfig(R=R, E=12, P=8, A=4, Wq=Wq, WB=WB, LS=LS, NR=NR,
-                        B=0, pn=pn, inf_min=inf_min,
-                        gap_mode=params.gap_mode, wbits=wbits, wmode=wmode)
-    # the graph kernel keeps an instance's state in shared memory
-    if graph_update.smem_bytes(cfg) > graph_update.MAX_SMEM_BYTES:
-        return None
-    return cfg
+    # the graph kernel keeps an instance's state in shared memory where
+    # it fits, else in global memory (graph_update.state_in_global)
+    return pl.LoopConfig(R=R, E=12, P=8, A=4, Wq=Wq, WB=WB, LS=LS, NR=NR,
+                         B=0, pn=pn, inf_min=inf_min,
+                         gap_mode=params.gap_mode, wbits=wbits, wmode=wmode)
 
 
 def _plane_budget(dev, in_flight: int = 1) -> int:
@@ -321,7 +327,7 @@ def round_plan(params, dgs, dev, seeded=False, budget=None) -> RoundPlan:
     exceed the budget gets the plan "oracle" (no kernel, chunk 0): its
     instances go to the oracle."""
     from ..align.export import make_pallas_inputs, pick_WB
-    from ..ops import band_dp, fw_dp, tile_dp
+    from ..ops import fw_dp, tile_dp
     R = dgs[0].R
     P_ = max(d.P for d in dgs)
     pn = dgs[0].pn

@@ -1,7 +1,7 @@
 """Differential fuzzer of the port's device loop.
 
     python -m abpoa_tpu_torch.tools.fuzz_device_loop --n N --start S \\
-        --device cpu|cuda --mode round|batch [--keep-going]
+        --device cpu|cuda --mode round|batch|envelope [--keep-going]
 
 round (the counterpart of ``tools/fuzz_device_loop.py``, same generator
 and seeds): random heterogeneous batches (B 1-2 instances of 2-7 reads of
@@ -33,8 +33,19 @@ beyond the instances that the oracle's capacity rule flags (a graph past
 the loop's node, edge or aligned-list capacity, or a band past its
 segments), the rule run on the forward-only oracle, as the loop runs.
 
+envelope: the loop at the edge of its envelope, a class a seed (seed %
+3, ``draw_envelope``): ``qv``, 2-4 instances of 3-4 reads of 1.9-2.5 kb
+with qv weights (the graph kernel's wmode 1 with its state in global
+memory); ``long``, 2-3 instances of 3-4 reads of 2.6-3.1 kb under
+affine or linear gaps (wmode 0, state in global memory); ``wide``, 2-4
+instances of 3-5 reads of 1.0-1.8 kb with -b or -f wide enough for a
+band of 1,025-2,048 lanes (the band kernel's four positions a thread).
+``BatchPOA.run_consensus`` against the port's serial oracle, on the
+device loop, with the batch mode's capacity rule for fallbacks; on the
+card the class's kernel instance must launch.
+
 A failing seed prints its parameters and the run exits 1; rerun it with
---start SEED --n 1. Out of scope: bands over 1024 lanes, partial row
+--start SEED --n 1. Out of scope: bands over 2048 lanes, partial row
 masks and more than 253 predecessors (the shape classes of the CLI's
 fuzzer, ``fuzz_ref --shapes``, reach them).
 """
@@ -346,16 +357,82 @@ def run_batch_seed(seed: int, device="cpu") -> str:
     return f"ok ({desc}, fallbacks {bp.fallbacks})"
 
 
+ENVELOPE = ("qv", "long", "wide")
+
+
+def draw_envelope(seed: int):
+    """The batch of envelope seed `seed`: (class, params, instances,
+    weights or None). The class is ENVELOPE[seed % 3]."""
+    from ..params import Params
+    rng = np.random.default_rng(666_000 + seed)
+    cls = ENVELOPE[seed % 3]
+    sub_p = float(rng.uniform(0.01, 0.05))
+    ind_p = float(rng.uniform(0.0, 0.03))
+    kw = {}
+    if cls == "qv":
+        n_inst, lo, hi, reads = int(rng.integers(2, 5)), 1900, 2450, (3, 5)
+    elif cls == "long":
+        n_inst, lo, hi, reads = int(rng.integers(2, 4)), 2600, 3100, (3, 5)
+        kw = dict(zip(("gap_open1", "gap_ext1", "gap_open2", "gap_ext2"),
+                      GAP_SETS[1 + int(rng.integers(0, 2))]))
+    else:
+        # w >= 200 and reads past 1,000 bp: pick_WB past 1024 lanes
+        n_inst, lo, hi, reads = int(rng.integers(2, 5)), 1000, 1750, (3, 6)
+        kw = dict(zip(("gap_open1", "gap_ext1", "gap_open2", "gap_ext2"),
+                      GAP_SETS[int(rng.integers(0, 3))]))
+        if rng.random() < 0.5:
+            kw["wb"] = int(rng.integers(200, 600))
+        else:
+            kw["wf"] = round(float(rng.uniform(0.2, 0.4)), 2)
+    insts = [_gen_instance(rng, int(rng.integers(lo, hi)),
+                           int(rng.integers(*reads)), sub_p, ind_p)
+             for _ in range(n_inst)]
+    weights = ([[rng.integers(1, 60, len(q)).tolist() for q in r]
+                for r in insts] if cls == "qv" else None)
+    return cls, Params(**kw).post_set(), insts, weights
+
+
+def run_envelope_seed(seed: int, device="cpu") -> str:
+    """One envelope seed; raises AssertionError on a mismatch."""
+    from ..ops.band_dp import band_poa_dp_packed
+    from ..ops.graph_update import graph_update_packed
+    from ..parallel.batch import BatchPOA
+    cls, params, insts, weights = draw_envelope(seed)
+    exp, _abs = _oracle(params, insts, weights)
+    bp = BatchPOA(params, device=device)
+    count = {"qv": lambda: graph_update_packed.qv_global_launches,
+             "long": lambda: graph_update_packed.global_launches,
+             "wide": lambda: band_poa_dp_packed.wide_launches}[cls]
+    before = count()
+    got = bp.run_consensus(insts, weights=weights)
+    cfg = bp._loop_eligible(insts)
+    desc = (f"{cls} n={len(insts)} maxlen="
+            f"{max(len(q) for r in insts for q in r)} R={cfg.R} "
+            f"WB={cfg.WB} wmode={cfg.wmode} gap={params.gap_mode}")
+    assert bp.used_device_loop, (desc, "the batch took the round path")
+    bad = [k for k, (g, e) in enumerate(zip(got, exp)) if g != e]
+    assert not bad, (desc, "consensus differs at instances", bad)
+    if bp.fallbacks:
+        flagged = sum(_capacity_flags(params, insts, weights, cfg))
+        assert bp.fallbacks <= flagged, \
+            (desc, f"{bp.fallbacks} fallbacks, {flagged} flagged")
+    if device != "cpu":
+        assert count() > before, (desc, f"no launch of the {cls} instance")
+    return f"ok ({desc}, fallbacks {bp.fallbacks})"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m abpoa_tpu_torch.tools.fuzz_device_loop")
     ap.add_argument("--n", type=int, default=20)
     ap.add_argument("--start", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
-    ap.add_argument("--mode", default="round", choices=("round", "batch"))
+    ap.add_argument("--mode", default="round",
+                    choices=("round", "batch", "envelope"))
     ap.add_argument("--keep-going", action="store_true")
     a = ap.parse_args(argv)
-    run = run_round_seed if a.mode == "round" else run_batch_seed
+    run = {"round": run_round_seed, "batch": run_batch_seed,
+           "envelope": run_envelope_seed}[a.mode]
     fails = []
     for seed in range(a.start, a.start + a.n):
         try:

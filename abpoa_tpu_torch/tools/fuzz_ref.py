@@ -70,9 +70,12 @@ NT = "ACGT"
 AA = "ARNDCQEGHILKMFPSTWYVBZX"  # 23 of the 26-letter aa alphabet
 RC = str.maketrans("ACGTacgt", "TGCAtgca")
 
-# the kernel wrappers whose launch counts a case reports
+# the kernel wrappers whose launch counts a case reports, then the
+# instances counted apart: B1 at four positions a thread, B2 with its
+# state in global memory (unit and qv weights)
 KERNELS = ("band_dp", "graph_update", "band_dp_topo", "fw_dp", "tile_dp",
-           "topo")
+           "topo", "band_dp_wide", "graph_update_global",
+           "graph_update_qv_global")
 SHAPES = ("wide", "long", "hub", "svmask")
 
 
@@ -286,10 +289,15 @@ def _wide(rng, n_files, list_mode):
         n = int(rng.integers(3, 6))
         texts.append(_fasta(_mutate(rng, anc, NT, 0.03, 0.02)
                             for _ in range(n)))
-    # serially B5 sweeps several tiles a row; under -l the loop refuses
-    # the band and round_plan takes the full-width kernel
-    return texts, args, "wide " + " ".join(args), \
-        ("fw_dp",) if list_mode else ("tile_dp",)
+    # serially B5 sweeps several tiles a row; under -l the device loop's
+    # B1 at four positions a thread (its B2 state, R <= 2,112, stays in
+    # shared memory), with -m 2 the round path's full-width kernel
+    # (round_plan's band kernel takes 1024 lanes)
+    if not list_mode:
+        want = ("tile_dp",)
+    else:
+        want = ("fw_dp",) if "-m" in args else ("band_dp_wide",)
+    return texts, args, "wide " + " ".join(args), want
 
 
 def _long(rng, n_files, list_mode):
@@ -437,7 +445,10 @@ def _launches():
     from ..ops.topo import topo_batch
     ws = (band_poa_dp_packed, graph_update_packed, band_poa_dp_batch,
           fw_poa_dp_batch, tile_poa_dp_batch, topo_batch)
-    return dict(zip(KERNELS, (w.launches for w in ws)))
+    return dict(zip(KERNELS, [w.launches for w in ws] + [
+        band_poa_dp_packed.wide_launches,
+        graph_update_packed.global_launches,
+        graph_update_packed.qv_global_launches]))
 
 
 def _cli(argv, out: pathlib.Path):

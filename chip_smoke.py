@@ -33,6 +33,20 @@ Phases (each prints its own lines; any failed check exits non-zero):
      oracle under the same weights, no fallback, one B1 and one wmode-1
      B2 launch per round and sub-batch; e2e; then -l -Q over 64 x seq.fq
      gives seq_fq_Q_cons.fa 64 times
+  4c. loop envelope -- three batches of 16 instances of joined heter.fa
+     reads past the shared-memory residency of B2 or past 1024 band
+     lanes: qv-long (8 reads of 3 joined 762-769 bp reads, 2,298-2,305
+     bp, qv weights: R 2944, B2 wmode 1 with its state in global memory),
+     affine-long (6 of 4 joined, 3,066-3,072 bp, affine gaps: R 3840, B2
+     wmode 0 in global memory), wide-loop (6 of 2 joined heter.fa reads,
+     1,212-1,537 bp, linear gaps, -f 0.2: WB 1536, B1 with four
+     positions a thread); each on the device loop
+     with no fallback, B1 and B2 and the batch's instance once a round
+     and sub-batch, all 16 instances equal to the port's serial oracle;
+     e2e median of 3; the new instance against its plain version on the
+     batch's last round, bit-equal, with times; B2 at heter64's and
+     heter64-qv's last round with the state in global memory against
+     shared memory, in turns
   5. list mode -- batch_msa_from_files over 4 x heter.fa writes the
      golden bytes 4 times
   6. round path -- run_consensus over 64 x heter.fa with -m 1 (full-width
@@ -132,6 +146,7 @@ times as extra keys); the last line is {"ok": true, "device": {...}}.
     python chip_smoke.py --pipeline-only   # phases 1, 2 and 16
     python chip_smoke.py --bench-only   # phases 1, 2 and 17
     python chip_smoke.py --fuzz-only   # phases 1, 2 and 18
+    python chip_smoke.py --envelope-only   # phases 1, 2 and 4c
     python chip_smoke.py --baseline build/base   # 3f beside that checkout
 """
 import io
@@ -197,7 +212,9 @@ def wrappers():
 def reset_launches():
     for w in wrappers().values():
         w.launches = 0
-    wrappers()["graph_update"].qv_launches = 0
+    gu = wrappers()["graph_update"]
+    gu.qv_launches = gu.global_launches = gu.qv_global_launches = 0
+    wrappers()["band_dp"].wide_launches = 0
 
 
 def launches_now():
@@ -1034,6 +1051,271 @@ def qv_loop_phase(dev, heter):
     say(f"list mode -Q: {N_INST} x seq.fq == seq_fq_Q_cons.fa, wmode-1 "
         f"launches {graph_update_packed.qv_launches}, {secs:.4f} s")
     return launches
+
+
+# the loop-envelope phase's batches: (name, reads joined a read, reads
+# an instance, the first read, from heter.fa's 762-769 bp reads alone);
+# read i of a batch joins reads first+i .. first+i+join-1 of heter.fa
+# (or of its long reads), cyclically, as long_reads does. Joined reads of
+# both lengths (605-606 and 762-769 bp) differ by up to 3 x 163 bp and
+# need more than the 16 band segments of the default band at 512 lanes
+N_ENVELOPE = 16   # instances of each envelope batch
+ENVELOPE = (("qv-long", 3, 8, 0, True), ("affine-long", 4, 6, 0, True),
+            ("wide-loop", 2, 6, 3, False))
+
+
+def envelope_batches(heter):
+    """[(name, params, instances, qv weights or None)]: qv-long (default
+    convex gaps, qv weights as in heter64-qv), affine-long (gap_open2 =
+    0), wide-loop (gap_open1 = 0, -f 0.2), N_ENVELOPE instances of the
+    same reads each."""
+    import numpy as np
+    from abpoa_tpu_torch.params import Params
+    out = []
+    for name, join, n, first, long_only in ENVELOPE:
+        pool = [r for r in heter if len(r) > 700] if long_only else heter
+        reads = [np.concatenate([pool[(first + i + j) % len(pool)]
+                                 for j in range(join)]) for i in range(n)]
+        p = Params()
+        if name == "affine-long":
+            p.gap_open2 = 0
+        elif name == "wide-loop":
+            p.gap_open1, p.wf = 0, 0.2
+        insts = [reads] * N_ENVELOPE
+        ws = qv_weights(insts) if name == "qv-long" else None
+        out.append((name, p.post_set(), insts, ws))
+    return out
+
+
+def plain_timed(fn):
+    """(fn(), host milliseconds of the call, synchronised both ends)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def envelope_kernels(dev, name, params, insts, ws, cfg):
+    """The envelope batch's new kernel instance against its plain
+    version on its last round (the state brought there through both
+    kernels): B1 with four positions a thread (wide-loop) or B2 with its
+    state in global memory (qv-long in wmode 1, affine-long in wmode 0);
+    times of both, the bound; B2 also in shared memory's residency's
+    place: the same round at heter64's R, state in global memory against
+    shared memory, in turns."""
+    import torch
+    from abpoa_tpu_torch.ops.roofline import OPS_PER_CELL, bound
+    from abpoa_tpu_torch.ops import poa_loop as pl
+    from abpoa_tpu_torch.ops import band_dp as bd
+    from abpoa_tpu_torch.ops import graph_update as gu
+    from abpoa_tpu_torch.ops import layout as L
+    ps, base, ql_d, qpf, qp4, qw2 = loop_inputs(dev, params, insts, cfg, ws)
+    bc = pl.band_config(cfg)
+    wf1000 = round(params.wf * 1000)
+    qw_of = (lambda r: qw2[r]) if ws else (lambda r: None)
+    r = cfg.NR - 1
+    for rr in range(r):
+        ps, _, _ = pl.device_round_packed(cfg, ps, ql_d[rr], qpf[rr],
+                                          qp4[rr], base, params.wb, wf1000,
+                                          qw=qw_of(rr))
+    scal = pl.build_scal(cfg, ps, ql_d[r], base, params.wb, wf1000)
+    bargs = (bc, scal, ps.ctrl, ps.inp, ps.i2nn, qpf[r])
+    km, ks = bd.band_poa_dp_packed(*bargs)
+    if name == "wide-loop":
+        (rm, rs), plain = plain_timed(
+            lambda: bd.band_poa_dp_packed_ref(*bargs))
+        check(not rm[:, L.M_OVFL].any() and not rm[:, L.M_FAIL].any(),
+              f"{name}: plain DP overflow/fail")
+        dm = (km - rm).abs().max().item()
+        k16, r16 = pl.s16w_to_s16(ks), pl.s16w_to_s16(rs)
+        for b in range(cfg.B):
+            n = int(rm[b, L.M_NSTEPS])
+            if n:
+                dm = max(dm, (k16[b, :n].int() - r16[b, :n].int()).abs()
+                         .max().item())
+        check(dm == 0, f"{name}: band DP (4 positions a thread) != plain "
+              f"(max |d| {dm})")
+        rec = {"max_abs_err": dm, "plain_ms": plain,
+               "ms": cuda_ms(lambda: (lambda: bd.band_poa_dp_packed(
+                   *bargs)), 20)}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            nbytes(scal[:, :L.S_NSCAL], ps.ctrl, ps.inp, ps.i2nn, qpf[r],
+                   km, ks),
+            int(km[:, L.M_CELLS].sum()) * OPS_PER_CELL[params.gap_mode])
+        say(f"envelope {name}: band_dp_wide == plain on round {r + 1} "
+            f"(B={cfg.B}, R={cfg.R}, WB={cfg.WB}, "
+            f"{int(rm[:, L.M_NSTEPS].sum())} steps): kernel "
+            f"{rec['ms']:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+        return {"band_dp_wide": rec}
+    check(gu.state_in_global(cfg), f"{name}: B2 state in shared memory")
+    gargs = (ks, km, ql_d[r], qp4[r])
+    gk = gu.graph_update_packed(
+        cfg, pl.PackedState(*(x.clone() for x in ps)), *gargs, qw=qw_of(r))
+    gr, plain = plain_timed(lambda: gu.graph_update_packed_ref(
+        cfg, ps, *gargs, qw=qw_of(r)))
+    check(not gr.fail.any() and torch.equal(gk.fail, gr.fail),
+          f"{name}: fail flags {gk.fail.tolist()} {gr.fail.tolist()}")
+    check(torch.equal(gk.node_n, gr.node_n), f"{name}: node_n")
+    sk, i2k, n2k, remk = pl.unpack_state(cfg, gk)
+    sr, i2r, n2r, remr = pl.unpack_state(cfg, gr)
+    dm = max((a - b_).abs().max().item() for a, b_ in zip(sk, sr))
+    live = torch.arange(cfg.R, device=dev)[None, :] < gr.node_n[:, None]
+    for a, b_ in ((i2k, i2r), (n2k, n2r), (remk, remr)):
+        dm = max(dm, ((a - b_).abs() * live).max().item())
+    key = "graph_update_qv_global" if cfg.wmode else "graph_update_global"
+    check(dm == 0, f"{name}: {key} != plain (max |d| {dm})")
+
+    def fresh():
+        c = pl.PackedState(*(x.clone() for x in ps))
+        return lambda: gu.graph_update_packed(cfg, c, *gargs, qw=qw_of(r))
+    rec = {"max_abs_err": dm, "plain_ms": plain, "ms": cuda_ms(fresh, 20)}
+    ops = (int(km[:, L.M_NSTEPS].sum())
+           + int(gr.node_n.sum()) * (cfg.E + cfg.P))
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * nbytes(*ps) + nbytes(*gargs) + (nbytes(qw2[r]) if ws else 0),
+        ops)
+    say(f"envelope {name}: {key} == plain on round {r + 1} (B={cfg.B}, "
+        f"R={cfg.R}, node_n max {int(gr.node_n.max())}, shared memory "
+        f"{gu.global_smem_bytes(cfg)} of the state-resident "
+        f"{gu.smem_bytes(cfg)} bytes): kernel {rec['ms']:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']})")
+    return {key: rec}
+
+
+def residency_split(dev, heter):
+    """B2 on the last round of heter64 and heter64-qv (B=64; both fit
+    shared memory) with the state in global memory against shared
+    memory, in turns (smem, global, global, smem, 20 launches each):
+    the cost of the global residency where both run. The residency is
+    forced through graph_update.state_in_global, the wrapper's choice."""
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.ops import poa_loop as pl
+    from abpoa_tpu_torch.ops import band_dp as bd
+    from abpoa_tpu_torch.ops import graph_update as gu
+    from abpoa_tpu_torch.parallel.batch import _loop_geometry
+    params = Params().post_set()
+    wf1000 = round(params.wf * 1000)
+    out = {}
+    for label, ws in (("heter64", None),
+                      ("heter64-qv", qv_weights([heter] * N_INST))):
+        insts = [heter] * N_INST
+        wmax = max(sum(max(w) for w in wk) for wk in ws) if ws else None
+        cfg = _loop_geometry(params, insts, wmax)._replace(B=N_INST)
+        ps, base, ql_d, qpf, qp4, qw2 = loop_inputs(dev, params, insts, cfg,
+                                                    ws)
+        qw_of = (lambda r: qw2[r]) if ws else (lambda r: None)
+        r = cfg.NR - 1
+        for rr in range(r):
+            ps, _, _ = pl.device_round_packed(
+                cfg, ps, ql_d[rr], qpf[rr], qp4[rr], base, params.wb,
+                wf1000, qw=qw_of(rr))
+        scal = pl.build_scal(cfg, ps, ql_d[r], base, params.wb, wf1000)
+        km, ks = bd.band_poa_dp_packed(pl.band_config(cfg), scal, ps.ctrl,
+                                       ps.inp, ps.i2nn, qpf[r])
+        gargs = (ks, km, ql_d[r], qp4[r])
+
+        def fresh():
+            c = pl.PackedState(*(x.clone() for x in ps))
+            return lambda: gu.graph_update_packed(cfg, c, *gargs,
+                                                  qw=qw_of(r))
+        t = {False: [], True: []}
+        choose = gu.state_in_global
+        try:
+            for gmem in (False, True, True, False):
+                gu.state_in_global = lambda _cfg, g=gmem: g
+                t[gmem].append(cuda_ms(fresh, 20))
+        finally:
+            gu.state_in_global = choose
+        sm, gl = statistics.mean(t[False]), statistics.mean(t[True])
+        out[label] = {"smem_ms": sm, "global_ms": gl}
+        say(f"envelope split: B2 at {label}'s last round (B={N_INST}, "
+            f"R={cfg.R}, wmode {cfg.wmode}): state in shared memory "
+            f"{sm:.4f} ms, in global memory {gl:.4f} ms ({gl / sm:.3f}x; "
+            f"turns {[round(x, 4) for x in t[False] + t[True]]})")
+    return out
+
+
+def envelope_phase(dev, heter):
+    """The device loop at the JAX package's envelope: each envelope
+    batch through BatchPOA(device="cuda").run_consensus on the loop, no
+    fallback, B1 and B2 once a round and sub-batch, the batch's kernel
+    instance on every round (B2 in global memory in wmode 1 or 0, B1 with
+    four positions a thread), every instance's bytes equal to the port's
+    serial oracle; e2e median of REPS. Then each new kernel instance
+    against its plain version at the batch's shape (envelope_kernels)
+    and the residency split. Returns (kernel records, launches)."""
+    import torch
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.ops.band_dp import band_poa_dp_packed
+    from abpoa_tpu_torch.ops.graph_update import graph_update_packed
+    from abpoa_tpu_torch.parallel.batch import SPLIT_MIN
+    t_phase = time.perf_counter()
+    counter = {"qv-long": ("graph_update_qv_global", graph_update_packed,
+                           "qv_global_launches"),
+               "affine-long": ("graph_update_global", graph_update_packed,
+                               "global_launches"),
+               "wide-loop": ("band_dp_wide", band_poa_dp_packed,
+                             "wide_launches")}
+    n_sub = 2 if N_ENVELOPE >= SPLIT_MIN else 1
+    rec, launches = {}, {}
+    for name, params, insts, ws in envelope_batches(heter):
+        t0 = time.perf_counter()
+        exp = weighted_oracle(params, insts, ws or [[[1] * len(q) for q in
+                                                      r] for r in insts])
+        t_oracle = time.perf_counter() - t0
+        key, wrapper, attr = counter[name]
+        want = (len(insts[0]) - 1) * n_sub
+        e2e = []
+        for rep in range(REPS + 1):
+            bp = BatchPOA(params, device=dev)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cons = bp.run_consensus(insts, weights=ws)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = launches_now()
+            bad = [k for k, (c, e) in enumerate(zip(cons, exp)) if c != e]
+            check(not bad, f"envelope {name}: consensus != serial oracle "
+                  f"at instances {bad}")
+            check(bp.used_device_loop and bp.fallbacks == 0,
+                  f"envelope {name}: device loop {bp.used_device_loop}, "
+                  f"fallbacks {bp.fallbacks}")
+            check(got["band_dp"] == got["graph_update"] == want
+                  and getattr(wrapper, attr) == want
+                  and got["band_dp_topo"] == got["fw_dp"] == got["tile_dp"]
+                  == got["topo"] == 0,
+                  f"envelope {name}: launches {got}, {key} "
+                  f"{getattr(wrapper, attr)}, expected {want}")
+            if rep == 0:
+                launches[key] = getattr(wrapper, attr)
+                cfg = bp._loop_eligible(insts)
+                say(f"envelope {name}: {len(insts)} x {len(insts[0])} reads "
+                    f"of {min(map(len, insts[0]))}-{max(map(len, insts[0]))}"
+                    f" bp, R={cfg.R} WB={cfg.WB} Wq={cfg.Wq} "
+                    f"wmode={cfg.wmode} gap_mode={params.gap_mode}: all "
+                    f"{len(insts)} instances == serial oracle "
+                    f"({t_oracle:.1f} s), fallbacks 0, launches B1 "
+                    f"{got['band_dp']}, B2 {got['graph_update']}, {key} "
+                    f"{launches[key]}; first run {secs:.4f} s")
+            else:
+                e2e.append(secs)
+        med = statistics.median(e2e)
+        E2E[name] = med
+        say(f"envelope {name}: e2e {med:.4f} s median of {REPS} "
+            f"{[round(x, 4) for x in e2e]}, device-loop phase "
+            f"{bp.dp_busy_seconds():.4f} s, dp_cells {bp.dp_cells}, "
+            f"dp_cells/s {bp.dp_cells / med:.1f}")
+        rec.update(envelope_kernels(dev, name, params, insts, ws,
+                                    cfg._replace(B=len(insts))))
+    rec["graph_update_global"]["residency_split"] = residency_split(
+        dev, heter)
+    say(f"envelope: phase {time.perf_counter() - t_phase:.1f} s")
+    return rec, launches
 
 
 def seeded_params():
@@ -2130,6 +2412,7 @@ def main(argv):
     pipeline_only = "--pipeline-only" in argv
     bench_only = "--bench-only" in argv
     fuzz_only = "--fuzz-only" in argv
+    envelope_only = "--envelope-only" in argv
     base_dir = argv[argv.index("--baseline") + 1] if "--baseline" in argv \
         else None
     try:
@@ -2175,6 +2458,12 @@ def main(argv):
     if fuzz_only:
         # ---- 18 alone: the CLI's differential fuzzer ----
         cli_fuzz_phase()
+        say(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if envelope_only:
+        # ---- 4c alone: the loop's envelope ----
+        env_rec, env_launches = envelope_phase(dev, heter)
+        say(json.dumps({"envelope": env_rec, "launches": env_launches}))
         say(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     if pipeline_only:
@@ -2269,6 +2558,12 @@ def main(argv):
     # ---- 4b. qv device loop, -l -Q ----
     launches["graph_update_qv"] = qv_loop_phase(dev, heter)
 
+    # ---- 4c. the loop envelope: B2 in global memory, B1 past 1024
+    # lanes ----
+    env_rec, env_launches = envelope_phase(dev, heter)
+    rec.update(env_rec)
+    launches.update(env_launches)
+
     # ---- 5. list mode ----
     out = io.StringIO()
     batch_msa_from_files(Params().post_set(), [str(HETER)] * 4, out,
@@ -2329,6 +2624,13 @@ def main(argv):
                             "abpoa_tpu/ops/poa_loop.py:840"),
            "graph_update_qv": ("abpoa_tpu_torch/csrc/graph_update.cu",
                                "abpoa_tpu/ops/poa_loop.py:840"),
+           "graph_update_global": ("abpoa_tpu_torch/csrc/graph_update.cu",
+                                   "abpoa_tpu/ops/poa_loop.py:840"),
+           "graph_update_qv_global": (
+               "abpoa_tpu_torch/csrc/graph_update.cu",
+               "abpoa_tpu/ops/poa_loop.py:840"),
+           "band_dp_wide": ("abpoa_tpu_torch/csrc/band_dp.cu",
+                            "abpoa_tpu/ops/dp_pallas_band.py:132"),
            "band_dp_topo": ("abpoa_tpu_torch/csrc/band_dp.cu",
                             "abpoa_tpu/ops/dp_pallas_band.py:1247"),
            "fw_dp": ("abpoa_tpu_torch/csrc/fw_dp.cu",

@@ -9,6 +9,10 @@
   one on the round path with the pipeline on; seed 10 an -s read that
   falls back on the loop, which the forward-only capacity rule flags):
   the sharded BatchPOA equals the serial oracle;
+* envelope mode: every class draws a batch the loop admits at its
+  class's instance (B2 state in global memory for qv and long, B1 past
+  1024 lanes for wide), and a wide seed runs clean on the plain
+  versions;
 * the capacity rule flags an instance of unrelated reads and no
   instance of one read set;
 * a corrupted step word makes the fuzzer report a failure (exit 1).
@@ -47,6 +51,42 @@ def test_batch_mode_seed_is_clean(seed, capsys):
         assert "amb=True" in out and "qv=True" in out and "cap=35" in out
     if seed == 8:
         assert "pipeline=True path=rounds" in out
+
+
+@pytest.mark.parametrize("cls", ["qv", "long", "wide"])
+def test_envelope_class_draws_reach_their_instance(cls):
+    """Seeds 0-29: each seed's class is ENVELOPE[seed % 3]; the device
+    loop admits its batch, qv with qv weights (wmode 1) and long with unit
+    weights under affine or linear gaps take B2 with its state in global
+    memory (reads of 1.9-2.5 and 2.6-3.2 kb), wide a band of 1,025-2,048
+    lanes at four positions a thread."""
+    from abpoa_tpu_torch.ops import band_dp, graph_update
+    from abpoa_tpu_torch.parallel.batch import _loop_geometry
+    from abpoa_tpu_torch.tools.fuzz_device_loop import ENVELOPE, draw_envelope
+    for seed in range(ENVELOPE.index(cls), 30, 3):
+        got, params, insts, ws = draw_envelope(seed)
+        assert got == cls
+        lens = [len(q) for reads in insts for q in reads]
+        wmax = max(sum(max(w) for w in wk) for wk in ws) if ws else None
+        cfg = _loop_geometry(params, insts, wmax)
+        assert cfg is not None, seed
+        assert cfg.wmode == (cls == "qv")
+        if cls == "wide":
+            assert 1024 < cfg.WB <= 2048 and band_dp.band_cpt(cfg.WB) == 4
+        else:
+            assert graph_update.state_in_global(cfg), seed
+            lo, hi = (1800, 2500) if cls == "qv" else (2500, 3200)
+            assert lo <= max(lens) <= hi, (seed, max(lens))
+            assert params.gap_mode != 2 or cls == "qv"
+
+
+def test_envelope_wide_seed_is_clean(capsys):
+    from abpoa_tpu_torch.tools.fuzz_device_loop import main
+    assert main(["--n", "1", "--start", "14", "--device", "cpu",
+                 "--mode", "envelope"]) == 0
+    out = capsys.readouterr().out
+    assert "seed   14 ok (wide" in out and "WB=1408" in out
+    assert "campaign clean" in out
 
 
 def test_capacity_rule_flags_unrelated_reads():

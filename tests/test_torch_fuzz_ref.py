@@ -123,9 +123,12 @@ def test_tool_without_a_card_exits_1(monkeypatch, capsys):
 
 
 # (class, seed, list mode) -> the kernels the case wants; one seed of
-# each class serially and under -l, with the shape's own flags
+# each class serially and under -l, with the shape's own flags (wide
+# under -l: -m 2 on the round path's B4, else the device loop's B1 at four
+# positions a thread)
 SHAPE_CASES = {
     ("wide", 0, False): ("tile_dp",), ("wide", 0, True): ("fw_dp",),
+    ("wide", 1, True): ("band_dp_wide",),
     ("long", 2, False): ("tile_dp",), ("long", 0, True):
         ("band_dp_topo", "fw_dp"),
     ("hub", 1, False): ("fw_dp",), ("hub", 0, True): ("fw_dp",),

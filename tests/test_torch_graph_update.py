@@ -579,13 +579,14 @@ def test_graph_kernel_edge_rounds_on_gpu(cuda_device, kind):
     assert ref.fail.tolist() == want
 
 
-def _batch_rounds(dev, wmode, B, R=None):
+def _batch_rounds(dev, wmode, B, R=None, gmem=False):
     """Every round of a batch of B instances on the card, kernel against
     plain (_kernel_vs_ref): 8 rotations of heter.fa's reads (4 reads
     each; qv weights from numpy.random.default_rng(77) in wmode 1)
     repeated to B; instances b % 11 == 5 carry the sticky fail flag from
     the start, instances b % 7 == 3 are padding (qlen 0) in the last
-    round. R: the node capacity (default: the device loop's)."""
+    round. R: the node capacity (default: the device loop's); gmem: the
+    kernel's residency R must select (the state in global memory)."""
     from abpoa_tpu.graph import POAGraph
     from abpoa_tpu_torch.ops import poa_loop as tpl
     from abpoa_tpu_torch.ops import graph_update as tgu
@@ -604,7 +605,7 @@ def _batch_rounds(dev, wmode, B, R=None):
     if R is not None:
         cfg = cfg._replace(R=R, LS=(R + cfg.Wq + 63) // 64 * 64)
     assert cfg.wmode == wmode
-    assert tgu.smem_bytes(cfg) <= tgu.MAX_SMEM_BYTES
+    assert tgu.state_in_global(cfg) == gmem
     graphs = []
     for k, reads in enumerate(insts):
         g = POAGraph()
