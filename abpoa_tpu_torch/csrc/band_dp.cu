@@ -28,14 +28,15 @@
 // the chain:
 // - each thread owns CPT adjacent band positions (rel) in registers, a
 //   template parameter: CPT = 2 up to 1024 lanes, CPT = 4 past them (up
-//   to 2048, node-id mode only; the topo kernel stays at 1024 lanes), so
-//   a block has at most 512 threads (nvcc -Xptxas -v for sm_90a, CUDA
-//   12.8: no spills at two; at four, linear 105 registers and affine 128
-//   without spills, convex 128 with 76 bytes of spill stores and 88 of
-//   loads); the predecessor values are loaded once (the first slot's
-//   kept for the backtrack bits), the row before's from registers when
-//   the band did not move, and the query profile's load overlaps the
-//   merge;
+//   to 2048, both modes), so a block has at most 512 threads (nvcc
+//   -Xptxas -v for sm_90a, CUDA 12.8, registers linear / affine / convex:
+//   topo mode at two 96 / 111 / 122, at four 111 / 128 / 128 with 116
+//   bytes of spill stores and 108 of loads in convex; node-id mode at two
+//   64 / 90 / 112, at four 104 / 128 / 128 with 36 and 36 in convex; no
+//   other spills); the predecessor values are loaded once (the first
+//   slot's kept for the backtrack bits), the row before's from registers
+//   when the band did not move, and the query profile's load overlaps
+//   the merge;
 // - the F (insertion) prefix maxes are a serial max over the thread's
 //   positions, a warp-shuffle scan and one warp reduction across warps;
 //   the row maximum and its tie-break are one 64-bit key, two warp
@@ -48,6 +49,16 @@
 //   kernel; pn is a power of two and the division by WB a multiply (no
 //   division on a row's path); the walk reads one backtrack word per step
 //   on one thread.
+//
+// Predecessor slots: topo mode takes up to 30 (a runtime value), node-id
+// mode 14. A backtrack pick field keeps 4 bits: the sweep writes slots
+// 0-14 and leaves 15 for "slot 15 or later, or none" (the JAX kernel
+// admits 30 slots in the same fields, so its slot-16 picks spill into
+// the next field). Where the walk takes a condition whose field reads 15
+// it re-tests slots 15..npre-1 in order from the predecessors' planes
+// and bands (late_pick), as the sweep's first-hit rule would: only the
+// cells whose first hit is at slot 15 or later pay for it, and below 16
+// slots the search is slot 15 alone.
 #include <cuda_runtime.h>
 
 #include "layout.cuh"
@@ -56,9 +67,9 @@ namespace abpoa {
 namespace {
 
 constexpr int MAX_NT = 512;   // threads a block, whatever the band
-// bands of up to MAX_WB[nid] lanes: 2 positions a thread up to 1024
-// lanes, 4 past them
-constexpr int MAX_WB_TOPO = 1024, MAX_WB_NID = 2048;
+// bands of up to MAX_WB lanes: 2 positions a thread up to 1024 lanes, 4
+// past them; predecessor slots of topo mode (node-id mode: 14)
+constexpr int MAX_WB = 2048, MAX_P_TOPO = 30;
 
 struct BandArgs {
   const int* scal;   // [B, S_NSCAL]
@@ -237,7 +248,8 @@ __device__ __forceinline__ void merge_pred(
 }
 
 // one predecessor slot p's part of the backtrack bits at the thread's
-// positions (4-bit fields, 15 = none: the first slot of each condition)
+// positions (4-bit fields: the first slot of each condition, 15 = slot 15
+// or later, or none; see late_pick)
 template <int CPT>
 __device__ __forceinline__ void bt_pred(
     const PredVals<CPT>& v, int p, const PBand& pb, int pn, const int* c,
@@ -607,11 +619,12 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
     }
 
     DP_PROBE(3)
-    // ---- backtrack bits: every comparison the walk makes, per cell ----
+    // ---- backtrack bits: every comparison the walk makes, per cell; a
+    // pick field holds slots 0-14, 15 stands for the rest ----
     int acc[CPT][9];
     bt_pred(first, 0, fb, pn, c, qrow, hrow, e1row, e2row, gm, e1, oe1, e2,
             oe2, acc);
-    for (int p = 1; p < npre; ++p) {
+    for (int p = 1; p < min(npre, 15); ++p) {
       const int pred = pre_at(s_pre, P2, R, rid, p);
       const PBand pb = pband(pred == prev ? prev_bsn : s_bsn[pred], true);
       PredVals<CPT> v;
@@ -787,42 +800,116 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
   int PI = NID ? s_i2nn[bi] >> 16 : 0, PJ = bj;
   unsigned half = 0;
   bool done = bi <= 0 || bj <= 0 || ovfl;
+  // the pick conditions late_pick re-tests (as bt_pred tests them)
+  enum { K_M, K_E1M, K_E1X, K_E2M, K_E2X };
   while (!done) {
     int wv = s_bsn[I];
     int lo_i = (wv & H16) * pn;
-    int bb = (J >= lo_i && J < lo_i + WB) ? BT[(size_t)I * WB + lane]
-                                          : INVALID_BITS;
+    const bool inwin = J >= lo_i && J < lo_i + WB;
+    int bb = inwin ? BT[(size_t)I * WB + lane] : INVALID_BITS;
+    // topo mode: a pick field of 15 reads "slot 15 or later, or none"
+    const int npre_i = NID ? 0 : min((s_ctrl[I] >> 5) & 31, P);
+    const bool late = !NID && inwin && npre_i > 15;
+    // the first slot p in [15, npre_i) at which condition `kind` holds at
+    // cell (I, J), or 99; `open` gets that slot's open bit (E kinds)
+    auto late_pick = [&](int kind, int& open) -> int {
+      const size_t ri = (size_t)I * WB + lane;
+      const int hrow = H[ri];
+      const int xrow = kind == K_E1X ? E1[ri] : kind == K_E2X ? E2[ri] : 0;
+      int q = 0;
+      if (kind == K_M) {
+        // the row's query profile at column J, as the sweep loads it
+        const int base = s_ctrl[I] & 31;
+        const int k0 = floordiv(lo_i, WB);
+        const int lomod = lo_i - k0 * WB;
+        const int fold = min(max(base * KW1 + k0, 0), a.m * KW1 - 2);
+        const int qraw =
+            base < a.m
+                ? qpf[(size_t)(lane >= lomod ? fold : fold + 1) * WB + lane]
+                : 0;
+        q = (J >= 1 && J <= qlen) ? qraw : 0;
+      }
+      const int lm = lane == 0 ? WB - 1 : lane - 1;
+      const bool two = kind == K_E2M || kind == K_E2X;
+      for (int p = 15; p < npre_i; ++p) {
+        const int pred = pre_at(s_pre, P2, R, I, p);
+        const PBand pb = pband(s_bsn[pred], true);
+        const int plo = mulw(pb.begc, pn);
+        const int phi = mulw(pb.endc + 1, pn) - 1;
+        const size_t ro = (size_t)pred * WB;
+        const bool okp = pb.pvc && J >= plo && J <= phi;
+        const int bh = okp ? H[ro + lane] : NEG;
+        bool hit;
+        int o = 0;
+        if (kind == K_M) {
+          const bool m_in = pb.pvc && J - 1 >= plo && J - 1 <= phi;
+          hit = (m_in ? H[ro + lm] : NEG) + q == hrow;
+        } else if (gm == LINEAR_GAP) {
+          hit = (bh - e1) == hrow;
+        } else {
+          const int be = okp ? (two ? E2 : E1)[ro + lane] : NEG;
+          hit = (kind == K_E1M || kind == K_E2M) ? hrow == be
+                                                 : xrow == be - (two ? e2 : e1);
+          o = (bh - (two ? oe2 : oe1)) == be;
+        }
+        if (hit) {
+          open = o;
+          return p;
+        }
+      }
+      return 99;
+    };
     bool curM = (cur & BT_M) != 0;
-    int mp = bb & 15;
-    bool m_possible = mp < 15;
-    bool e_possible, f_possible;
-    int e_pick_p, e_op_sel, f_op_sel;
+    // the M pick's slot (99: none), resolved where the walk reads it
+    int mslot = -1;
+    auto m_slot = [&]() -> int {
+      if (mslot < 0) {
+        int o;
+        const int f = bb & 15;
+        mslot = f < 15 ? f : (late ? late_pick(K_M, o) : 99);
+      }
+      return mslot;
+    };
+    bool use_m1 = curM && !if_ && m_slot() < 99;
+    bool e_possible = false, f_possible;
+    int e_pick_p = 0, e_op_sel = BT_ALL, f_op_sel;
     if (gm == LINEAR_GAP) {
-      int pe = (bb >> 4) & 15;
-      e_possible = pe < 15;
-      e_pick_p = pe;
-      e_op_sel = BT_ALL;
+      if (!use_m1) {
+        int o;
+        const int f = (bb >> 4) & 15;
+        e_pick_p = f < 15 ? f : (late ? late_pick(K_E1M, o) : 99);
+        e_possible = e_pick_p < 99;
+      }
       f_possible = (bb >> 24) & 1;
       f_op_sel = BT_ALL;
     } else {
-      int pe1 = curM ? (bb >> 4) & 15 : (bb >> 8) & 15;
-      int e1open = curM ? (bb >> 12) & 1 : (bb >> 13) & 1;
-      bool e1hit = (cur & BT_E1) && pe1 < 15;
-      int pe2 = 15, e2open = 0;
-      bool e2hit = false;
-      if (gm == CONVEX_GAP) {
-        pe2 = curM ? (bb >> 14) & 15 : (bb >> 18) & 15;
-        e2open = curM ? (bb >> 22) & 1 : (bb >> 23) & 1;
-        e2hit = (cur & BT_E2) && pe2 < 15;
+      if (!use_m1 && (cur & BT_E)) {
+        const int f1 = curM ? (bb >> 4) & 15 : (bb >> 8) & 15;
+        int o1 = curM ? (bb >> 12) & 1 : (bb >> 13) & 1;
+        const bool g1 = cur & BT_E1;
+        int f2 = 15, o2 = 0;
+        bool g2 = false;
+        if (gm == CONVEX_GAP) {
+          f2 = curM ? (bb >> 14) & 15 : (bb >> 18) & 15;
+          o2 = curM ? (bb >> 22) & 1 : (bb >> 23) & 1;
+          g2 = cur & BT_E2;
+        }
+        int s1 = g1 && f1 < 15 ? f1 : 99;
+        int s2 = g2 && f2 < 15 ? f2 : 99;
+        // candidate order interleaves (p0.e1, p0.e2, p1.e1, ...): a slot
+        // of 15 or later is searched only where it can come first
+        if (g1 && f1 == 15 && late && s2 == 99)
+          s1 = late_pick(curM ? K_E1M : K_E1X, o1);
+        if (g2 && f2 == 15 && late && s1 >= 15)
+          s2 = late_pick(curM ? K_E2M : K_E2X, o2);
+        int k1 = s1 < 99 ? 2 * s1 : 99;
+        int k2 = s2 < 99 ? 2 * s2 + 1 : 99;
+        bool use_e1 = k1 <= k2;
+        e_possible = min(k1, k2) < 99;
+        e_pick_p = use_e1 ? s1 : s2;
+        e_op_sel = use_e1 ? (o1 ? (BT_M | BT_F) : BT_E1)
+                          : (o2 ? (BT_M | BT_F) : BT_E2);
       }
-      // candidate order interleaves (p0.e1, p0.e2, p1.e1, ...)
-      int k1 = e1hit ? 2 * pe1 : 99;
-      int k2 = e2hit ? 2 * pe2 + 1 : 99;
-      bool use_e1 = k1 <= k2;
-      e_possible = min(k1, k2) < 99;
-      e_pick_p = use_e1 ? pe1 : pe2;
-      e_op_sel = use_e1 ? (e1open ? (BT_M | BT_F) : BT_E1)
-                        : (e2open ? (BT_M | BT_F) : BT_E2);
       bool f1o = (bb >> 24) & 1, f1x = (bb >> 25) & 1, f1g = (bb >> 26) & 1;
       bool hit_f1 = (cur & BT_F1) && (curM ? f1g : true) && (f1o || f1x);
       int op_f1 = f1o ? (BT_M | BT_E) : BT_F1;
@@ -837,17 +924,15 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
       f_possible = hit_f1 || hit_f2;
       f_op_sel = hit_f1 ? op_f1 : op_f2;
     }
-    bool use_m1 = curM && !if_ && m_possible;
     bool use_e = !use_m1 && e_possible;
-    if (gm != LINEAR_GAP) use_e = use_e && (cur & BT_E);
     bool use_f = !use_m1 && !use_e && f_possible;
     if (gm != LINEAR_GAP) use_f = use_f && (cur & BT_F);
-    bool use_m2 = !use_m1 && !use_e && !use_f && if_ && m_possible;
-    if (gm != LINEAR_GAP) use_m2 = use_m2 && curM;
+    bool use_m2 = !use_m1 && !use_e && !use_f && if_
+                  && (gm == LINEAR_GAP || curM) && m_slot() < 99;
     bool any_hit = use_m1 || use_e || use_f || use_m2;
     bool use_m = use_m1 || use_m2;
     int new_i = I;
-    if (use_m) new_i = pre_at(s_pre, P2, R, I, min(mp, P - 1));
+    if (use_m) new_i = pre_at(s_pre, P2, R, I, min(mslot, P - 1));
     else if (use_e) new_i = pre_at(s_pre, P2, R, I, min(e_pick_p, P - 1));
     if (any_hit) {
       int op_code = use_m ? 0 : (use_e ? 2 : 1);
@@ -903,12 +988,11 @@ int launch_cpt(const BandArgs& a, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// 2 positions a thread up to 1024 lanes, 4 past them (node-id mode)
+// 2 positions a thread up to 1024 lanes, 4 past them (ops/band_dp.py
+// band_cpt)
 template <bool NID, int GM>
 int launch_gm(const BandArgs& a, int B, void* stream) {
-  if constexpr (NID) {
-    if (a.WB > 1024) return launch_cpt<NID, GM, 4>(a, B, stream);
-  }
+  if (a.WB > 1024) return launch_cpt<NID, GM, 4>(a, B, stream);
   return launch_cpt<NID, GM, 2>(a, B, stream);
 }
 
@@ -947,7 +1031,7 @@ extern "C" int band_dp_launch(const int* scal, const int* ctrl,
                               int LS, void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
-  if (bad_geometry(WB, pn, MAX_WB_NID) || P % 2 || P > 15)
+  if (bad_geometry(WB, pn, MAX_WB) || P % 2 || P > 15)
     return (int)cudaErrorInvalidValue;
   BandArgs a{scal, ctrl, inp, i2nn, nullptr, qpf, misc, s16w, nullptr,
              nullptr, nullptr, H, E1, E2, BT,
@@ -969,7 +1053,7 @@ extern "C" int band_dp_topo_launch(const int* scal, const int* ctrl,
                                    void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
-  if (bad_geometry(WB, pn, MAX_WB_TOPO) || P % 2 || P > 16 || m > 31
+  if (bad_geometry(WB, pn, MAX_WB) || P % 2 || P > MAX_P_TOPO || m > 31
       || (align_mode != 0 && align_mode != 2))
     return (int)cudaErrorInvalidValue;
   BandArgs a{scal, ctrl, pre, nullptr, mplr0, qpf, misc, nullptr, steps,

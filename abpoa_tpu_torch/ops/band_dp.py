@@ -92,9 +92,15 @@ def build_qpf(cfg: BandConfig, mat, qcodes: torch.Tensor) -> torch.Tensor:
     return qpf.reshape(*lead, m * (KW + 1), WB).contiguous()
 
 
-# band lanes a block takes: two a thread up to 1024, four past them in
-# node-id mode (``band_cpt``)
-MAX_WB = {True: 2048, False: 1024}
+# band lanes a block takes: two a thread up to 1024, four past them
+# (``band_cpt``)
+MAX_WB = 2048
+# predecessor slots of topo mode; a backtrack pick field keeps 4 bits, and
+# its 15 reads "slot 15 or later, or none": the walk re-tests slots 15..
+# where it takes such a condition (``_band_ref``'s ``late_picks``)
+MAX_P = 30
+# a topo launch past FAN_P predecessor slots counts in ``fan_launches``
+FAN_P = 16
 
 
 def band_cpt(WB: int) -> int:
@@ -104,7 +110,7 @@ def band_cpt(WB: int) -> int:
 
 def _check_geometry(cfg: BandConfig, name: str):
     if (cfg.WB % cfg.pn or cfg.Wq % cfg.WB or cfg.P % 2 or cfg.bt_lmax % 2
-            or cfg.WB > MAX_WB[cfg.nid] or cfg.P > 16):
+            or cfg.WB > MAX_WB or cfg.P > (16 if cfg.nid else MAX_P)):
         raise ValueError(f"{name}: bad geometry {cfg}")
 
 
@@ -342,10 +348,16 @@ def band_poa_dp_batch(cfg: BandConfig, scal, bases, pre_idx, pre_n,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "band_dp_topo")
     band_poa_dp_batch.launches += 1
+    band_poa_dp_batch.wide_launches += int(band_cpt(cfg.WB) == 4)
+    band_poa_dp_batch.fan_launches += int(cfg.P > FAN_P)
     return _finish_topo(cfg, scal_, rowmask, bsn, mplr, misc, steps)
 
 
+# launches of the topo kernel; of its instances of four positions a thread
+# (bands past 1024 lanes); of launches past 16 predecessor slots
 band_poa_dp_batch.launches = 0
+band_poa_dp_batch.wide_launches = 0
+band_poa_dp_batch.fan_launches = 0
 
 
 def band_poa_dp_batch_ref(cfg: BandConfig, scal, bases, pre_idx, pre_n,
@@ -651,11 +663,12 @@ def _band_ref(cfg: BandConfig, scal, ctrl, pre, qpf, i2nn=None,
         # [8:12] e1_pickX, [12] e1_openM, [13] e1_openX, [14:18] e2_pickM,
         # [18:22] e2_pickX, [22] e2_openM, [23] e2_openX, [24] f1_open
         # (linear: f_possible), [25] f1_ext, [26] f1_gate, [27] f2_open,
-        # [28] f2_ext, [29] f2_gate; pick 15 = no hit ----
+        # [28] f2_ext, [29] f2_gate; a pick holds slots 0-14, 15 = slot 15
+        # or later, or none (the walk's late_picks) ----
         one = torch.ones((), dtype=I32, device=dev)
         fifteen = torch.full((), 15, dtype=I32, device=dev)
         acc = None
-        for p, (pv, bm, bh, be1, be2) in enumerate(btp):
+        for p, (pv, bm, bh, be1, be2) in enumerate(btp[:15]):
             mh = (bm + qrow) == hrow
             if gm == LINEAR_GAP:
                 e1m = e1x = (bh - e1) == hrow
@@ -807,6 +820,69 @@ def _band_ref(cfg: BandConfig, scal, ctrl, pre, qpf, i2nn=None,
     def bit(x, k):
         return ((x >> k) & 1) > 0
 
+    NONE = full(99)
+    no = torch.zeros(B, dtype=torch.bool, device=dev)
+    kinds = ("m", "e1m") if gm == LINEAR_GAP else \
+        ("m", "e1m", "e1x", "e2m", "e2x") if gm == CONVEX_GAP else \
+        ("m", "e1m", "e1x")
+
+    def late_picks(Il, J, lane_w, lo_i, inwin):
+        """Topo mode, a pick field of 15 ("slot 15 or later, or none"):
+        per condition, the first slot p in [15, npre) at which it holds at
+        cell (I, J), as the sweep's bits test it, or 99, and that slot's
+        open bit. The kernel searches only the conditions its walk takes;
+        the others do not change a move."""
+        out = {k: (NONE, no) for k in kinds}
+        if nid or P <= 15:
+            return out
+        npre_i = ((ctrl[bidx, Il] >> 5) & 31).clamp(max=P)
+        ok = inwin & (npre_i > 15)
+        if not bool(ok.any()):
+            return out
+        ln = lane_w.long()
+        hrow = H[bidx, Il, ln]
+        e1row = E1[bidx, Il, ln] if gm != LINEAR_GAP else None
+        e2row = E2[bidx, Il, ln] if gm == CONVEX_GAP else None
+        # the row's query profile at column J, as the sweep loads it
+        base = (ctrl[bidx, Il] & 31).long()
+        k0 = lo_i // WB
+        lomod = lo_i - k0 * WB
+        fold = (base * KW1 + k0).clamp(0, m * KW1 - 2)
+        qraw = qpf[bidx, torch.where(lane_w >= lomod, fold, fold + 1), ln]
+        qraw = torch.where(base < m, qraw, zero)
+        q = torch.where((J >= 1) & (J <= qlen), qraw, zero)
+        lm = ((lane_w - 1) % WB).long()
+        for p in range(15, P):
+            pred = pre_at(Il, p).long()
+            pv = ok & (p < npre_i)
+            pw = bsn[bidx, pred]
+            pbel = (pw & 0xFFFF) | ((pw >> 16) << 10) | (1 << 20)
+            pvc = (pbel >> 20) > 0
+            plo = (pbel & 1023) * pn
+            phi = (((pbel >> 10) & 1023) + 1) * pn - 1
+            okp = pvc & (J >= plo) & (J <= phi)
+            m_in = pvc & (J - 1 >= plo) & (J - 1 <= phi)
+            bh = torch.where(okp, H[bidx, pred, ln], NEGt)
+            hits = {"m": ((torch.where(m_in, H[bidx, pred, lm], NEGt) + q)
+                          == hrow, no)}
+            if gm == LINEAR_GAP:
+                hits["e1m"] = ((bh - e1) == hrow, no)
+            else:
+                be1 = torch.where(okp, E1[bidx, pred, ln], NEGt)
+                o1 = (bh - oe1) == be1
+                hits["e1m"] = (hrow == be1, o1)
+                hits["e1x"] = (e1row == (be1 - e1), o1)
+                if gm == CONVEX_GAP:
+                    be2 = torch.where(okp, E2[bidx, pred, ln], NEGt)
+                    o2 = (bh - oe2) == be2
+                    hits["e2m"] = (hrow == be2, o2)
+                    hits["e2x"] = (e2row == (be2 - e2), o2)
+            for k, (hit, o) in hits.items():
+                sl, op = out[k]
+                take = pv & hit & (sl == 99)
+                out[k] = (torch.where(take, p, sl), torch.where(take, o, op))
+        return out
+
     CHECK = 32
     it = 0
     while True:
@@ -818,28 +894,41 @@ def _band_ref(cfg: BandConfig, scal, ctrl, pre, qpf, i2nn=None,
         wv = bsn[bidx, Il]
         lo_i = (wv & 0xFFFF) * pn
         braw = BT[bidx, Il, lane_w.long()]
-        b = torch.where((J >= lo_i) & (J < lo_i + WB), braw,
-                        L.INVALID_BITS)
+        inwin = (J >= lo_i) & (J < lo_i + WB)
+        b = torch.where(inwin, braw, L.INVALID_BITS)
         curM = (cur & L.BT_M) > 0
-        mp = b & 15
-        m_possible = mp < 15
+        # pick slots (99: none); a field of 15 takes the late search's
+        lp = late_picks(Il, J, lane_w, lo_i, inwin)
+
+        def slot(field, kind):
+            return (torch.where(field < 15, field, lp[kind][0]),
+                    lp[kind][1])
+        mslot = slot(b & 15, "m")[0]
+        m_possible = mslot < 99
         if gm == LINEAR_GAP:
-            pe = (b >> 4) & 15
-            e_possible = pe < 15
-            e_pick_p = pe
+            e_pick_p = slot((b >> 4) & 15, "e1m")[0]
+            e_possible = e_pick_p < 99
             e_op_sel = full(L.BT_ALL)
             f_possible = bit(b, 24)
             f_op_sel = full(L.BT_ALL)
         else:
-            pe1 = torch.where(curM, (b >> 4) & 15, (b >> 8) & 15)
-            e1open = torch.where(curM, bit(b, 12), bit(b, 13))
-            e1hit = ((cur & L.BT_E1) > 0) & (pe1 < 15)
+            def pick(fm, fx, om, ox, km, kx):
+                """(slot, open bit) of an E condition: the M-state
+                field under curM, else the X-state one."""
+                f = torch.where(curM, (b >> fm) & 15, (b >> fx) & 15)
+                sm, lom = slot(f, km)
+                sx, lox = slot(f, kx)
+                late_o = torch.where(curM, lom, lox)
+                o = torch.where(f < 15, torch.where(curM, bit(b, om),
+                                                    bit(b, ox)), late_o)
+                return torch.where(curM, sm, sx), o
+            pe1, e1open = pick(4, 8, 12, 13, "e1m", "e1x")
+            e1hit = ((cur & L.BT_E1) > 0) & (pe1 < 99)
             if gm == CONVEX_GAP:
-                pe2 = torch.where(curM, (b >> 14) & 15, (b >> 18) & 15)
-                e2open = torch.where(curM, bit(b, 22), bit(b, 23))
-                e2hit = ((cur & L.BT_E2) > 0) & (pe2 < 15)
+                pe2, e2open = pick(14, 18, 22, 23, "e2m", "e2x")
+                e2hit = ((cur & L.BT_E2) > 0) & (pe2 < 99)
             else:
-                pe2 = full(15)
+                pe2 = NONE
                 e2open = torch.zeros_like(curM)
                 e2hit = torch.zeros_like(curM)
             k1 = torch.where(e1hit, 2 * pe1, 99)
@@ -878,7 +967,7 @@ def _band_ref(cfg: BandConfig, scal, ctrl, pre, qpf, i2nn=None,
             use_m2 = use_m2 & curM
         any_hit = use_m1 | use_e | use_f | use_m2
         use_m = use_m1 | use_m2
-        m_pred = pre_at(I_, mp.clamp(max=P - 1))
+        m_pred = pre_at(I_, mslot.clamp(max=P - 1))
         e_pred = pre_at(I_, e_pick_p.clamp(max=P - 1))
         op_code = torch.where(use_m, 0, torch.where(use_e, 2, 1)).to(I32)
         emit = act & any_hit

@@ -188,7 +188,7 @@ def _loop_geometry(params, instances, wmax=None):
     Wq = (Wq + WB - 1) // WB * WB
     LS = (R + Wq + 63) // 64 * 64
     # the band kernel's block: up to 512 threads of 2 or 4 lanes each
-    if Wq >= 32000 or WB > band_dp.MAX_WB[True]:
+    if Wq >= 32000 or WB > band_dp.MAX_WB:
         return None
     if wmax is not None:
         # qv weights: out-edge entries are full words id | w<<16, so
@@ -308,15 +308,52 @@ class RoundPlan(NamedTuple):
                 .to(dev) for i in range(len(self.arrs[0]))]
 
 
+def band_refusal(params, R: int, P: int, WB: int, Wq: int, pn: int):
+    """The first limit of the topo-mode band kernel (B3) that a round
+    group of this geometry crosses, or None where B3 takes it: "unbanded"
+    (``-b -1``), the 16-bit packings ("query": columns below 32000,
+    "rows": predecessor rows below 2^16), "lanes" (WB past ``MAX_WB``,
+    512 threads of four lanes), "slots" (P past ``MAX_P``), "segments"
+    (the query's band segments, 10-bit fields, past 1023) and "shared
+    memory" (``band_smem_bytes`` past a block's). P is the kernel's slot
+    count (``band_slots``). Where the JAX package's round and seeded
+    paths take their band kernel (abpoa_tpu/parallel/batch.py: ``Gb > 0
+    and Wq < 32000 and R <= 4096 and P < 32 and wb >= 0``) this takes
+    B3 but for these limits; it also takes B3 past 4096 rows, where the
+    JAX package runs its XLA tier."""
+    WqB = (Wq + WB - 1) // WB * WB
+    for limit, crossed in (
+            ("unbanded", params.wb < 0), ("query", Wq >= 32000),
+            ("rows", R >= 1 << 16), ("lanes", WB > band_dp.MAX_WB),
+            ("slots", P > band_dp.MAX_P), ("segments", WqB // pn >= 1024),
+            ("shared memory", band_dp.band_smem_bytes(False, R, P, WB)
+             > band_dp.MAX_SMEM_BYTES)):
+        if crossed:
+            return limit
+    return None
+
+
+def band_slots(dgs) -> int:
+    """B3's predecessor slots for a round group: the exports' slot count
+    (a power of two, ``export_dense``) up to 16; past it the even cover
+    of the group's largest in-degree, so that nodes of 17-30
+    predecessors stay within ``MAX_P``."""
+    P_ = max(d.P for d in dgs)
+    if P_ <= 16:
+        return P_
+    need = max(int(d.pre_n[:d.n_rows].max(initial=1)) for d in dgs)
+    return max(2, (need + 1) // 2 * 2)
+
+
 def round_plan(params, dgs, dev, seeded=False, budget=None) -> RoundPlan:
     """The dispatch rule of one round's group of exports (re-padded to
-    one geometry): the topo-mode band kernel when the band fits a block
-    (at most 1024 lanes, 16 predecessor slots, segments that fit its
-    10-bit band fields, and the shared memory of ``band_smem_bytes``);
-    else the full-width kernel when one instance's planes fit the memory
-    budget (``_plane_budget``); else the banded-tile kernel, whose
-    [R, WB] tiles are chunked to the same budget (an instance whose band
-    outgrows its tile goes to the oracle through M_OVFL).
+    one geometry): the topo-mode band kernel where ``band_refusal``
+    names no limit (bands of up to 2048 lanes, up to 30 predecessor
+    slots, ``band_slots``); else the full-width kernel when one
+    instance's planes fit the memory budget (``_plane_budget``); else
+    the banded-tile kernel, whose [R, WB] tiles are chunked to the same
+    budget (an instance whose band outgrows its tile goes to the oracle
+    through M_OVFL).
 
     seeded: the exports are subgraph windows; the band kernel runs
     non-fresh (band state and row mask from the export), and there is no
@@ -326,6 +363,7 @@ def round_plan(params, dgs, dev, seeded=False, budget=None) -> RoundPlan:
     ``_plane_budget(dev)``). A group whose one instance's planes or tiles
     exceed the budget gets the plan "oracle" (no kernel, chunk 0): its
     instances go to the oracle."""
+    import dataclasses
     from ..align.export import make_pallas_inputs, pick_WB
     from ..ops import fw_dp, tile_dp
     R = dgs[0].R
@@ -335,12 +373,13 @@ def round_plan(params, dgs, dev, seeded=False, budget=None) -> RoundPlan:
     Wq = max((dg.qlen // 128 + 1) * 128 for dg in dgs)
     LMAX = (R + Wq + 63) // 64 * 64
     WqB = (Wq + WB - 1) // WB * WB
-    # 16-bit packings of the band kernel: query columns below 32000,
-    # predecessor rows below 2^16; band segments below 2^10
-    band = (params.wb >= 0 and Wq < 32000 and R < (1 << 16)
-            and WqB // pn < 1024 and P_ <= 16 and WB <= 1024
-            and band_dp.band_smem_bytes(False, R, P_, WB)
-            <= band_dp.MAX_SMEM_BYTES)
+    Pb = band_slots(dgs)
+    band = band_refusal(params, R, Pb, WB, Wq, pn) is None
+    if band and Pb < P_:
+        # the slots past the largest in-degree hold no predecessor
+        dgs = [dataclasses.replace(d, P=Pb, pre_idx=d.pre_idx[:, :Pb])
+               for d in dgs]
+        P_ = Pb
     made = [make_pallas_inputs(dg, params, WB, force_Wq=WqB if band else Wq,
                                bt_lmax=LMAX) for dg in dgs]
     c0 = made[0][0]

@@ -36,7 +36,8 @@ CPU, where the wrappers run their plain versions).
 ``--shapes CLASS`` draws from ``gen_shape_case`` instead: inputs sized to
 reach shapes that the cases above do not (bands over 1024 lanes, graphs
 near and past 4096 rows, nodes past 253 predecessors, partial row masks
-on seeded windows), serially or with ``--list-mode`` as -l over 4 files.
+on seeded windows, nodes of 17-30 predecessors under -m 2), serially or
+with ``--list-mode`` as -l over 4 files.
 Such a case also fails when the reference's alignments never reached
 its shape or, on the card, when the kernel that the shape should reach
 was not launched.
@@ -72,11 +73,12 @@ RC = str.maketrans("ACGTacgt", "TGCAtgca")
 
 # the kernel wrappers whose launch counts a case reports, then the
 # instances counted apart: B1 at four positions a thread, B2 with its
-# state in global memory (unit and qv weights)
+# state in global memory (unit and qv weights), B3 at four positions a
+# thread and past 16 predecessor slots
 KERNELS = ("band_dp", "graph_update", "band_dp_topo", "fw_dp", "tile_dp",
            "topo", "band_dp_wide", "graph_update_global",
-           "graph_update_qv_global")
-SHAPES = ("wide", "long", "hub", "svmask")
+           "graph_update_qv_global", "band_dp_topo_wide", "band_dp_topo_fan")
+SHAPES = ("wide", "long", "hub", "svmask", "fan")
 
 
 # ------------------------------------------------------------------ #
@@ -291,12 +293,13 @@ def _wide(rng, n_files, list_mode):
                             for _ in range(n)))
     # serially B5 sweeps several tiles a row; under -l the device loop's
     # B1 at four positions a thread (its B2 state, R <= 2,112, stays in
-    # shared memory), with -m 2 the round path's full-width kernel
-    # (round_plan's band kernel takes 1024 lanes)
+    # shared memory), with -m 2 the round path's B3 at four positions a
+    # thread (reads of at most ~1,650 bp keep pick_WB at 1,792 lanes or
+    # fewer, within its 2048)
     if not list_mode:
         want = ("tile_dp",)
     else:
-        want = ("fw_dp",) if "-m" in args else ("band_dp_wide",)
+        want = ("band_dp_topo_wide",) if "-m" in args else ("band_dp_wide",)
     return texts, args, "wide " + " ".join(args), want
 
 
@@ -320,26 +323,29 @@ def _long(rng, n_files, list_mode):
     return texts, args, f"long {mode}", want
 
 
+def hub_reads(rng, alpha, n):
+    """n reads of a hub: read 0 is a backbone pre + post; read k is
+    pre[:-k] + post: a deletion of pre's last k residues, so the first
+    residue of post gains a predecessor a read (read k's cheapest
+    deletion runs through read k-1's new edge). pre has no two equal
+    neighbours and lacks post's first residue, so no deletion can slide
+    off that node."""
+    h = alpha[-1]
+    pre = [alpha[0]]
+    for _ in range(n + int(rng.integers(20, 61))):
+        pre.append(rng.choice([c for c in alpha[:-1] if c != pre[-1]]))
+    pre = "".join(pre)
+    post = h + _rand(rng, alpha, int(rng.integers(15, 31)))
+    return [pre[:len(pre) - k] + post for k in range(n)]
+
+
 def _hub(rng, n_files, list_mode):
-    # read 0 is a backbone pre + post; read k is pre[:-k] + post: a
-    # deletion of pre's last k residues, so the first residue of post
-    # gains a predecessor a read (read k's cheapest deletion runs through
-    # read k-1's new edge). pre has no two equal neighbours and lacks
-    # post's first residue, so no deletion can slide off that node
     aa = bool(rng.random() < 0.5)
     alpha = AA if aa else NT
     local = bool(rng.random() < 0.5)
     args = (["-c"] if aa else []) + (["-m", "1"] if local else [])
-    texts = []
-    for _ in range(n_files):
-        n = int(rng.integers(260, 301))
-        h = alpha[-1]
-        pre = [alpha[0]]
-        for _ in range(n + int(rng.integers(20, 61))):
-            pre.append(rng.choice([c for c in alpha[:-1] if c != pre[-1]]))
-        pre = "".join(pre)
-        post = h + _rand(rng, alpha, int(rng.integers(15, 31)))
-        texts.append(_fasta(pre[:len(pre) - k] + post for k in range(n)))
+    texts = [_fasta(hub_reads(rng, alpha, int(rng.integers(260, 301))))
+             for _ in range(n_files)]
     # -l: the loop's 8 predecessor slots and the band kernel's 16 are
     # out: the round path's full-width kernel
     want = ("fw_dp",) if local or list_mode else ("tile_dp",)
@@ -374,8 +380,22 @@ def _svmask(rng, n_files, list_mode):
         ("band_dp_topo", "fw_dp") if list_mode else ("fw_dp",)
 
 
+def _fan(rng, n_files, list_mode):
+    # hub_reads at 18-30 reads: the last read aligns to a node of 17-29
+    # predecessors, -m 2. Serially B5 (B4 for a re-run); under -l the
+    # round path's B3 past 16 predecessor slots (the device loop is
+    # global only)
+    aa = bool(rng.random() < 0.5)
+    args = (["-c"] if aa else []) + ["-m", "2"]
+    texts = [_fasta(hub_reads(rng, AA if aa else NT,
+                              int(rng.integers(18, 31))))
+             for _ in range(n_files)]
+    want = ("band_dp_topo_fan",) if list_mode else ("tile_dp", "fw_dp")
+    return texts, args, f"fan {'aa' if aa else 'nt'}", want
+
+
 _SHAPE_GEN = {"wide": _wide, "long": _long, "hub": _hub,
-              "svmask": _svmask}
+              "svmask": _svmask, "fan": _fan}
 
 
 def gen_shape_case(cls: str, seed: int, list_mode=False) -> ShapeCase:
@@ -409,7 +429,8 @@ class Facts:
 
 def shape_reached(cls: str, f: Facts) -> bool:
     return {"wide": f.wb > 1024, "long": f.nodes >= 3600,
-            "hub": f.indeg > 253, "svmask": f.partial > 0}[cls]
+            "hub": f.indeg > 253, "svmask": f.partial > 0,
+            "fan": 16 < f.indeg <= 30}[cls]
 
 
 @contextlib.contextmanager
@@ -448,7 +469,8 @@ def _launches():
     return dict(zip(KERNELS, [w.launches for w in ws] + [
         band_poa_dp_packed.wide_launches,
         graph_update_packed.global_launches,
-        graph_update_packed.qv_global_launches]))
+        graph_update_packed.qv_global_launches,
+        band_poa_dp_batch.wide_launches, band_poa_dp_batch.fan_launches]))
 
 
 def _cli(argv, out: pathlib.Path):

@@ -47,6 +47,16 @@ Phases (each prints its own lines; any failed check exits non-zero):
      batch's last round, bit-equal, with times; B2 at heter64's and
      heter64-qv's last round with the state in global memory against
      shared memory, in turns
+  4d. round envelope -- two batches of 16 instances on the round path
+     (-m 2, pipelined over 4 shards): wide-extend (6 reads of 2 joined
+     heter.fa reads, 1,212-1,537 bp, -f 0.2, default convex gaps: bands
+     of 1,408-1,536 lanes, B3 at four lanes a thread) and fan-extend
+     (18-30 hub reads of fuzz_ref.hub_reads an instance: B3 at 18-30
+     predecessor slots from round 17); each with no fallback, every
+     instance equal to the port's serial oracle, one B3 launch per
+     round and shard with work, the batch's instance on every round
+     that needs it; e2e median of 3; the new instance against its plain
+     version on the batch's last round, bit-equal, with times
   5. list mode -- batch_msa_from_files over 4 x heter.fa writes the
      golden bytes 4 times
   6. round path -- run_consensus over 64 x heter.fa with -m 1 (full-width
@@ -116,7 +126,7 @@ Phases (each prints its own lines; any failed check exits non-zero):
      CLI (serial engine, or -l through batch_msa_from_files) against
      its host oracle (--engine numpy) on gen_case seeds 0-199, list
      seeds 0-29 and seeds 0-3 of each shape class (wide, long, hub,
-     svmask) serially and under -l: every seed clean, every shape
+     svmask, fan) serially and under -l: every seed clean, every shape
      reached with its kernel launched, B1-B5 each launched in the
      phase; a line a row with seeds, clean, reached, launches and
      seconds (sized to ~115 s: 300, 40 and 6 seeds took 168.0 s after
@@ -147,6 +157,7 @@ times as extra keys); the last line is {"ok": true, "device": {...}}.
     python chip_smoke.py --bench-only   # phases 1, 2 and 17
     python chip_smoke.py --fuzz-only   # phases 1, 2 and 18
     python chip_smoke.py --envelope-only   # phases 1, 2 and 4c
+    python chip_smoke.py --round-envelope-only   # phases 1, 2 and 4d
     python chip_smoke.py --baseline build/base   # 3f beside that checkout
 """
 import io
@@ -215,6 +226,8 @@ def reset_launches():
     gu = wrappers()["graph_update"]
     gu.qv_launches = gu.global_launches = gu.qv_global_launches = 0
     wrappers()["band_dp"].wide_launches = 0
+    topo = wrappers()["band_dp_topo"]
+    topo.wide_launches = topo.fan_launches = 0
 
 
 def launches_now():
@@ -1318,6 +1331,168 @@ def envelope_phase(dev, heter):
     return rec, launches
 
 
+# the round-envelope phase's batches: wide-extend (read i joins heter.fa
+# reads i+3 and i+4, 1,212-1,537 bp; -m 2 -f 0.2, default convex gaps:
+# bands of 1,408-1,536 lanes, B3 at four lanes a thread) and fan-extend
+# (instance k: 18 + (k % 13) hub reads of fuzz_ref.hub_reads under seed
+# k, -m 2: the hub node gains a predecessor a read, so rounds 17-29 run
+# B3 at 18-30 predecessor slots)
+N_ROUND_ENV = 16
+
+
+def round_envelope_batches(heter):
+    """[(name, params, instances, counter attribute, kernel key)]."""
+    import numpy as np
+    from abpoa_tpu_torch.alphabet import encode_table
+    from abpoa_tpu_torch.params import Params, EXTEND_MODE
+    from abpoa_tpu_torch.tools.fuzz_ref import hub_reads, NT
+    tab = encode_table(5)
+
+    def ext(wf=None):
+        p = Params()
+        p.align_mode = EXTEND_MODE
+        if wf is not None:
+            p.wf = wf
+        return p.post_set()
+    wide = [np.concatenate([heter[(3 + i + j) % len(heter)]
+                            for j in range(2)]) for i in range(6)]
+    fan = [[tab[np.frombuffer(s.encode(), dtype=np.uint8)]
+            for s in hub_reads(np.random.default_rng(k), NT, 18 + k % 13)]
+           for k in range(N_ROUND_ENV)]
+    return [("wide-extend", ext(0.2), [wide] * N_ROUND_ENV, "wide_launches",
+             "band_dp_topo_wide"),
+            ("fan-extend", ext(), fan, "fan_launches", "band_dp_topo_fan")]
+
+
+def topo_last_round(dev, name, params, insts, key):
+    """B3's new instance against its plain version on the batch's last
+    round (the instances that have it; their exports from the oracle's
+    graphs), bit-equal on misc, the int64 and int16 step streams, band
+    bounds and state; times of both and the bound."""
+    import torch
+    from abpoa_tpu_torch.ops.roofline import OPS_PER_CELL, bound
+    from abpoa_tpu_torch.ops import band_dp as bd
+    from abpoa_tpu_torch.ops import layout as L
+    from abpoa_tpu_torch.parallel.batch import round_plan
+    k = max(len(i) for i in insts) - 1
+    live = [i for i in insts if len(i) > k]
+    uniq = {id(i): i for i in live}
+    dg_of = {j: round_exports(params, [i], k)[0] for j, i in uniq.items()}
+    dgs = [dg_of[id(i)] for i in live]
+    plan = round_plan(params, dgs, dev)
+    check(plan.name == "band_dp_topo", f"{name}: last round plan "
+          f"{plan.name}")
+    cfg = plan.cfg
+    check(cfg.WB > 1024 if key.endswith("wide") else cfg.P > bd.FAN_P,
+          f"{name}: last round at WB {cfg.WB}, P {cfg.P}")
+    args = plan.stack(slice(None), dev)
+    out = bd.band_poa_dp_batch(cfg, *args)
+    exp, plain = plain_timed(lambda: bd.band_poa_dp_batch_ref(cfg, *args))
+    n_rows = [d.n_rows for d in dgs]
+    dm = dp_diff(out, exp, n_rows, fields=("steps16",))
+    for b in range(len(dgs)):
+        ns = int(exp.misc[b, L.M_NSTEPS])
+        dm = max(dm, int((out.steps[b, :ns] != exp.steps[b, :ns]).sum()))
+    check(dm == 0, f"{name}: {key} != plain (max |d| {dm})")
+    check(not exp.misc[:, L.M_OVFL].any() and not exp.misc[:, L.M_FAIL]
+          .any(), f"{name}: plain DP overflow/fail")
+    rec = {"max_abs_err": dm, "plain_ms": plain,
+           "ms": cuda_ms(lambda: (lambda: bd.band_poa_dp_batch(cfg, *args)),
+                         20)}
+    cells = int(exp.misc[:, L.M_CELLS].sum())
+    outs = [t for t in out if isinstance(t, torch.Tensor)]
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes(*args, *outs), cells * OPS_PER_CELL[params.gap_mode])
+    say(f"round envelope {name}: {key} == plain on round {k} (B={len(dgs)}"
+        f", R={cfg.R}, WB={cfg.WB}, P={cfg.P}, "
+        f"{int(exp.misc[:, L.M_NSTEPS].sum())} steps, {cells} cells): "
+        f"kernel {rec['ms']:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    return rec
+
+
+def round_envelope_phase(dev, heter):
+    """The round path at the JAX package's envelope: wide-extend and
+    fan-extend through BatchPOA(device="cuda").run_consensus (the round
+    path, pipelined: 4 shards of 4), no fallback, every instance equal
+    to the port's serial oracle, one B3 launch per round, width group,
+    chunk and shard as round_shard_plan says, the batch's instance on
+    every round that needs it (wide: all; fan: rounds of 17 or more
+    predecessors); e2e median of REPS. Then each new instance against
+    its plain version on the batch's last round. Returns (kernel
+    records, launches)."""
+    import torch
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.ops.band_dp import band_poa_dp_batch
+    t_phase = time.perf_counter()
+    rec, launches = {}, {}
+    for name, params, insts, attr, key in round_envelope_batches(heter):
+        t0 = time.perf_counter()
+        memo = {}
+        for i in insts:
+            if id(i) not in memo:
+                memo[id(i)] = weighted_oracle(
+                    params, [i], [[[1] * len(q) for q in i]])[0]
+        exp = [memo[id(i)] for i in insts]
+        t_oracle = time.perf_counter() - t0
+        e2e = []
+        for rep in range(REPS + 1):
+            bp = BatchPOA(params, device=dev)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cons = bp.run_consensus(insts)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = launches_now()
+            bad = [k for k, (c, e) in enumerate(zip(cons, exp)) if c != e]
+            check(not bad, f"round envelope {name}: consensus != serial "
+                  f"oracle at instances {bad}")
+            check(not bp.used_device_loop and bp.fallbacks == 0,
+                  f"round envelope {name}: device loop "
+                  f"{bp.used_device_loop}, fallbacks {bp.fallbacks}")
+            want = round_shard_plan(bp, insts, "band_dp_topo")
+            plan = {k: sum(w["launches"][k] for w in want)
+                    for k in bp.launches}
+            # the batch's instance: wide every round; fan the rounds whose
+            # hub has 17 or more predecessors (round r: r of them)
+            S = len(want)
+            new = sum(
+                sum(any(len(i) > r for i in insts[s::S])
+                    for r in range(1, max(len(i) for i in insts[s::S]))
+                    if key.endswith("wide") or r > 16)
+                for s in range(S))
+            check(bp.pipeline_shards == want and bp.launches == plan
+                  and {k: got[k] for k in bp.launches} == plan
+                  and got["band_dp"] == got["graph_update"] == 0
+                  and getattr(band_poa_dp_batch, attr) == new,
+                  f"round envelope {name} ({mode_of(bp)}): launches {got}, "
+                  f"{key} {getattr(band_poa_dp_batch, attr)} (want {new}),"
+                  f" dispatch plan {bp.launches}, shards "
+                  f"{bp.pipeline_shards}, expected {want}")
+            if rep == 0:
+                launches[key] = new
+                lens = [len(q) for i in insts for q in i]
+                say(f"round envelope {name}: {len(insts)} instances of "
+                    f"{min(map(len, insts))}-{max(map(len, insts))} reads "
+                    f"of {min(lens)}-{max(lens)} bp ({mode_of(bp)}): all "
+                    f"== serial oracle ({t_oracle:.1f} s), fallbacks 0, "
+                    f"rounds {bp.rounds}, launches B3 "
+                    f"{got['band_dp_topo']} == plan, {key} {new}; first "
+                    f"run {secs:.4f} s")
+            else:
+                e2e.append(secs)
+        med = statistics.median(e2e)
+        E2E[name] = med
+        say(f"round envelope {name}: e2e {med:.4f} s median of {REPS} "
+            f"{[round(x, 4) for x in e2e]}, device phases "
+            f"{bp.dp_busy_seconds():.4f} s, dp_cells {bp.dp_cells}, "
+            f"dp_cells/s {bp.dp_cells / med:.1f}")
+        rec[key] = topo_last_round(dev, name, params, insts, key)
+    say(f"round envelope: phase {time.perf_counter() - t_phase:.1f} s")
+    return rec, launches
+
+
 def seeded_params():
     from abpoa_tpu_torch.params import Params
     p = Params()
@@ -2413,6 +2588,7 @@ def main(argv):
     bench_only = "--bench-only" in argv
     fuzz_only = "--fuzz-only" in argv
     envelope_only = "--envelope-only" in argv
+    round_envelope_only = "--round-envelope-only" in argv
     base_dir = argv[argv.index("--baseline") + 1] if "--baseline" in argv \
         else None
     try:
@@ -2464,6 +2640,13 @@ def main(argv):
         # ---- 4c alone: the loop's envelope ----
         env_rec, env_launches = envelope_phase(dev, heter)
         say(json.dumps({"envelope": env_rec, "launches": env_launches}))
+        say(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if round_envelope_only:
+        # ---- 4d alone: the round path's envelope ----
+        renv_rec, renv_launches = round_envelope_phase(dev, heter)
+        say(json.dumps({"round_envelope": renv_rec,
+                        "launches": renv_launches}))
         say(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     if pipeline_only:
@@ -2564,6 +2747,12 @@ def main(argv):
     rec.update(env_rec)
     launches.update(env_launches)
 
+    # ---- 4d. the round envelope: B3 past 1024 lanes and past 16
+    # predecessor slots ----
+    renv_rec, renv_launches = round_envelope_phase(dev, heter)
+    rec.update(renv_rec)
+    launches.update(renv_launches)
+
     # ---- 5. list mode ----
     out = io.StringIO()
     batch_msa_from_files(Params().post_set(), [str(HETER)] * 4, out,
@@ -2633,6 +2822,10 @@ def main(argv):
                             "abpoa_tpu/ops/dp_pallas_band.py:132"),
            "band_dp_topo": ("abpoa_tpu_torch/csrc/band_dp.cu",
                             "abpoa_tpu/ops/dp_pallas_band.py:1247"),
+           "band_dp_topo_wide": ("abpoa_tpu_torch/csrc/band_dp.cu",
+                                 "abpoa_tpu/ops/dp_pallas_band.py:1247"),
+           "band_dp_topo_fan": ("abpoa_tpu_torch/csrc/band_dp.cu",
+                                "abpoa_tpu/ops/dp_pallas_band.py:1247"),
            "fw_dp": ("abpoa_tpu_torch/csrc/fw_dp.cu",
                      "abpoa_tpu/ops/dp_pallas_fw.py:746"),
            "tile_dp": ("abpoa_tpu_torch/csrc/tile_dp.cu",

@@ -194,9 +194,11 @@ def _synth_plan(n, budget, monkeypatch, seeded=False, wb=None, **kw):
 
 # (rows, kwargs, budget) -> kernel; a band of 1024 lanes or fewer (the
 # default -b 10) fits a block up to about 11,600 rows at 4 predecessor
-# slots; -b 400 makes it wider than a block
+# slots, -b 300 (1664 lanes) at four positions a thread; -b 400 (2176
+# lanes) makes it wider than a block
 PAST_4096 = {
     "band": ((5000, {}, 4 << 30), "band_dp_topo"),
+    "band_wide": ((5000, dict(wb=300), 4 << 30), "band_dp_topo"),
     "band_past_8192": ((9000, dict(fan=1, qcut=2000), 4 << 30),
                        "band_dp_topo"),
     "fw": ((12000, dict(qcut=3000), 4 << 30), "fw_dp"),
@@ -212,6 +214,9 @@ def test_round_plan_past_4096_rows(case, monkeypatch):
     assert plan.cfg.R > 4096
     assert plan.name == name
     assert plan.chunk >= 1
+    if case == "band_wide":
+        from abpoa_tpu_torch.ops.band_dp import band_cpt
+        assert band_cpt(plan.cfg.WB) == 4
 
 
 def test_round_plan_past_the_budget_names_the_bytes(monkeypatch):

@@ -10,7 +10,8 @@
 (c) the tool exits 0 on two seeds and 1 on a corrupted output, with a
     repro;
 (d) each shape class reaches its shape on the port's oracle, serially
-    and under -l, and names the kernels the shape should reach;
+    and under -l, and names the kernels the shape should reach (fan: a
+    node of 17-29 predecessors under -m 2);
 (e) on the card (gpu): the list-mode seeds and every shape class through
     both paths, each launching its kernel.
 """
@@ -124,16 +125,20 @@ def test_tool_without_a_card_exits_1(monkeypatch, capsys):
 
 # (class, seed, list mode) -> the kernels the case wants; one seed of
 # each class serially and under -l, with the shape's own flags (wide
-# under -l: -m 2 on the round path's B4, else the device loop's B1 at four
-# positions a thread)
+# under -l: -m 2 on the round path's B3 at four positions a thread, else
+# the device loop's B1 at four positions a thread; fan under -l: B3 past
+# 16 predecessor slots)
 SHAPE_CASES = {
-    ("wide", 0, False): ("tile_dp",), ("wide", 0, True): ("fw_dp",),
+    ("wide", 0, False): ("tile_dp",), ("wide", 0, True):
+        ("band_dp_topo_wide",),
     ("wide", 1, True): ("band_dp_wide",),
     ("long", 2, False): ("tile_dp",), ("long", 0, True):
         ("band_dp_topo", "fw_dp"),
     ("hub", 1, False): ("fw_dp",), ("hub", 0, True): ("fw_dp",),
     ("svmask", 0, False): ("fw_dp",), ("svmask", 0, True):
         ("band_dp_topo", "fw_dp"),
+    ("fan", 0, False): ("tile_dp", "fw_dp"), ("fan", 0, True):
+        ("band_dp_topo_fan",),
 }
 
 
