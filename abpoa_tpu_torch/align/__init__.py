@@ -11,6 +11,7 @@ Batched multi-instance throughput runs go through the device kernels
 """
 from __future__ import annotations
 
+from .. import trace
 from ..params import SRC_NODE_ID, SINK_NODE_ID
 from .engine_np import AlignResult, align_sequence_to_subgraph as _np_subgraph
 
@@ -21,7 +22,8 @@ def align_sequence_to_subgraph(graph, params, beg_node_id, end_node_id,
     if graph.node_n <= 2:
         return None
     if not graph.is_topological_sorted:
-        graph.topological_sort(params)
+        with trace.span("abpoa.sort", 1):
+            graph.topological_sort(params)
     if params.engine == "torch":
         from . import engine_torch
         if beg_node_id == SRC_NODE_ID and end_node_id == SINK_NODE_ID:

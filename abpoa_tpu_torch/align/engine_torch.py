@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..params import GLOBAL_MODE, EXTEND_MODE, SRC_NODE_ID, SINK_NODE_ID
 from ..ops import layout as L
@@ -54,9 +55,11 @@ over_budget = 0     # alignments over the memory budget (the oracle)
 
 def _run(kernel, cfg, arrs, dev):
     """One B=1 launch; returns (out, misc row as numpy)."""
-    out = kernel(cfg, *(torch.from_numpy(np.ascontiguousarray(a))[None]
-                        .to(dev) for a in arrs))
-    return out, out.misc[0].cpu().numpy()
+    with trace.span("abpoa.dispatch", 1):
+        out = kernel(cfg, *(torch.from_numpy(np.ascontiguousarray(a))[None]
+                            .to(dev) for a in arrs))
+    with trace.span("abpoa.wait"):
+        return out, out.misc[0].cpu().numpy()
 
 
 def _fits(nbytes, dev):
@@ -83,8 +86,9 @@ def _full_width(dg, params, dev):
     from ..ops.fw_dp import FWConfig, fw_plane_bytes, fw_poa_dp_batch
     Wq = (dg.qlen // 128 + 1) * 128
     lmax = (dg.R + Wq + 511) // 512 * 512 if params.ret_cigar else 0
-    cfg, arrs = make_pallas_inputs(dg, params, 128, force_Wq=Wq,
-                                   bt_lmax=lmax)
+    with trace.span("abpoa.export", 1):
+        cfg, arrs = make_pallas_inputs(dg, params, 128, force_Wq=Wq,
+                                       bt_lmax=lmax)
     fwc = FWConfig(cfg.gap_mode, cfg.align_mode, cfg.pn, cfg.R, Wq, cfg.P,
                    cfg.O, cfg.m, cfg.use_zdrop, lmax,
                    banded=params.wb >= 0)
@@ -120,14 +124,17 @@ def align_sequence_to_graph_device(graph, params, query,
     from .export import export_dense, make_pallas_inputs, pick_WB
     from ..ops.tile_dp import tile_plane_bytes, tile_poa_dp_batch
     dev = resolve_device(device)
-    dg = export_dense(graph, params, query)
-    Wq = (dg.qlen // 128 + 1) * 128
-    lmax = (dg.R + Wq + 511) // 512 * 512 if params.ret_cigar else 0
     banded = params.wb >= 0
+    tile = banded and params.align_mode in (GLOBAL_MODE, EXTEND_MODE)
+    with trace.span("abpoa.export", 1):
+        dg = export_dense(graph, params, query)
+        Wq = (dg.qlen // 128 + 1) * 128
+        lmax = (dg.R + Wq + 511) // 512 * 512 if params.ret_cigar else 0
+        if tile:
+            WB = pick_WB(params, dg.qlen, dg.pn)
+            cfg, arrs = make_pallas_inputs(dg, params, WB, bt_lmax=lmax)
     out = None
-    if banded and params.align_mode in (GLOBAL_MODE, EXTEND_MODE):
-        WB = pick_WB(params, dg.qlen, dg.pn)
-        cfg, arrs = make_pallas_inputs(dg, params, WB, bt_lmax=lmax)
+    if tile:
         if not _fits(tile_plane_bytes(cfg), dev):
             return _oracle(graph, params, SRC_NODE_ID, SINK_NODE_ID, query)
         out, misc = _run(tile_poa_dp_batch, cfg, arrs[:10], dev)
@@ -141,12 +148,15 @@ def align_sequence_to_graph_device(graph, params, query,
         if fw is None:
             return _oracle(graph, params, SRC_NODE_ID, SINK_NODE_ID, query)
         out, misc = fw
-    if banded:
-        n = dg.n_rows
-        i2n = np.asarray(graph.index_to_node_id[:n], dtype=np.int64)
-        graph.node_id_to_max_pos_left[i2n] = out.mpl[0, :n].cpu().numpy()
-        graph.node_id_to_max_pos_right[i2n] = out.mpr[0, :n].cpu().numpy()
-    return _result(graph, params, query, out, misc)
+    with trace.span("abpoa.replay", 1):
+        if banded:
+            n = dg.n_rows
+            i2n = np.asarray(graph.index_to_node_id[:n], dtype=np.int64)
+            graph.node_id_to_max_pos_left[i2n] = \
+                out.mpl[0, :n].cpu().numpy()
+            graph.node_id_to_max_pos_right[i2n] = \
+                out.mpr[0, :n].cpu().numpy()
+        return _result(graph, params, query, out, misc)
 
 
 def align_sequence_to_subgraph_device(graph, params, beg_node_id,
@@ -159,20 +169,24 @@ def align_sequence_to_subgraph_device(graph, params, beg_node_id,
     dev = resolve_device(device)
     beg_index = int(graph.node_id_to_index[beg_node_id])
     end_index = int(graph.node_id_to_index[end_node_id])
-    dg = export_dense(graph, params, query, beg_index=beg_index,
-                      end_index=end_index)
+    with trace.span("abpoa.export", 1):
+        dg = export_dense(graph, params, query, beg_index=beg_index,
+                          end_index=end_index)
     fw = _full_width(dg, params, dev)
     if fw is None:
         return _oracle(graph, params, beg_node_id, end_node_id, query)
     out, misc = fw
-    if params.wb >= 0:
-        # only the live rows carry band state: the oracle never touches
-        # the rows outside the row mask
-        n = dg.n_rows
-        live = dg.rowmask[:n] > 0
-        ids = np.asarray(graph.index_to_node_id[beg_index:beg_index + n],
-                         dtype=np.int64)[live]
-        graph.node_id_to_max_pos_left[ids] = out.mpl[0, :n].cpu().numpy()[live]
-        graph.node_id_to_max_pos_right[ids] = \
-            out.mpr[0, :n].cpu().numpy()[live]
-    return _result(graph, params, query, out, misc, row0=beg_index)
+    with trace.span("abpoa.replay", 1):
+        if params.wb >= 0:
+            # only the live rows carry band state: the oracle never
+            # touches the rows outside the row mask
+            n = dg.n_rows
+            live = dg.rowmask[:n] > 0
+            ids = np.asarray(
+                graph.index_to_node_id[beg_index:beg_index + n],
+                dtype=np.int64)[live]
+            graph.node_id_to_max_pos_left[ids] = \
+                out.mpl[0, :n].cpu().numpy()[live]
+            graph.node_id_to_max_pos_right[ids] = \
+                out.mpr[0, :n].cpu().numpy()[live]
+        return _result(graph, params, query, out, misc, row0=beg_index)

@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import align as aln
+from . import trace
 from .alphabet import encode_table, revcomp_codes
 from .consensus import Consensus, generate_consensus
 from .gfa import generate_gfa, restore_graph
@@ -59,8 +60,9 @@ class ABPOA:
                     weight = rc_weight
                     self.is_rc[read_id] = 1
         cigar = res.cigar if res is not None else []
-        self.graph.add_graph_alignment(params, qseq, weight, cigar, None,
-                                       read_id, True)
+        with trace.span("abpoa.fuse", 1):
+            self.graph.add_graph_alignment(params, qseq, weight, cigar, None,
+                                           read_id, True)
 
     def poa(self, params: Params, seqs, weights, exist_n_seq: int):
         """plain iterative POA (ref abpoa_poa src/abpoa_align.c:302-344)."""
@@ -159,9 +161,10 @@ class ABPOA:
             res = yield (beg_id, SINK_NODE_ID, qseq[beg_qpos:qlen])
             if res is not None:
                 whole_cigar.extend(res.cigar)
-            self.graph.add_subgraph_alignment(
-                params, SRC_NODE_ID, SINK_NODE_ID, qseq, weight, whole_cigar,
-                qpos_to_node_id, read_id, True)
+            with trace.span("abpoa.fuse", 1):
+                self.graph.add_subgraph_alignment(
+                    params, SRC_NODE_ID, SINK_NODE_ID, qseq, weight,
+                    whole_cigar, qpos_to_node_id, read_id, True)
             tpos_to_node_id, qpos_to_node_id = qpos_to_node_id, tpos_to_node_id
             last_read_id = read_id
 
@@ -175,7 +178,8 @@ class ABPOA:
             if params.out_msa:
                 generate_rc_msa(self, params)
             if params.out_cons:
-                generate_consensus(self, params)
+                with trace.span("abpoa.consensus", 1):
+                    generate_consensus(self, params)
                 if not self.graph.is_called_cons:
                     print("Warning: no consensus sequence generated.",
                           file=sys.stderr)
@@ -229,8 +233,9 @@ class ABPOA:
             self.poa(params, enc_seqs, weights, exist_n_seq)
         else:
             from .seed import build_guide_tree_partition
-            read_id_map, par_anchors, par_c = build_guide_tree_partition(
-                enc_seqs, seq_lens, params)
+            with trace.span("abpoa.seed", 1):
+                read_id_map, par_anchors, par_c = \
+                    build_guide_tree_partition(enc_seqs, seq_lens, params)
             self.anchor_poa(params, enc_seqs, weights, seq_lens, par_anchors,
                             par_c, read_id_map, exist_n_seq)
         if out is not None:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import sys
 import time
 
+from . import trace
 from .api import ABPOA
 from .params import (Params, GLOBAL_MODE, LOCAL_MODE, EXTEND_MODE,
                      OUT_CONS, OUT_MSA, OUT_CONS_MSA, OUT_GFA, OUT_CONS_GFA,
@@ -84,6 +85,11 @@ TAKES_ARG = set("mMXtOEbfzekwnioqrgdqV\x01\x02")
 
 
 def main(argv=None) -> int:
+    with trace.root("abpoa.cli", 1):
+        return _main(argv)
+
+
+def _main(argv) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     params = Params()
     in_list = False

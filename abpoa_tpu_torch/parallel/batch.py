@@ -78,6 +78,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..api import ABPOA
 from ..params import Params, GLOBAL_MODE, SRC_NODE_ID, SINK_NODE_ID
 
@@ -547,13 +548,14 @@ class BatchPOA:
     def run(self, instances, weights=None, init=None) -> list[ABPOA]:
         """Batched POA of `instances`; weights: per instance, per read,
         the per-base qv weights (None: unit weights)."""
-        self._weights = weights
-        abs_, self._rid0 = _make_aligners(instances, self.params, init)
-        cfg = self._loop_eligible(instances)
-        if cfg is not None:
-            _DeviceLoop(self, abs_, instances, cfg).run()
-        else:
-            _Rounds(self, abs_, instances).run()
+        with trace.root("abpoa.batch", len(instances)):
+            self._weights = weights
+            abs_, self._rid0 = _make_aligners(instances, self.params, init)
+            cfg = self._loop_eligible(instances)
+            if cfg is not None:
+                _DeviceLoop(self, abs_, instances, cfg).run()
+            else:
+                _Rounds(self, abs_, instances).run()
         return abs_
 
     def run_seeded(self, instances, weights=None, init=None) -> list[ABPOA]:
@@ -561,9 +563,10 @@ class BatchPOA:
         src/abpoa_align.c:192-299): each instance drives the serial
         path's own request generator (``ABPOA.anchor_poa_requests``), and
         every round of windows runs on the device across instances."""
-        self._weights = weights
-        abs_, self._rid0 = _make_aligners(instances, self.params, init)
-        _Windows(self, abs_, instances).run()
+        with trace.root("abpoa.batch", len(instances)):
+            self._weights = weights
+            abs_, self._rid0 = _make_aligners(instances, self.params, init)
+            _Windows(self, abs_, instances).run()
         return abs_
 
     def dp_busy_seconds(self) -> float:
@@ -585,9 +588,6 @@ class BatchPOA:
         (heaviest bundling)."""
         from ..consensus import generate_consensus
         from ..alphabet import decode_table
-        self.precompute_cons = True
-        abs_ = (self.run_seeded(instances, weights=weights) if seeded
-                else self.run(instances, weights=weights))
         tab = decode_table(self.params.m)
 
         def cons_one(ab):
@@ -595,7 +595,12 @@ class BatchPOA:
             c = ab.cons
             return [bytes(tab[b] for b in seq).decode()
                     for seq in c.cons_base[:c.n_cons]]
-        return list(_host_pool().map(cons_one, abs_))
+        with trace.root("abpoa.batch", len(instances)):
+            self.precompute_cons = True
+            abs_ = (self.run_seeded(instances, weights=weights) if seeded
+                    else self.run(instances, weights=weights))
+            with trace.span("abpoa.consensus", len(abs_)):
+                return list(_host_pool().map(cons_one, abs_))
 
 
 def batch_msa_from_files(params, fns, out, device="cuda", pipeline=True):
@@ -605,6 +610,11 @@ def batch_msa_from_files(params, fns, out, device="cuda", pipeline=True):
     every instance restores the same initial graph before its reads
     fuse. pipeline: BatchPOA's. Returns the BatchPOA that ran (its
     counters), or None when no file had a record."""
+    with trace.root("abpoa.batch", len(fns)):
+        return _batch_msa(params, fns, out, device, pipeline)
+
+
+def _batch_msa(params, fns, out, device, pipeline):
     from ..seqio import read_seqs
     from ..alphabet import encode_table
     tab = encode_table(params.m)
@@ -713,8 +723,9 @@ class _Job:
     def _plan(self, group, dgs):
         bp = self.bp
         budgets = [_plane_budget(sh.dev, sh.in_flight) for sh in self.lanes]
-        plan = round_plan(bp.params, dgs, self.lanes[0].dev, self.seeded,
-                          budget=min(budgets))
+        with trace.span("abpoa.export", len(dgs)):
+            plan = round_plan(bp.params, dgs, self.lanes[0].dev, self.seeded,
+                              budget=min(budgets))
         self.step_cap = plan.step_cap
         if bp.s16_cap is not None:
             self.step_cap = max(2, min(self.step_cap, int(bp.s16_cap)))
@@ -744,26 +755,27 @@ class _Job:
         return [self._launch(sh, part) for sh, part in filter(None, wave)]
 
     def _launch(self, sh, part):
-        bp, plan = self.bp, self.plan
-        t0 = time.perf_counter()
-        start = None
-        with _on(sh):
-            if sh.dev.type == "cuda":
-                start = bp.clock.mark(sh.dev)
-            inputs = plan.stack(part, sh.dev)
-            out = plan.kernel(plan.cfg, *inputs)
-            fetch = [out.misc, out.steps[:, :self.step_cap]]
-            if self.seeded:
-                nmax = max(d.n_rows for d in self.dgs[part])
-                fetch += [out.mpl[:, :nmax], out.mpr[:, :nmax]]
-        bp.launches[plan.name] += 1
-        self.rec["launches"][plan.name] += 1
-        host, ev = _enqueue_fetch(sh, fetch)
-        bp.h2d_bytes += sum(t.numel() * t.element_size() for t in inputs)
-        bp.d2h_bytes += sum(t.numel() * t.element_size() for t in host)
-        return dict(shard=sh, group=self.group[part], host=host, ev=ev,
-                    start=start, t0=t0, t_done=time.perf_counter(),
-                    out=out, inputs=inputs)
+        with trace.span("abpoa.dispatch", part.stop - part.start):
+            bp, plan = self.bp, self.plan
+            t0 = time.perf_counter()
+            start = None
+            with _on(sh):
+                if sh.dev.type == "cuda":
+                    start = bp.clock.mark(sh.dev)
+                inputs = plan.stack(part, sh.dev)
+                out = plan.kernel(plan.cfg, *inputs)
+                fetch = [out.misc, out.steps[:, :self.step_cap]]
+                if self.seeded:
+                    nmax = max(d.n_rows for d in self.dgs[part])
+                    fetch += [out.mpl[:, :nmax], out.mpr[:, :nmax]]
+            bp.launches[plan.name] += 1
+            self.rec["launches"][plan.name] += 1
+            host, ev = _enqueue_fetch(sh, fetch)
+            bp.h2d_bytes += sum(t.numel() * t.element_size() for t in inputs)
+            bp.d2h_bytes += sum(t.numel() * t.element_size() for t in host)
+            return dict(shard=sh, group=self.group[part], host=host, ev=ev,
+                        start=start, t0=t0, t_done=time.perf_counter(),
+                        out=out, inputs=inputs)
 
     def collect(self):
         while self.handles:
@@ -783,12 +795,14 @@ class _Job:
             empty = np.zeros((n, 0), np.int64)
             return dict(group=h["group"], r=self.r, misc=misc, steps=empty,
                         steps_dev=None, shard=None, mpl=empty, mpr=empty)
+        with trace.span("abpoa.wait"):
+            if h["ev"] is not None:
+                h["ev"].synchronize()
+            host = [x.numpy() for x in h["host"]]
         if h["ev"] is not None:
-            h["ev"].synchronize()
             t0, t1 = bp.clock.interval(h["shard"].dev, h["start"], h["ev"])
         else:
             t0, t1 = h["t0"], h["t_done"]
-        host = [x.numpy() for x in h["host"]]
         pend = dict(group=h["group"], r=self.r, misc=host[0], steps=host[1],
                     steps_dev=h["out"].steps, shard=h["shard"])
         if self.seeded:
@@ -865,20 +879,25 @@ class _Rounds:
             # two-pass export: natural buckets, then re-pad to shard max
             from ..align.export import export_dense
 
-            def sort_export(k):
+            def sort(k):
                 g = abs_[k].graph
                 if not g.is_topological_sorted:
                     g.topological_sort(params)
-                return export_dense(g, params, instances[k][r])
-            nat = dict(zip(todo, _host_pool().map(sort_export, todo)))
-            R = max(d.R for d in nat.values())
-            W = max(d.W for d in nat.values())
-            P_ = max(d.P for d in nat.values())
-            O_ = max(d.O for d in nat.values())
-            for pn in sorted({d.pn for d in nat.values()}):
-                group = [k for k in todo if nat[k].pn == pn]
-                groups.append((group, [repad_dense(nat[k], R, W, P_, O_)
-                                       for k in group]))
+
+            def export(k):
+                return export_dense(abs_[k].graph, params, instances[k][r])
+            with trace.span("abpoa.sort", len(todo)):
+                list(_host_pool().map(sort, todo))
+            with trace.span("abpoa.export", len(todo)):
+                nat = dict(zip(todo, _host_pool().map(export, todo)))
+                R = max(d.R for d in nat.values())
+                W = max(d.W for d in nat.values())
+                P_ = max(d.P for d in nat.values())
+                O_ = max(d.O for d in nat.values())
+                for pn in sorted({d.pn for d in nat.values()}):
+                    group = [k for k in todo if nat[k].pn == pn]
+                    groups.append((group, [repad_dense(nat[k], R, W, P_, O_)
+                                           for k in group]))
         return _Job(bp, lanes, groups, r, rec)
 
     def _collect(self, pend):
@@ -932,7 +951,8 @@ class _Rounds:
                                          True)
 
         # each instance mutates its own graph; the hot path is one C call
-        list(_host_pool().map(fuse_one, enumerate(pend["group"])))
+        with trace.span("abpoa.fuse", len(pend["group"])):
+            list(_host_pool().map(fuse_one, enumerate(pend["group"])))
 
 
 class _Windows:
@@ -973,7 +993,8 @@ class _Windows:
         if g.node_n <= 2 or len(window) == 0:
             return None
         if not g.is_topological_sorted:
-            g.topological_sort(params)
+            with trace.span("abpoa.sort", 1):
+                g.topological_sort(params)
         bi = int(g.node_id_to_index[beg_id])
         ei = int(g.node_id_to_index[end_id])
         return export_dense(g, params, window, beg_index=bi, end_index=ei)
@@ -1005,7 +1026,8 @@ class _Windows:
         n = len(self.instances)
         S = 2 if bp.pipeline and n >= 8 else 1
         members = [[k for k in range(n) if k % S == s] for s in range(S)]
-        started = [self._start(k) for k in range(n)]
+        with trace.span("abpoa.seed", n):
+            started = [self._start(k) for k in range(n)]
         self.gens = [gen for gen, _ in started]
         reqs = [{k: started[k][1] for k in m if started[k][1] is not None}
                 for m in members]
@@ -1027,24 +1049,25 @@ class _Windows:
         exports, host-only instances, job)."""
         bp = self.bp
         todo = sorted(reqs)
-        dgs = {k: self._export(k, reqs[k]) for k in todo}
-        host_only = [k for k in todo if dgs[k] is None]
+        groups = []
+        with trace.span("abpoa.export", len(todo)):
+            dgs = {k: self._export(k, reqs[k]) for k in todo}
+            host_only = [k for k in todo if dgs[k] is None]
+            live = [k for k in todo if dgs[k] is not None]
+            if live:
+                R = max(dgs[k].R for k in live)
+                W = max(dgs[k].W for k in live)
+                P_ = max(dgs[k].P for k in live)
+                O_ = max(dgs[k].O for k in live)
+                for pn in sorted({dgs[k].pn for k in live}):
+                    group = [k for k in live if dgs[k].pn == pn]
+                    groups.append((group, [repad_dense(dgs[k], R, W, P_, O_)
+                                           for k in group]))
         # an empty window has no DP: the oracle, as in the JAX package
         # (an empty graph aligns nothing)
         bp.empty_windows += sum(self.abs_[k].graph.node_n > 2
                                 for k in host_only)
-        live = [k for k in todo if dgs[k] is not None]
-        groups = []
-        if live:
-            R = max(dgs[k].R for k in live)
-            W = max(dgs[k].W for k in live)
-            P_ = max(dgs[k].P for k in live)
-            O_ = max(dgs[k].O for k in live)
-            for pn in sorted({dgs[k].pn for k in live}):
-                group = [k for k in live if dgs[k].pn == pn]
-                groups.append((group, [repad_dense(dgs[k], R, W, P_, O_)
-                                       for k in group]))
-            bp.windows += len(live)
+        bp.windows += len(live)
         job = _Job(bp, lanes, groups, rec["rounds"], rec, seeded=True)
         bp.rounds += 1
         rec["rounds"] += 1
@@ -1056,9 +1079,11 @@ class _Windows:
         advanced. Returns the group's next requests."""
         results = {k: self._oracle(k, reqs[k]) for k in host_only}
         for pend in job.collect():
-            results.update(self._apply(pend, reqs, dgs))
-        return {k: req for k in todo
-                if (req := self._advance(k, results[k])) is not None}
+            with trace.span("abpoa.replay", len(pend["group"])):
+                results.update(self._apply(pend, reqs, dgs))
+        with trace.span("abpoa.advance", len(todo)):
+            return {k: req for k in todo
+                    if (req := self._advance(k, results[k])) is not None}
 
     def _advance(self, k, result):
         """Send instance k's window result to its generator (which fuses
@@ -1127,18 +1152,19 @@ class _DeviceLoop:
         dev = shard.dev
         cfg = self.cfg._replace(B=len(part))
         graphs = [self.abs_[k].graph for k in part]
-        st, i2n, n2i, remain = pl.init_state_np(graphs, cfg)
-        qc = np.zeros((cfg.NR, cfg.B, cfg.Wq), np.int8)
-        ql = np.zeros((cfg.NR, cfg.B), np.int32)
-        # wmode 1: the per-base weight stream, 0-based (ref weight[q])
-        qw = (np.zeros((cfg.NR, cfg.B, cfg.Wq), np.int32)
-              if cfg.wmode else None)
-        for b, k in enumerate(part):
-            for r, q in enumerate(self.instances[k][1:]):
-                qc[r, b, 1:len(q) + 1] = q
-                ql[r, b] = len(q)
-                if cfg.wmode:
-                    qw[r, b, :len(q)] = bp._weight(k, r + 1, q)
+        with trace.span("abpoa.export", len(part)):
+            st, i2n, n2i, remain = pl.init_state_np(graphs, cfg)
+            qc = np.zeros((cfg.NR, cfg.B, cfg.Wq), np.int8)
+            ql = np.zeros((cfg.NR, cfg.B), np.int32)
+            # wmode 1: the per-base weight stream, 0-based (ref weight[q])
+            qw = (np.zeros((cfg.NR, cfg.B, cfg.Wq), np.int32)
+                  if cfg.wmode else None)
+            for b, k in enumerate(part):
+                for r, q in enumerate(self.instances[k][1:]):
+                    qc[r, b, 1:len(q) + 1] = q
+                    ql[r, b] = len(q)
+                    if cfg.wmode:
+                        qw[r, b, :len(q)] = bp._weight(k, r + 1, q)
         maxlen = int(ql.max())
         cap = min(cfg.LS, (maxlen + max(96, maxlen // 4) + 63) // 64 * 64)
         if bp.s16_cap is not None:
@@ -1149,20 +1175,21 @@ class _DeviceLoop:
             return torch.from_numpy(np.ascontiguousarray(x)).to(
                 dev, non_blocking=True)
         start = None
-        with _on(shard):
-            if dev.type == "cuda":
-                start = bp.clock.mark(dev)
-            inputs = [pl.GState(*(put(x) for x in st))] + [
-                put(x) for x in (i2n, n2i, remain, qc, ql,
-                                 pl.make_scal_base(params, cfg))]
-            qw_d = put(qw) if cfg.wmode else None
-            psF, misc_d, s16_d = pl.poa_device_loop(
-                cfg, *inputs, int(params.wb), int(round(params.wf * 1000)),
-                qw_rounds=qw_d)
-            s16_cap_d = s16_d[:, :, :cap // 2].contiguous()
-        # the copies run on the shard's stream right after this part's
-        # last kernel, so the host waits for this part alone
-        host, ev = _enqueue_fetch(shard, (misc_d, s16_cap_d, psF.fail))
+        with trace.span("abpoa.dispatch", len(part)):
+            with _on(shard):
+                if dev.type == "cuda":
+                    start = bp.clock.mark(dev)
+                inputs = [pl.GState(*(put(x) for x in st))] + [
+                    put(x) for x in (i2n, n2i, remain, qc, ql,
+                                     pl.make_scal_base(params, cfg))]
+                qw_d = put(qw) if cfg.wmode else None
+                psF, misc_d, s16_d = pl.poa_device_loop(
+                    cfg, *inputs, int(params.wb),
+                    int(round(params.wf * 1000)), qw_rounds=qw_d)
+                s16_cap_d = s16_d[:, :, :cap // 2].contiguous()
+            # the copies run on the shard's stream right after this
+            # part's last kernel, so the host waits for this part alone
+            host, ev = _enqueue_fetch(shard, (misc_d, s16_cap_d, psF.fail))
         bp.d2h_bytes += sum(h.numel() * h.element_size() for h in host)
         return part, cfg, host, (start, ev), s16_d, (inputs, qw_d)
 
@@ -1199,9 +1226,10 @@ class _DeviceLoop:
         pends = [(shard, self._launch(shard, part))
                  for shard, part in parts]
         for shard, (part, cfg, host, (start, ev), s16_d, _inputs) in pends:
-            if ev is not None:
-                ev.synchronize()
-            misc, s16w, failv = (h.numpy() for h in host)
+            with trace.span("abpoa.wait"):
+                if ev is not None:
+                    ev.synchronize()
+                misc, s16w, failv = (h.numpy() for h in host)
             s16 = s16w.view(np.int16)
             t1 = time.perf_counter()
             bp.dp_seconds += t1 - t_prev
@@ -1215,7 +1243,9 @@ class _DeviceLoop:
                 if ok_mask[b]:
                     nr_k = len(instances[k]) - 1
                     bp.dp_cells += int(misc[:nr_k, b, L.M_CELLS].sum())
-            self._replay(part, misc, s16, s16_d, ok_mask)
+            with trace.span("abpoa.fuse",
+                            sum(len(instances[k]) - 1 for k in part)):
+                self._replay(part, misc, s16, s16_d, ok_mask)
         return True
 
     def _replay(self, live, misc, s16, s16_d, ok_mask):
