@@ -50,6 +50,15 @@
 //   division on a row's path); the walk reads one backtrack word per step
 //   on one thread.
 //
+// Topo mode's inputs arrive as one staged upload (ops/band_dp.py
+// TopoStage: the export columns of every instance in their narrow dtypes,
+// one section each). A prologue kernel (topo_stage_kernel) widens them
+// into the words the band kernel reads (ctrl, predecessor halves, mplr0,
+// the query-profile folds) and zeroes the outputs, so a launch is one
+// host-to-device copy and two kernels; it replaces the PyTorch ops the
+// JAX wrapper's packing became (abpoa_tpu/ops/dp_pallas_band.py:1154-
+// 1210). It is one pass of loads and stores, a few microseconds.
+//
 // Predecessor slots: topo mode takes up to 30 (a runtime value), node-id
 // mode 14. A backtrack pick field keeps 4 bits: the sweep writes slots
 // 0-14 and leaves 15 for "slot 15 or later, or none" (the JAX kernel
@@ -60,6 +69,8 @@
 // cells whose first hit is at slot 15 or later pay for it, and below 16
 // slots the search is slot 15 alone.
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "layout.cuh"
 
@@ -971,6 +982,94 @@ __global__ void __launch_bounds__(MAX_NT) band_dp_kernel(BandArgs a) {
   misc[M_LASTI] = PI;
 }
 
+// ---- the staged topo-mode launch's prologue ----
+
+// byte offsets of the staged sections (ops/band_dp.py TopoStage; each
+// section [B, n] of its dtype) and the words the prologue writes
+struct StageArgs {
+  const unsigned char* st;
+  int o_scal, o_pre, o_pre_n, o_remain, o_mpl, o_mpr, o_bases, o_qcodes,
+      o_rowmask;
+  int* scal;          // [B, S_NSCAL]
+  int* ctrl;          // [B, R] base | pre_n<<5 | rowmask<<10 | remain<<16
+  int* pre;           // [B, R*P/2] predecessor rows, two a word
+  int* mplr0;         // [B, R] mpl | mpr<<16 (not fresh)
+  int* qpf;           // [B, m*KW1, WB] query-profile folds
+  int* bsn;           // outputs, zeroed
+  int* mplr;
+  int* misc;
+  long long* steps;   // [B, LS8]
+  int R, P, Wq, WB, m, LS8, delta, fresh;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* section(const StageArgs& a, int off,
+                                            size_t b, size_t n) {
+  return reinterpret_cast<const T*>(a.st + off) + b * n;
+}
+
+// one instance per blockIdx.x, its elements split over blockIdx.y and the
+// threads; every word as ops/band_dp.py _pack_topo and build_qpf compute
+// it (int32 wrap-around, sign-extended narrow inputs)
+__global__ void topo_stage_kernel(StageArgs a) {
+  const size_t b = blockIdx.x;
+  const int i0 = blockIdx.y * blockDim.x + threadIdx.x;
+  const int di = gridDim.y * blockDim.x;
+  const int R = a.R, P = a.P, m = a.m, SC = S_NSCAL + m * m;
+  const int* sc = section<int>(a, a.o_scal, b, SC);
+  for (int i = i0; i < S_NSCAL; i += di) a.scal[b * S_NSCAL + i] = sc[i];
+  for (int i = i0; i < M_NMISC; i += di) a.misc[b * M_NMISC + i] = 0;
+  const signed char* bases = section<signed char>(a, a.o_bases, b, R);
+  const short* pre_n = section<short>(a, a.o_pre_n, b, R);
+  const short* remain = section<short>(a, a.o_remain, b, R);
+  for (int t = i0; t < R; t += di) {
+    const unsigned rm =
+        a.fresh ? 1u
+                : (unsigned)(int)section<signed char>(a, a.o_rowmask, b, R)[t];
+    a.ctrl[b * R + t] = (int)((unsigned)(int)bases[t]
+                              | ((unsigned)(int)pre_n[t] << 5) | (rm << 10)
+                              | ((unsigned)(int)remain[t] << 16));
+    if (!a.fresh)
+      a.mplr0[b * R + t] =
+          (int)((unsigned)(int)section<short>(a, a.o_mpl, b, R)[t]
+                | ((unsigned)(int)section<short>(a, a.o_mpr, b, R)[t] << 16));
+    a.bsn[b * R + t] = 0;
+    a.mplr[b * R + t] = 0;
+  }
+  // predecessor rows two a word; uint8 deltas decode to max(t - d, 0)
+  const int nw = R * P / 2;
+  for (int k = i0; k < nw; k += di) {
+    int v0, v1;
+    if (a.delta) {
+      const unsigned char* d =
+          section<unsigned char>(a, a.o_pre, b, (size_t)R * P);
+      const int t = 2 * k / P;
+      v0 = max(t - (int)d[2 * k], 0);
+      v1 = max(t - (int)d[2 * k + 1], 0);
+    } else {
+      const short* s = section<short>(a, a.o_pre, b, (size_t)R * P);
+      v0 = s[2 * k];
+      v1 = s[2 * k + 1];
+    }
+    a.pre[b * nw + k] = (int)((unsigned)v0 | ((unsigned)v1 << 16));
+  }
+  // fold f = base * KW1 + k holds mat[base, code(col)] for the columns
+  // [k*WB, (k+1)*WB); the last fold of each base is zeros
+  const int KW1 = a.Wq / a.WB + 1, nq = m * KW1 * a.WB;
+  const signed char* qc = section<signed char>(a, a.o_qcodes, b, a.Wq);
+  for (int i = i0; i < nq; i += di) {
+    const int f = i / a.WB, l = i - f * a.WB;
+    const int base = f / KW1, k = f - base * KW1;
+    int v = 0;
+    if (k < KW1 - 1) {
+      const int code = qc[k * a.WB + l];
+      if ((unsigned)code < (unsigned)m) v = sc[S_NSCAL + base * m + code];
+    }
+    a.qpf[b * nq + i] = v;
+  }
+  for (int i = i0; i < a.LS8; i += di) a.steps[b * a.LS8 + i] = 0;
+}
+
 // the same number as ops/band_dp.py band_smem_bytes
 size_t band_smem_bytes(bool nid, int R, int P) {
   return sizeof(int) * ((size_t)(3 + (nid ? 1 : 0) + P / 2) * R + 227);
@@ -1040,25 +1139,84 @@ extern "C" int band_dp_launch(const int* scal, const int* ctrl,
   return launch<true>(a, B, stream);
 }
 
-// topo mode: global or extend, fresh (mplr0 == null) or not
-extern "C" int band_dp_topo_launch(const int* scal, const int* ctrl,
-                                   const int* pre, const int* mplr0,
-                                   const int* qpf, int* bsn_out,
-                                   int* mplr_out, int* misc,
-                                   long long* steps,
-                                   int* H, int* E1, int* E2, int* BT, int B,
-                                   int R, int WB, int Wq, int P, int pn,
-                                   int gap_mode, int LS, int m,
-                                   int align_mode, int zdrop_on,
-                                   void* stream) {
+// topo mode, staged: global or extend, fresh or not. `staged` holds the
+// inputs on the card (offsets o_*, ops/band_dp.py TopoStage); with `host`
+// set they are first copied there from host memory (nbytes, one
+// asynchronous copy: pinned memory does not block the caller). `ws`
+// takes the prologue's words: scal [B, S_NSCAL], ctrl [B, R], pre
+// [B, R*P/2], mplr0 [B, R], qpf [B, m*KW1, WB] (ops/band_dp.py
+// topo_ws_words). The prologue zeroes bsn, mplr, misc and steps
+// [B, max(LS, 8)].
+extern "C" int band_dp_topo_staged_launch(
+    const unsigned char* host, unsigned char* staged, size_t nbytes,
+    int* ws, int* bsn_out, int* mplr_out, int* misc, long long* steps,
+    int* H, int* E1, int* E2, int* BT, int o_scal, int o_pre, int o_pre_n,
+    int o_remain, int o_mpl, int o_mpr, int o_bases, int o_qcodes,
+    int o_rowmask, int B, int R, int WB, int Wq, int P, int pn, int gap_mode,
+    int LS, int m, int align_mode, int zdrop_on, int fresh, int delta,
+    void* stream) {
   using namespace abpoa;
   if (B <= 0) return 0;
   if (bad_geometry(WB, pn, MAX_WB) || P % 2 || P > MAX_P_TOPO || m > 31
-      || (align_mode != 0 && align_mode != 2))
+      || Wq % WB || (align_mode != 0 && align_mode != 2))
     return (int)cudaErrorInvalidValue;
-  BandArgs a{scal, ctrl, pre, nullptr, mplr0, qpf, misc, nullptr, steps,
-             bsn_out, mplr_out, H, E1, E2, BT,
+  cudaError_t err;
+  if (host) {
+    err = cudaMemcpyAsync(staged, host, nbytes, cudaMemcpyHostToDevice,
+                          (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t nb = B;
+  const int KW1 = Wq / WB + 1;
+  StageArgs s{staged, o_scal, o_pre, o_pre_n, o_remain, o_mpl, o_mpr,
+              o_bases, o_qcodes, o_rowmask, nullptr, nullptr, nullptr,
+              nullptr, nullptr, bsn_out, mplr_out, misc, steps,
+              R, P, Wq, WB, m, LS > 8 ? LS : 8, delta, fresh};
+  s.scal = ws;
+  s.ctrl = s.scal + nb * S_NSCAL;
+  s.pre = s.ctrl + nb * R;
+  s.mplr0 = s.pre + nb * R * (P / 2);
+  s.qpf = s.mplr0 + nb * R;
+  // enough blocks an instance that none takes more than ~2k elements
+  const size_t most = std::max({(size_t)m * KW1 * WB, (size_t)R * P / 2,
+                                 (size_t)R, (size_t)s.LS8});
+  const int ny = (int)std::min<size_t>(32, (most + 2047) / 2048);
+  topo_stage_kernel<<<dim3(B, ny), 256, 0, (cudaStream_t)stream>>>(s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  BandArgs a{s.scal, s.ctrl, s.pre, nullptr, fresh ? nullptr : s.mplr0,
+             s.qpf, misc, nullptr, steps, bsn_out, mplr_out, H, E1, E2, BT,
              R, WB, Wq, P, pn, __builtin_ctz(pn), gap_mode, LS, m,
              align_mode == 2, zdrop_on, wb_inv(WB)};
   return launch<false>(a, B, stream);
+}
+
+// a topo launch's results copied to host memory `dst` on `stream`, with
+// no gather kernel: misc [B, M_NMISC], then the first `cap` step words of
+// each instance [B, cap], then the first `nmax` band-state words (mpl |
+// mpr<<16) of each [B, nmax] (none when nmax is 0), each block
+// contiguous (ops/band_dp.py fetch_topo)
+extern "C" int band_dp_topo_fetch(unsigned char* dst, const int* misc,
+                                  const long long* steps, const int* mplr,
+                                  int B, int R, int LS8, int cap, int nmax,
+                                  void* stream) {
+  using namespace abpoa;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t nb = B;
+  cudaError_t err = cudaMemcpyAsync(dst, misc, nb * M_NMISC * sizeof(int),
+                                    cudaMemcpyDeviceToHost, st);
+  if (err != cudaSuccess) return (int)err;
+  dst += nb * M_NMISC * sizeof(int);
+  if (cap > 0) {
+    err = cudaMemcpy2DAsync(dst, cap * sizeof(long long), steps,
+                            LS8 * sizeof(long long), cap * sizeof(long long),
+                            B, cudaMemcpyDeviceToHost, st);
+    if (err != cudaSuccess) return (int)err;
+    dst += nb * cap * sizeof(long long);
+  }
+  if (nmax > 0)
+    err = cudaMemcpy2DAsync(dst, nmax * sizeof(int), mplr, R * sizeof(int),
+                            nmax * sizeof(int), B, cudaMemcpyDeviceToHost,
+                            st);
+  return (int)err;
 }

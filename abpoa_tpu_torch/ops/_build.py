@@ -29,11 +29,13 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 
 # source -> {exported C function: argtypes}; each returns the cudaError_t
-# of its launch as an int
+# of its launch (or copy) as an int
 SOURCES = {
     "band_dp": {
         "band_dp_launch": [_vp] * 11 + [_int] * 8 + [_vp],
-        "band_dp_topo_launch": [_vp] * 13 + [_int] * 11 + [_vp],
+        "band_dp_topo_staged_launch": [_vp] * 2 + [ctypes.c_size_t]
+                                      + [_vp] * 9 + [_int] * 22 + [_vp],
+        "band_dp_topo_fetch": [_vp] * 4 + [_int] * 5 + [_vp],
     },
     "graph_update": {
         "graph_update_launch": [_vp] * 16 + [_int] * 11 + [_vp],

@@ -6,10 +6,18 @@ loop: planes and control words indexed by node id, the sweep order from
 the packed i2n map, steps16 out) and ``band_poa_dp_batch`` (topo mode,
 the round-based path: planes and control words indexed by topological
 row, band state and rowmask as inputs, extend mode with z-drop, int64
-step words and steps16 out). One CUDA source, ``csrc/band_dp.cu``, holds
+step words out; ``steps16_compress`` where a caller reads the int16
+stream). One CUDA source, ``csrc/band_dp.cu``, holds
 both kernels over one row body; ``band_poa_dp_packed_ref`` and
 ``band_poa_dp_batch_ref`` are the plain PyTorch versions, batched over
 instances, sharing one implementation (``_band_ref``).
+
+A topo-mode launch on the card takes its inputs as one staged upload
+(``TopoStage``: each export column of every instance in its narrow
+dtype, one section each; ``stage_topo`` writes it on the host,
+``band_poa_dp_staged`` copies it with one copy and launches the
+prologue that widens it, then the band kernel). ``unstage_topo`` is the
+plain version of that prologue.
 
 What is computed, per instance: the adaptive-banded DP of one query
 against the graph in topological order, with H/E1/E2 planes whose lane
@@ -23,8 +31,10 @@ instances on the oracle.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..params import (GLOBAL_MODE, EXTEND_MODE, LINEAR_GAP, CONVEX_GAP,
@@ -59,13 +69,33 @@ class BandConfig(NamedTuple):
 
 
 class BandOut(NamedTuple):
-    beg_sn: torch.Tensor   # [B, R]
-    end_sn: torch.Tensor
-    mpl: torch.Tensor
-    mpr: torch.Tensor
+    """The topo kernel's outputs as it writes them; the unpacked fields
+    are computed where they are read."""
+    bsn: torch.Tensor      # [B, R] beg_sn | end_sn<<16
+    mplr: torch.Tensor     # [B, R] mpl | mpr<<16
     misc: torch.Tensor     # [B, M_NMISC]
     steps: torch.Tensor    # [B, max(bt_lmax, 8)] int64 op|row<<2|col<<32
-    steps16: torch.Tensor  # [B, max(bt_lmax, 8)] int16 delta stream
+
+    @property
+    def beg_sn(self):
+        return self.bsn & L.H16
+
+    @property
+    def end_sn(self):
+        return self.bsn >> 16
+
+    @property
+    def mpl(self):
+        return self.mplr & L.H16
+
+    @property
+    def mpr(self):
+        return self.mplr >> 16
+
+    @property
+    def steps16(self):
+        """[B, max(bt_lmax, 8)] int16 delta stream (``steps16_compress``)."""
+        return steps16_compress(self.steps, self.misc)
 
 
 def build_qpf(cfg: BandConfig, mat, qcodes: torch.Tensor) -> torch.Tensor:
@@ -229,20 +259,6 @@ def band_poa_dp_packed_ref(cfg: BandConfig, scal, ctrl, inp, i2nn, qpf):
 # ------------------------------------------------------------------ #
 # topo mode: the round-based path's entry
 
-def band_cells(cfg: BandConfig, scal, bsn, rowmask):
-    """Per-instance band cell count from the bsn (beg_sn|end_sn<<16)
-    output: swept rows are 1..n_rows-2, each contributing
-    (end_sn-beg_sn+1)*pn cells (the reference's DP-cell count). A fresh
-    call's rowmask may be a 1-element dummy: the mask is a subgraph
-    concept, all-ones there, and must not gate the count."""
-    tix = torch.arange(cfg.R, dtype=I32, device=bsn.device)[None, :]
-    live = (tix >= 1) & (tix <= scal[:, L.S_NROWS, None].to(I32) - 2)
-    if not cfg.fresh:
-        live = live & (rowmask.to(I32) > 0)
-    cells = torch.where(live, ((bsn >> 16) - (bsn & L.H16) + 1) * cfg.pn, 0)
-    return cells.sum(1).to(I32)
-
-
 def steps16_compress(st, misc):
     """The int16 delta stream of step words: i/j are non-increasing
     along the walk; a predecessor jump fits the 13-bit row decrement in
@@ -283,19 +299,143 @@ def _pack_topo(cfg: BandConfig, scal, bases, pre_idx, pre_n, remain,
     return scal, ctrl.contiguous(), pre, mplr0, qpf
 
 
-def _finish_topo(cfg: BandConfig, scal, rowmask, bsn, mplr, misc, steps):
-    if cfg.align_mode != EXTEND_MODE:
-        # extend counts cells in-kernel (z-drop can stop a sweep early)
-        misc[:, L.M_CELLS] = band_cells(cfg, scal, bsn, rowmask)
-    return BandOut(bsn & L.H16, bsn >> 16, mplr & L.H16, mplr >> 16, misc,
-                   steps, steps16_compress(steps, misc))
-
-
 def _check_topo(cfg: BandConfig, name: str):
     if cfg.nid or cfg.align_mode not in (GLOBAL_MODE, EXTEND_MODE):
         raise ValueError(f"{name}: topo mode runs global or extend "
                          f"alignments only ({cfg})")
     _check_geometry(cfg, name)
+
+
+# the staged layout: per section (name, index in the make_pallas_inputs
+# tuple, dtype, columns of its [B, n]), widest dtype first, so that each
+# section starts aligned to its dtype. rowmask, mpl and mpr only when not
+# fresh; pre as int16 rows, or as uint8 deltas (pred = t - delta)
+_NP32, _NP16, _NP8, _NPU8 = (np.dtype(t) for t in (np.int32, np.int16,
+                                                    np.int8, np.uint8))
+
+
+@functools.lru_cache(maxsize=256)
+def _sections(cfg: BandConfig, delta: bool):
+    R, P = cfg.R, cfg.P
+    pre = ("pre", 2, _NPU8 if delta else _NP16, R * P)
+    secs = [("scal", 0, _NP32, L.S_NSCAL + cfg.m * cfg.m)]
+    secs += [] if delta else [pre]
+    secs += [("pre_n", 3, _NP16, R), ("remain", 6, _NP16, R)]
+    if not cfg.fresh:
+        secs += [("mpl", 8, _NP16, R), ("mpr", 9, _NP16, R)]
+    secs += [pre] if delta else []
+    secs += [("bases", 1, _NP8, R), ("qcodes", 7, _NP8, cfg.Wq)]
+    if not cfg.fresh:
+        secs += [("rowmask", 10, _NP8, R)]
+    return tuple(secs)
+
+
+# the offsets the C entry takes, in its order (0: a section not staged)
+_STAGE_ARGS = ("scal", "pre", "pre_n", "remain", "mpl", "mpr", "bases",
+               "qcodes", "rowmask")
+
+
+class TopoStage(NamedTuple):
+    """Where one topo-mode launch's inputs lie in its staged bytes: the
+    export columns of B instances (out_idx and out_n are not staged),
+    each section [B, n] of one dtype at a byte offset (``_sections``)."""
+    B: int
+    delta: bool     # pre as uint8 deltas, else int16 rows
+    offsets: dict   # section name -> byte offset
+    nbytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def topo_stage(cfg: BandConfig, B: int, delta: bool) -> TopoStage:
+    """The staged layout of a launch of B instances (cached: a plan
+    launches its geometry again and again). Its int16 sections
+    hold rows, remain values and columns: R and Wq stay below 2^15 (B3's
+    shared memory and ``band_refusal``'s query limit keep them there)."""
+    if cfg.R >= 1 << 15 or cfg.Wq >= 1 << 15:
+        raise ValueError(f"topo_stage: R {cfg.R} and Wq {cfg.Wq} must stay "
+                         "below 2^15 (int16 sections)")
+    offsets, off = {}, 0
+    for name, _i, dt, n in _sections(cfg, delta):
+        offsets[name] = off
+        off += B * n * dt.itemsize
+    return TopoStage(B, delta, offsets, off)
+
+
+def stage_topo(cfg: BandConfig, st: TopoStage, arrs, out: np.ndarray):
+    """Write the inputs of ``st.B`` instances into `out` (uint8, at least
+    ``st.nbytes``): arrs[b] is instance b's ``make_pallas_inputs`` tuple
+    of flat arrays (or its row of each stacked array). Each section is
+    one copy; a column in another dtype is cast (wrapping) to the
+    section's."""
+    for name, i, dt, n in _sections(cfg, st.delta):
+        if arrs[0][i].shape != (n,):
+            raise ValueError(f"stage_topo: {name}: shape "
+                             f"{arrs[0][i].shape}, expected ({n},)")
+        off = st.offsets[name]
+        np.concatenate([a[i] for a in arrs], casting="unsafe",
+                       out=out[off:off + st.B * n * dt.itemsize].view(dt))
+
+
+def _stage_tensors(cfg: BandConfig, cols):
+    """The staged bytes of stacked input tensors (the 11-tuple of
+    ``band_poa_dp_batch``) on their own device: (TopoStage, uint8
+    tensor). The entry for inputs that are already on the card."""
+    B = cols[1].shape[0]
+    st = topo_stage(cfg, B, cols[2].dtype == torch.uint8)
+    tdt = {np.dtype(np.int32): torch.int32, np.dtype(np.int16): torch.int16,
+           np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8}
+    parts = [cols[i].reshape(B, n).to(tdt[dt]).reshape(-1).view(torch.uint8)
+             for _name, i, dt, n in _sections(cfg, st.delta)]
+    return st, torch.cat(parts)
+
+
+def unstage_topo(cfg: BandConfig, st: TopoStage, buf):
+    """Plain version of the prologue (``csrc/band_dp.cu``
+    ``topo_stage_kernel``): the kernel's int32 inputs from staged bytes
+    (numpy uint8 or a CPU tensor). Returns (scal, ctrl, pre, mplr0,
+    qpf) as ``_pack_topo`` does; mplr0 is None when fresh."""
+    buf = np.asarray(buf)
+    B, R, P, m, WB, Wq = st.B, cfg.R, cfg.P, cfg.m, cfg.WB, cfg.Wq
+    i32 = np.int32
+
+    def sec(name):
+        _n, _i, dt, n = next(x for x in _sections(cfg, st.delta)
+                             if x[0] == name)
+        off = st.offsets[name]
+        return buf[off:off + B * n * dt.itemsize].view(dt).reshape(B, n)
+    full = sec("scal").astype(i32)
+    scal = np.ascontiguousarray(full[:, :L.S_NSCAL])
+    rm = i32(1) if cfg.fresh else sec("rowmask").astype(i32)
+    ctrl = (sec("bases").astype(i32) | (sec("pre_n").astype(i32) << 5)
+            | (rm << 10) | (sec("remain").astype(i32) << 16))
+    pi = sec("pre").astype(i32).reshape(B, R, P)
+    if st.delta:
+        pi = np.maximum(np.arange(R, dtype=i32)[None, :, None] - pi, 0)
+    pi = pi.reshape(B, R * P // 2, 2)
+    pre = pi[:, :, 0] | (pi[:, :, 1] << 16)
+    mplr0 = None if cfg.fresh else torch.from_numpy(
+        sec("mpl").astype(i32) | (sec("mpr").astype(i32) << 16))
+    KW = Wq // WB
+    codes = sec("qcodes").astype(i32)
+    valid = (codes >= 0) & (codes < m)
+    mat = full[:, L.S_NSCAL:].reshape(B, m, m)
+    qp = np.take_along_axis(
+        mat, np.broadcast_to(np.where(valid, codes, 0)[:, None, :],
+                             (B, m, Wq)), axis=2)
+    qp = np.where(valid[:, None, :], qp, 0).reshape(B, m, KW, WB)
+    qpf = np.concatenate([qp, np.zeros((B, m, 1, WB), i32)], axis=2)
+    return (torch.from_numpy(scal), torch.from_numpy(ctrl),
+            torch.from_numpy(np.ascontiguousarray(pre)), mplr0,
+            torch.from_numpy(qpf.reshape(B, m * (KW + 1), WB)))
+
+
+def topo_ws_words(cfg: BandConfig, B: int) -> int:
+    """int32 words of the prologue's output on the card: scal, ctrl,
+    predecessor halves, mplr0 and the query-profile folds (the same
+    number as ``band_dp_topo_staged_launch`` lays out)."""
+    KW1 = cfg.Wq // cfg.WB + 1
+    return B * (L.S_NSCAL + 2 * cfg.R + cfg.R * cfg.P // 2
+                + cfg.m * KW1 * cfg.WB)
 
 
 def band_poa_dp_batch(cfg: BandConfig, scal, bases, pre_idx, pre_n,
@@ -308,8 +448,9 @@ def band_poa_dp_batch(cfg: BandConfig, scal, bases, pre_idx, pre_n,
     (node-id mode only). Rows at or past n_rows of beg/end_sn and
     mpl/mpr are not part of the result.
 
-    CUDA tensors launch ``csrc/band_dp.cu`` (topo kernel); CPU tensors
-    run the plain version."""
+    CPU tensors run the plain version. CUDA tensors are staged on the
+    card (``_stage_tensors``) and launch ``band_poa_dp_staged``; the
+    batch path stages on the host instead (``stage_topo``)."""
     _check_topo(cfg, "band_poa_dp_batch")
     dev = bases.device
     if dev.type == "cpu":
@@ -318,46 +459,120 @@ def band_poa_dp_batch(cfg: BandConfig, scal, bases, pre_idx, pre_n,
                                      mpr0, rowmask)
     if dev.type != "cuda":
         raise ValueError(f"band_poa_dp_batch: unsupported device {dev}")
-    scal_, ctrl, pre, mplr0, qpf = _pack_topo(
-        cfg, scal, bases, pre_idx, pre_n, remain, qcodes, mpl0, mpr0,
-        rowmask)
-    B, R = ctrl.shape[0], cfg.R
-    KW1 = cfg.Wq // cfg.WB + 1
-    want = {"scal": (scal_, (B, L.S_NSCAL)), "ctrl": (ctrl, (B, R)),
-            "pre": (pre, (B, R * cfg.P // 2)),
-            "qpf": (qpf, (B, cfg.m * KW1, cfg.WB))}
-    if mplr0 is not None:
-        want["mplr0"] = (mplr0, (B, R))
-    _check_tensors("band_poa_dp_batch", want, dev)
-    LS = max(cfg.bt_lmax, 8)
-    bsn = torch.zeros(B, R, dtype=I32, device=dev)
-    mplr = torch.zeros(B, R, dtype=I32, device=dev)
-    misc = torch.zeros(B, L.M_NMISC, dtype=I32, device=dev)
-    steps = torch.zeros(B, LS, dtype=torch.int64, device=dev)
-    H, E1, E2, BT = _planes(cfg, B, dev)
-    lib = library("band_dp")
+    cols = (scal, bases, pre_idx, pre_n, out_idx, out_n, remain, qcodes,
+            mpl0, mpr0, rowmask)
+    st, staged = _stage_tensors(cfg, cols)
+    return band_poa_dp_staged(cfg, st, staged, dev)
+
+
+def _align(n: int) -> int:
+    return (n + 255) // 256 * 256
+
+
+def band_poa_dp_staged(cfg: BandConfig, st: TopoStage, staged, dev):
+    """The topo-mode DP + walk of ``st.B`` instances from their staged
+    bytes (a uint8 tensor; on the card's path pinned host memory, copied
+    to the card with one asynchronous copy on the current stream and
+    counted in ``band_poa_dp_batch.uploads``, or already on the card).
+    On the card: the copy, the prologue and the band kernel, enqueued by
+    one call of the library. On the CPU: the plain prologue
+    (``unstage_topo``) and the plain kernel. Returns a ``BandOut``. A
+    staged host buffer must not be rewritten before the stream has
+    passed the launch."""
+    _check_topo(cfg, "band_poa_dp_staged")
+    dev = torch.device(dev)
+    B, R = st.B, cfg.R
+    if dev.type == "cpu":
+        scal, ctrl, pre, mplr0, qpf = unstage_topo(cfg, st, staged)
+        return BandOut(*_band_ref(cfg, scal, ctrl, pre, qpf, mplr0=mplr0))
+    if dev.type != "cuda":
+        raise ValueError(f"band_poa_dp_staged: unsupported device {dev}")
+    if staged.dtype != torch.uint8 or staged.numel() < st.nbytes:
+        raise ValueError("band_poa_dp_staged: staged must be uint8 of at "
+                         f"least {st.nbytes} bytes")
+    upload = staged.device.type == "cpu"
+    if not upload and staged.device != dev:
+        raise ValueError(f"band_poa_dp_staged: staged on {staged.device}, "
+                         f"expected {dev}")
+    # one scratch allocation: the staged copy, the prologue's words and
+    # the planes (H, E1 (affine/convex), E2 (convex), backtrack bits)
+    plane = B * R * cfg.WB * 4
+    nplanes = band_nplanes(cfg.gap_mode)
+    o_ws = _align(st.nbytes) if upload else 0
+    o_pl = o_ws + _align(topo_ws_words(cfg, B) * 4)
+    scratch = torch.empty(o_pl + nplanes * plane, dtype=torch.uint8,
+                          device=dev)
+    base = scratch.data_ptr()
+    H, BT = base + o_pl, base + o_pl + (nplanes - 1) * plane
+    E1 = base + o_pl + plane if nplanes >= 3 else H
+    E2 = base + o_pl + 2 * plane if nplanes == 4 else H
+    bsn = torch.empty(B, R, dtype=I32, device=dev)
+    mplr = torch.empty(B, R, dtype=I32, device=dev)
+    misc = torch.empty(B, L.M_NMISC, dtype=I32, device=dev)
+    steps = torch.empty(B, max(cfg.bt_lmax, 8), dtype=torch.int64,
+                        device=dev)
+    offs = [st.offsets.get(k, 0) for k in _STAGE_ARGS]
     with torch.cuda.device(dev):
-        rc = lib.band_dp_topo_launch(
-            scal_.data_ptr(), ctrl.data_ptr(), pre.data_ptr(),
-            mplr0.data_ptr() if mplr0 is not None else None,
-            qpf.data_ptr(), bsn.data_ptr(), mplr.data_ptr(),
-            misc.data_ptr(), steps.data_ptr(), H.data_ptr(), E1.data_ptr(),
-            E2.data_ptr(), BT.data_ptr(), B, R, cfg.WB, cfg.Wq, cfg.P,
-            cfg.pn, cfg.gap_mode, cfg.bt_lmax, cfg.m, cfg.align_mode,
-            int(cfg.use_zdrop),
+        rc = library("band_dp").band_dp_topo_staged_launch(
+            staged.data_ptr() if upload else None,
+            base if upload else staged.data_ptr(), st.nbytes, base + o_ws,
+            bsn.data_ptr(), mplr.data_ptr(), misc.data_ptr(),
+            steps.data_ptr(), H, E1, E2, BT, *offs, B, R, cfg.WB, cfg.Wq,
+            cfg.P, cfg.pn, cfg.gap_mode, cfg.bt_lmax, cfg.m, cfg.align_mode,
+            int(cfg.use_zdrop), int(cfg.fresh), int(st.delta),
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "band_dp_topo")
+    band_poa_dp_batch.uploads += int(upload)
     band_poa_dp_batch.launches += 1
     band_poa_dp_batch.wide_launches += int(band_cpt(cfg.WB) == 4)
     band_poa_dp_batch.fan_launches += int(cfg.P > FAN_P)
-    return _finish_topo(cfg, scal_, rowmask, bsn, mplr, misc, steps)
+    return BandOut(bsn, mplr, misc, steps)
+
+
+def fetch_bytes(B: int, cap: int, nmax: int) -> int:
+    """Host bytes ``fetch_topo`` fills: misc, `cap` step words and `nmax`
+    band-state words of B instances."""
+    return B * (L.M_NMISC * 4 + cap * 8 + nmax * 4)
+
+
+def fetch_topo(out: BandOut, cap: int, nmax: int, host=None, at=0):
+    """What the host reads of a launch: misc, the first `cap` step words
+    and the first `nmax` band-state words (mpl | mpr<<16) of each
+    instance, as numpy arrays (misc [B, M_NMISC], steps [B, cap], mplr
+    [B, nmax]). On the card: their copies into pinned host memory (the
+    uint8 tensor `host` from byte `at`, ``fetch_bytes`` long, 8-aligned;
+    by default a new buffer), enqueued on the current stream by one call
+    of the library (no gather kernel); the arrays are views of it, to be
+    read once the stream has passed this point. On the CPU: views of
+    `out`."""
+    misc, steps, mplr = out.misc, out.steps, out.mplr
+    if misc.device.type == "cpu":
+        return [misc.numpy(), steps[:, :cap].numpy(),
+                mplr[:, :nmax].numpy()]
+    B, R = mplr.shape
+    if host is None:
+        host = torch.empty(fetch_bytes(B, cap, nmax), dtype=torch.uint8,
+                           pin_memory=True)
+    rc = library("band_dp").band_dp_topo_fetch(
+        host.data_ptr() + at, misc.data_ptr(), steps.data_ptr(),
+        mplr.data_ptr(), B, R, steps.shape[1], cap, nmax,
+        torch.cuda.current_stream(misc.device).cuda_stream)
+    check_launch(rc, "band_dp_topo_fetch")
+    o1 = at + B * L.M_NMISC * 4
+    o2 = o1 + B * cap * 8
+    h = host.numpy()
+    return [h[at:o1].view(np.int32).reshape(B, L.M_NMISC),
+            h[o1:o2].view(np.int64).reshape(B, cap),
+            h[o2:o2 + B * nmax * 4].view(np.int32).reshape(B, nmax)]
 
 
 # launches of the topo kernel; of its instances of four positions a thread
-# (bands past 1024 lanes); of launches past 16 predecessor slots
+# (bands past 1024 lanes); of launches past 16 predecessor slots; the
+# host-to-device copies of their inputs (one a launch staged on the host)
 band_poa_dp_batch.launches = 0
 band_poa_dp_batch.wide_launches = 0
 band_poa_dp_batch.fan_launches = 0
+band_poa_dp_batch.uploads = 0
 
 
 def band_poa_dp_batch_ref(cfg: BandConfig, scal, bases, pre_idx, pre_n,
@@ -369,9 +584,7 @@ def band_poa_dp_batch_ref(cfg: BandConfig, scal, bases, pre_idx, pre_n,
     scal_, ctrl, pre, mplr0, qpf = _pack_topo(
         cfg, scal, bases, pre_idx, pre_n, remain, qcodes, mpl0, mpr0,
         rowmask)
-    bsn, mplr, misc, steps = _band_ref(cfg, scal_, ctrl, pre, qpf,
-                                       mplr0=mplr0)
-    return _finish_topo(cfg, scal_, rowmask, bsn, mplr, misc, steps)
+    return BandOut(*_band_ref(cfg, scal_, ctrl, pre, qpf, mplr0=mplr0))
 
 
 # ------------------------------------------------------------------ #

@@ -400,7 +400,7 @@ def device_round(cfg: LoopConfig, st: GState, i2n, n2i, remain, qcodes,
     (fresh band state), ``fuse_batch``, the standalone Kahn sort
     (``ops/topo.py``) and ``remain_ref``, with a failed sort setting
     the fail flag. Returns (GState, i2n, n2i, remain, misc, steps16)."""
-    from .band_dp import band_poa_dp_batch, build_qpf
+    from .band_dp import band_poa_dp_batch, build_qpf, steps16_compress
     from .graph_update import remain_ref
     from .topo import topo_batch
     bc = band_config(cfg)
@@ -427,7 +427,8 @@ def device_round(cfg: LoopConfig, st: GState, i2n, n2i, remain, qcodes,
     i2n2, n2i2, ok = topo_batch(cfg, st2)
     fail = (st2.fail > 0) | (~ok & (qlen.to(I32) > 0))
     st2 = st2._replace(fail=fail.to(I32))
-    return st2, i2n2, n2i2, remain_ref(cfg, st2), out.misc, out.steps16
+    return (st2, i2n2, n2i2, remain_ref(cfg, st2), out.misc,
+            steps16_compress(out.steps, out.misc))
 
 
 __all__ = ["LoopConfig", "GState", "PackedState", "pack_state",

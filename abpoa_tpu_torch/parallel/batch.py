@@ -480,9 +480,26 @@ class BatchPOA:
         self.precompute_cons = False   # consensus inside the replay pool
         self.s16_cap = None        # forced step-stream fetch cap (tests:
         #                            exercises the over-cap refetch)
+        # per lane: the pinned buffer its band launches stage their inputs
+        # in and fetch their results to, and the event of its last launch
+        self._staging = {}
         self._weights = None       # per-instance per-read qv weights
         self._rid0 = []
         self._lock = threading.Lock()
+
+    def _stage_buffer(self, sh, nbytes):
+        """Lane `sh`'s staging buffer of at least nbytes (pinned on the
+        card's path), once the lane's last launch is done (its fetched
+        arrays are read before the lane launches again)."""
+        if sh.dev.type != "cuda":
+            return torch.empty(nbytes, dtype=torch.uint8)
+        buf, ev = self._staging.get(sh, (None, None))
+        if ev is not None:
+            ev.synchronize()
+        if buf is None or buf.numel() < nbytes:
+            size = max(nbytes, 2 * buf.numel() if buf is not None else 0)
+            buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        return buf
 
     def _lanes(self, n_shards):
         """The device entries of each of `n_shards` pipeline shards. One
@@ -755,6 +772,8 @@ class _Job:
         return [self._launch(sh, part) for sh, part in filter(None, wave)]
 
     def _launch(self, sh, part):
+        if self.plan.band:
+            return self._launch_band(sh, part)
         with trace.span("abpoa.dispatch", part.stop - part.start):
             bp, plan = self.bp, self.plan
             t0 = time.perf_counter()
@@ -777,6 +796,46 @@ class _Job:
                         start=start, t0=t0, t_done=time.perf_counter(),
                         out=out, inputs=inputs)
 
+    def _launch_band(self, sh, part):
+        """A band plan's launch: the export columns of instances `part`
+        written into the lane's pinned buffer in the staged layout
+        (``band_dp.TopoStage``), one upload, the prologue and B3
+        (``band_dp.band_poa_dp_staged``), then one call that enqueues the
+        fetch of misc, the capped step words and, for windows, the packed
+        band state into the same buffer past the staged bytes
+        (``band_dp.fetch_topo``), and the launch's event."""
+        with trace.span("abpoa.dispatch", part.stop - part.start):
+            bp, plan = self.bp, self.plan
+            t0 = time.perf_counter()
+            start = ev = None
+            arrs = plan.arrs[part]
+            nmax = (max(d.n_rows for d in self.dgs[part]) if self.seeded
+                    else 0)
+            st = band_dp.topo_stage(plan.cfg, len(arrs),
+                                    arrs[0][2].dtype == np.uint8)
+            at = (st.nbytes + 7) // 8 * 8
+            with _on(sh):
+                if sh.dev.type == "cuda":
+                    start = bp.clock.mark(sh.dev)
+                staged = bp._stage_buffer(sh, at + band_dp.fetch_bytes(
+                    len(arrs), self.step_cap, nmax))
+                band_dp.stage_topo(plan.cfg, st, arrs, staged.numpy())
+                out = band_dp.band_poa_dp_staged(plan.cfg, st, staged,
+                                                 sh.dev)
+                host = band_dp.fetch_topo(out, self.step_cap, nmax, staged,
+                                          at)
+                if sh.dev.type == "cuda":
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record(torch.cuda.current_stream(sh.dev))
+                    bp._staging[sh] = (staged, ev)
+            bp.launches[plan.name] += 1
+            self.rec["launches"][plan.name] += 1
+            bp.h2d_bytes += st.nbytes
+            bp.d2h_bytes += sum(h.nbytes for h in host)
+            return dict(shard=sh, group=self.group[part], host=host, ev=ev,
+                        start=start, t0=t0, t_done=time.perf_counter(),
+                        out=out, inputs=staged, band=True)
+
     def collect(self):
         while self.handles:
             for h in self.handles:
@@ -795,17 +854,21 @@ class _Job:
             empty = np.zeros((n, 0), np.int64)
             return dict(group=h["group"], r=self.r, misc=misc, steps=empty,
                         steps_dev=None, shard=None, mpl=empty, mpr=empty)
+        band = h.get("band", False)
         with trace.span("abpoa.wait"):
             if h["ev"] is not None:
                 h["ev"].synchronize()
-            host = [x.numpy() for x in h["host"]]
+            host = h["host"] if band else [x.numpy() for x in h["host"]]
         if h["ev"] is not None:
             t0, t1 = bp.clock.interval(h["shard"].dev, h["start"], h["ev"])
         else:
             t0, t1 = h["t0"], h["t_done"]
         pend = dict(group=h["group"], r=self.r, misc=host[0], steps=host[1],
                     steps_dev=h["out"].steps, shard=h["shard"])
-        if self.seeded:
+        if self.seeded and band:
+            # the band kernel's packed state, mpl | mpr<<16
+            pend["mpl"], pend["mpr"] = host[2] & L.H16, host[2] >> 16
+        elif self.seeded:
             pend["mpl"], pend["mpr"] = host[2], host[3]
         bp.dp_seconds += t1 - t0
         bp.dp_intervals.append((t0, t1))

@@ -4,13 +4,26 @@ interpret=True), on the export tuples of real rounds: seq.fa graphs of
 4-5 reads, G=1, one padded geometry per case so the JAX kernel compiles
 once. Cases: global (convex), extend with z-drop on a query whose tail
 diverges, affine, linear, and a non-fresh call with band-state hints and
-a partial rowmask. On a GPU, the CUDA topo kernel against the plain
-version. Exact equality: misc (M_LASTI is node-id mode only), the steps
-as (op, row, col) triples (the JAX package's int32 words, the port's
-int64 words) and the steps16 stream up to M_NSTEPS, beg/end_sn and
-mpl/mpr on rows < n_rows. The affine and linear cases are in
+a partial rowmask. Exact equality: misc (M_LASTI is node-id mode only),
+the steps as (op, row, col) triples (the JAX package's int32 words, the
+port's int64 words) and the steps16 stream up to M_NSTEPS, beg/end_sn
+and mpl/mpr on rows < n_rows. The affine and linear cases are in
 test_torch_band_topo_gaps.py (each JAX compile takes ~15 s on one core).
+
+The staged layout of a launch (band_dp.TopoStage), on the CPU: the
+plain prologue (unstage_topo) gives back _pack_topo's scal, ctrl,
+predecessor words and mplr0 and build_qpf's folds from the bytes the
+batch path stages, on a seeded window round of test_torch_seeded's
+heter.fa instances (fresh and not, uint8-delta and int16 predecessors,
+16 and 30 slots), and the staging of stacked tensors writes the same
+bytes.
+
+On a GPU, the CUDA topo kernel against the plain version through both
+staged routes (inputs staged on the card, and staged in pinned host
+memory and uploaded), plus a non-fresh extend case with z-drop: misc,
+steps, bsn and mplr bit-equal in full.
 """
+import functools
 import pathlib
 
 import numpy as np
@@ -49,7 +62,7 @@ def _params(case):
     gap = case if case in GAPS else "convex"
     if GAPS[gap] is not None:
         (p.gap_open1, p.gap_ext1, p.gap_open2, p.gap_ext2) = GAPS[gap]
-    if case == "extend":
+    if case.endswith("extend"):
         p.align_mode = EXTEND_MODE
         p.zdrop = 20
     return p.post_set()
@@ -67,7 +80,7 @@ def _rounds(case, n_reads=4):
     params = _params(case)
     reads = _reads("seq.fa", n_reads)
     rng = np.random.default_rng(7)
-    if case == "extend":
+    if case.endswith("extend"):
         # a diverging tail: the extension stops on z-drop
         reads = [np.concatenate([q[:len(q) // 2],
                                  rng.integers(0, 4, len(q) // 2)
@@ -89,7 +102,7 @@ def _rounds(case, n_reads=4):
         cfg, arrs = make_pallas_inputs(dg, params, WB, force_Wq=WqB,
                                        bt_lmax=LMAX)
         arrs = [a[None] for a in arrs]
-        if case == "nonfresh":
+        if case.startswith("nonfresh"):
             n = dg.n_rows
             t = np.arange(R_PAD)
             hint = np.clip(t * dg.qlen // max(n - 1, 1)
@@ -166,16 +179,34 @@ def check_ref_equals_jax(case):
         assert stopped  # z-drop cut at least one sweep short
 
 
+def _assert_bits(k, r, what):
+    """Two BandOuts bit-equal in every word of misc, steps, bsn, mplr."""
+    for f in ("misc", "steps", "bsn", "mplr"):
+        assert torch.equal(getattr(k, f).cpu(), getattr(r, f).cpu()), \
+            (what, f)
+
+
 def check_kernel_equals_ref(case, cuda_device):
+    """The kernel through both staged routes against the plain version:
+    the inputs on the card (staged there), and staged in pinned host
+    memory as the batch path stages them (one upload a launch)."""
     from abpoa_tpu_torch.ops import band_dp as tbd
-    fresh = case != "nonfresh"
+    fresh = not case.startswith("nonfresh")
     for cfg, arrs, n in _rounds(case):
         pc = _port_cfg(cfg, fresh)
         args = [torch.from_numpy(a).to(cuda_device) for a in arrs]
         k = tbd.band_poa_dp_batch(pc, *args)
         r = tbd.band_poa_dp_batch_ref(pc, *args)
+        st = tbd.topo_stage(pc, 1, False)
+        buf = torch.empty(st.nbytes, dtype=torch.uint8, pin_memory=True)
+        tbd.stage_topo(pc, st, [tuple(a[0] for a in arrs)], buf.numpy())
+        up = tbd.band_poa_dp_batch.uploads
+        h = tbd.band_poa_dp_staged(pc, st, buf, cuda_device)
         torch.cuda.synchronize()
+        assert tbd.band_poa_dp_batch.uploads == up + 1
         _assert_same(k, r, n, case)
+        _assert_bits(k, r, case)
+        _assert_bits(h, r, case)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -184,6 +215,94 @@ def test_band_topo_ref_equals_jax_interpret(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + ["nonfresh_extend"])
 def test_band_topo_kernel_equals_ref_on_gpu(case, cuda_device):
     check_kernel_equals_ref(case, cuda_device)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_plan():
+    """The band plan of a seeded window round: ``BatchPOA.run_seeded`` on
+    the CPU over test_torch_seeded's config-5-shaped heter.fa instances
+    (two of four reads), up to the first band plan whose windows hold a
+    node of three or more predecessors."""
+    from unittest import mock
+    from abpoa_tpu_torch import BatchPOA
+    from abpoa_tpu_torch.parallel import batch
+    from abpoa_tpu_torch.params import Params
+    from test_torch_seeded import _config5, _reads as heter_reads
+
+    class Planned(Exception):
+        pass
+    plans, round_plan = [], batch.round_plan
+
+    def plan_once(*args, **kw):
+        plan = round_plan(*args, **kw)
+        plans.append(plan)
+        if plan.band and max(x[3].max() for x in plan.arrs) >= 3:
+            raise Planned
+        return plan
+    p = Params()
+    p.disable_seeding = False
+    insts = _config5(heter_reads("heter.fa")[:4], 2)
+    with mock.patch.object(batch, "round_plan", plan_once), \
+            pytest.raises(Planned):
+        BatchPOA(p.post_set(), device="cpu").run_seeded(insts)
+    return plans[-1]
+
+
+def _deltas(arrs, R, P):
+    """The predecessor rows as uint8 deltas (pred = t - delta, invalid
+    slots 0), as the JAX package ships them when all fit a byte."""
+    out = []
+    for a in arrs:
+        pi = a[2].reshape(R, P).astype(np.int64)
+        valid = np.arange(P)[None, :] < a[3][:, None]
+        d = np.where(valid, np.arange(R)[:, None] - pi, 0)
+        assert 0 <= d.min() and d.max() <= 255
+        out.append(a[:2] + (d.reshape(-1).astype(np.uint8),) + a[3:])
+    return out
+
+
+@pytest.mark.parametrize("P", [16, 30])
+@pytest.mark.parametrize("pre", ["int16", "uint8_delta"])
+@pytest.mark.parametrize("fresh", [True, False], ids=["fresh", "nonfresh"])
+def test_staged_layout_decodes_to_pack_topo(fresh, pre, P):
+    from abpoa_tpu_torch.ops import band_dp as tbd
+    plan = _window_plan()
+    cfg = plan.cfg._replace(P=P, fresh=fresh)
+    R, P0 = cfg.R, plan.cfg.P
+    # the window's predecessor slots padded to P (empty slots hold 0)
+    arrs = [a[:2] + (np.pad(a[2].reshape(R, P0),
+                            ((0, 0), (0, P - P0))).reshape(-1),) + a[3:]
+            for a in plan.arrs]
+    if pre == "uint8_delta":
+        arrs = _deltas(arrs, R, P)
+    if not fresh:
+        # band-state hints and a masked stripe over the export's (a
+        # window's rows start reachable, with the post-sort band state)
+        rng = np.random.default_rng(11)
+        for b, a in enumerate(arrs):
+            n = int(a[0][1])
+            mpl = a[8].copy()
+            mpl[1:n] = rng.integers(0, 700, n - 1)
+            rowmask = a[10].copy()
+            rowmask[5:n - 5:7] = 0
+            arrs[b] = a[:8] + (mpl, np.minimum(mpl + 9, 700).astype(
+                a[9].dtype), rowmask)
+    B = len(arrs)
+    st = tbd.topo_stage(cfg, B, pre == "uint8_delta")
+    buf = np.full(st.nbytes + 16, 0xA5, dtype=np.uint8)
+    tbd.stage_topo(cfg, st, arrs, buf)
+    cols = [torch.from_numpy(np.stack([a[i] for a in arrs]))
+            for i in range(11)]
+    want = tbd._pack_topo(cfg, *cols[:4], *cols[6:])
+    got = tbd.unstage_topo(cfg, st, buf)
+    for name, w, g in zip(("scal", "ctrl", "pre", "mplr0", "qpf"), want,
+                          got):
+        if w is None:
+            assert g is None and fresh, name
+        else:
+            assert g.dtype == torch.int32 and torch.equal(w, g), name
+    st2, staged = tbd._stage_tensors(cfg, cols)
+    assert st2 == st and (staged.numpy() == buf[:st.nbytes]).all()

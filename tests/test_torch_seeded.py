@@ -245,12 +245,17 @@ def test_seeded_cli_golden_on_gpu(golden, args, cuda_device, monkeypatch):
 @pytest.mark.gpu
 def test_run_seeded_on_gpu(cuda_device):
     """Config-5-shaped instances of heter.fa through the window rounds on
-    the card equal the serial oracle of their trim class."""
+    the card equal the serial oracle of their trim class. Every window
+    round is a B3 launch staged in one upload, and a launch runs at most
+    two kernels (the prologue and B3) by the profiler's count."""
     import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from abpoa_tpu_torch import BatchPOA
     from abpoa_tpu_torch.api import ABPOA
     from abpoa_tpu_torch.consensus import generate_consensus
     from abpoa_tpu_torch.alphabet import decode_table
+    from abpoa_tpu_torch.ops.band_dp import band_poa_dp_batch as b3
     p = _params(["-S"], "numpy")
     insts = _config5(_reads("heter.fa"), 10)
     dt = decode_table(5)
@@ -262,5 +267,19 @@ def test_run_seeded_on_gpu(cuda_device):
         exp.append([bytes(dt[b] for b in s).decode()
                     for s in ab.cons.cons_base[:ab.cons.n_cons]])
     bp = BatchPOA(dataclasses.replace(p, engine="torch"), device="cuda")
-    assert bp.run_consensus(insts, seeded=True) == exp * 2
+    n0, u0 = b3.launches, b3.uploads
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = bp.run_consensus(insts, seeded=True)
+        torch.cuda.synchronize()
+    assert got == exp * 2
     assert bp.fallbacks == 0 and bp.launches["tile_dp"] == 0
+    launches = b3.launches - n0
+    assert launches == bp.launches["band_dp_topo"] > 0
+    assert bp.launches["fw_dp"] == 0
+    assert b3.uploads - u0 == launches
+    kernels = [e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.is_user_annotation()
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    assert 0 < len(kernels) <= 2 * launches, kernels[:8]
