@@ -227,6 +227,7 @@ class _Shard(NamedTuple):
     stream: object     # its own torch.cuda.Stream; None: the device's
     #                    current stream (one device, no list) or the CPU
     in_flight: int     # shards of the list on the same card
+    entry: int         # its index in the list (``BatchPOA.shards``)
 
 
 @contextlib.contextmanager
@@ -241,6 +242,20 @@ def _on(shard: _Shard):
         stream = shard.stream or torch.cuda.current_stream(shard.dev)
         with torch.cuda.stream(stream):
             yield
+
+
+def _union_s(intervals) -> float:
+    """Length of the union of (t0, t1) intervals."""
+    total = 0.0
+    end = float("-inf")
+    for t0, t1 in sorted(intervals):
+        if t0 > end:
+            total += t1 - t0
+            end = t1
+        elif t1 > end:
+            total += t1 - end
+            end = t1
+    return total
 
 
 def _enqueue_fetch(shard: _Shard, tensors):
@@ -431,6 +446,21 @@ class BatchPOA:
     of its own (see the module docstring).
     pipeline: overlap host work with device rounds, as the JAX package
     does (see the module docstring); False runs every round in lockstep.
+
+    ``shards`` holds one record per entry of the device list, summed over
+    the runs of this BatchPOA: ``device``; ``instances``, the instances
+    its launches carried (a round group counts once per round, a seeded
+    window round once per window); ``busy_s``, the union of its launches'
+    device phases, the intervals that also go into ``dp_intervals``
+    (event-timed on a card, from the timing event before the upload to
+    the fetch's event; the host clock on the CPU: a phase spans the
+    whole launch, so it also counts the time the card waits for the
+    host to enqueue the launch's kernels); ``launched_s``, host
+    seconds from the start of the run's rounds (on the device loop its
+    first sub-batch's export) to the end of the entry's last enqueue, 0
+    for an entry with no launch. They are read from what the paths
+    already record: no event, synchronisation or launch is added for
+    them.
     """
 
     N_SHARDS = 4      # pipeline shards of the round path at most
@@ -454,11 +484,13 @@ class BatchPOA:
         on_card = Counter(d for d in devs if d.type == "cuda")
         self._shards = [_Shard(d, torch.cuda.Stream(d)
                                if devices is not None and d.type == "cuda"
-                               else None, on_card.get(d, 1))
-                        for d in devs]
-        # per shard: its device and the instances it ran, summed over
-        # the launches of the run (a round group counts once per round)
-        self.shards = [{"device": str(d), "instances": 0} for d in devs]
+                               else None, on_card.get(d, 1), i)
+                        for i, d in enumerate(devs)]
+        self.shards = [{"device": str(d), "instances": 0, "busy_s": 0.0,
+                        "launched_s": 0.0} for d in devs]
+        # during a run (_entry_run): per entry its device phases and the
+        # host clock at the end of its last enqueue
+        self._phases = self._ends = None
         # per pipeline shard of the last round-path or seeded run: its
         # instances, its rounds and its launches by kernel (one entry in
         # lockstep)
@@ -512,9 +544,33 @@ class BatchPOA:
             self._lane_sets[n_shards] = [
                 [_Shard(sh.dev, torch.cuda.Stream(sh.dev)
                         if sh.dev.type == "cuda" else None,
-                        sh.in_flight * n_shards) for sh in self._shards]
+                        sh.in_flight * n_shards, sh.entry)
+                 for sh in self._shards]
                 for _ in range(n_shards)]
         return self._lane_sets[n_shards]
+
+    @contextlib.contextmanager
+    def _entry_run(self):
+        """Record a run's device phases and last enqueue per entry, then
+        add its busy time and launch skew to ``shards``."""
+        t0 = time.perf_counter()
+        self._phases = [[] for _ in self._shards]
+        self._ends = [None] * len(self._shards)
+        yield
+        for rec, iv, end in zip(self.shards, self._phases, self._ends):
+            rec["busy_s"] += _union_s(iv)
+            if end is not None:
+                rec["launched_s"] += end - t0
+
+    def _enqueued(self, sh):
+        """Lane `sh` has enqueued a launch and its fetch."""
+        self._ends[sh.entry] = time.perf_counter()
+
+    def _device_phase(self, sh, interval):
+        """A launch's device phase on lane `sh`, (t0, t1) on the host
+        clock."""
+        self.dp_intervals.append(interval)
+        self._phases[sh.entry].append(interval)
 
     def _pipeline_records(self, members):
         self.pipeline_shards = [
@@ -588,16 +644,7 @@ class BatchPOA:
 
     def dp_busy_seconds(self) -> float:
         """Union length of the device-phase intervals."""
-        total = 0.0
-        end = float("-inf")
-        for t0, t1 in sorted(self.dp_intervals):
-            if t0 > end:
-                total += t1 - t0
-                end = t1
-            elif t1 > end:
-                total += t1 - end
-                end = t1
-        return total
+        return _union_s(self.dp_intervals)
 
     def run_consensus(self, instances, weights=None, seeded=False):
         """Batched POA (seeded: ``run_seeded``) then consensus per
@@ -790,6 +837,7 @@ class _Job:
             bp.launches[plan.name] += 1
             self.rec["launches"][plan.name] += 1
             host, ev = _enqueue_fetch(sh, fetch)
+            bp._enqueued(sh)
             bp.h2d_bytes += sum(t.numel() * t.element_size() for t in inputs)
             bp.d2h_bytes += sum(t.numel() * t.element_size() for t in host)
             return dict(shard=sh, group=self.group[part], host=host, ev=ev,
@@ -828,6 +876,7 @@ class _Job:
                     ev = torch.cuda.Event(enable_timing=True)
                     ev.record(torch.cuda.current_stream(sh.dev))
                     bp._staging[sh] = (staged, ev)
+            bp._enqueued(sh)
             bp.launches[plan.name] += 1
             self.rec["launches"][plan.name] += 1
             bp.h2d_bytes += st.nbytes
@@ -871,7 +920,7 @@ class _Job:
         elif self.seeded:
             pend["mpl"], pend["mpr"] = host[2], host[3]
         bp.dp_seconds += t1 - t0
-        bp.dp_intervals.append((t0, t1))
+        bp._device_phase(h["shard"], (t0, t1))
         bp.dp_cells += int(host[0][:, L.M_CELLS].sum())
         return pend
 
@@ -915,7 +964,8 @@ class _Rounds:
         def finish(_s, job):
             for pend in job.collect():
                 self._collect(pend)
-        _pipeline(S, prepare, finish)
+        with bp._entry_run():
+            _pipeline(S, prepare, finish)
 
     def _prepare(self, members, r, lanes, rec, count_empty):
         """Round r of one shard's instances, up to its launch: read-0
@@ -1103,7 +1153,8 @@ class _Windows:
 
         def finish(s, state):
             reqs[s] = self._finish(reqs[s], *state)
-        _pipeline(S, prepare, finish)
+        with bp._entry_run():
+            _pipeline(S, prepare, finish)
 
     def _prepare(self, reqs, lanes, rec):
         """One group's window round up to its launch: each pending
@@ -1253,6 +1304,7 @@ class _DeviceLoop:
             # the copies run on the shard's stream right after this
             # part's last kernel, so the host waits for this part alone
             host, ev = _enqueue_fetch(shard, (misc_d, s16_cap_d, psF.fail))
+        bp._enqueued(shard)
         bp.d2h_bytes += sum(h.numel() * h.element_size() for h in host)
         return part, cfg, host, (start, ev), s16_d, (inputs, qw_d)
 
@@ -1285,30 +1337,30 @@ class _DeviceLoop:
         # the JAX package; dp_intervals: on a card the event-timed device
         # phase of each sub-batch (BatchPOA.clock), on the CPU the host
         # clock
-        t_prev = time.perf_counter()
-        pends = [(shard, self._launch(shard, part))
-                 for shard, part in parts]
-        for shard, (part, cfg, host, (start, ev), s16_d, _inputs) in pends:
-            with trace.span("abpoa.wait"):
-                if ev is not None:
-                    ev.synchronize()
-                misc, s16w, failv = (h.numpy() for h in host)
-            s16 = s16w.view(np.int16)
-            t1 = time.perf_counter()
-            bp.dp_seconds += t1 - t_prev
-            bp.dp_intervals.append(
-                (t_prev, t1) if ev is None
-                else bp.clock.interval(shard.dev, start, ev))
-            t_prev = t1
-            ok_mask = failv == 0
-            bp.fallbacks += int((~ok_mask).sum())
-            for b, k in enumerate(part):
-                if ok_mask[b]:
-                    nr_k = len(instances[k]) - 1
-                    bp.dp_cells += int(misc[:nr_k, b, L.M_CELLS].sum())
-            with trace.span("abpoa.fuse",
-                            sum(len(instances[k]) - 1 for k in part)):
-                self._replay(part, misc, s16, s16_d, ok_mask)
+        with bp._entry_run():
+            t_prev = time.perf_counter()
+            pends = [(shard, self._launch(shard, part))
+                     for shard, part in parts]
+            for shard, (part, cfg, host, (start, ev), s16_d, _inputs) in pends:
+                with trace.span("abpoa.wait"):
+                    if ev is not None:
+                        ev.synchronize()
+                    misc, s16w, failv = (h.numpy() for h in host)
+                s16 = s16w.view(np.int16)
+                t1 = time.perf_counter()
+                bp.dp_seconds += t1 - t_prev
+                bp._device_phase(shard, (t_prev, t1) if ev is None
+                                 else bp.clock.interval(shard.dev, start, ev))
+                t_prev = t1
+                ok_mask = failv == 0
+                bp.fallbacks += int((~ok_mask).sum())
+                for b, k in enumerate(part):
+                    if ok_mask[b]:
+                        nr_k = len(instances[k]) - 1
+                        bp.dp_cells += int(misc[:nr_k, b, L.M_CELLS].sum())
+                with trace.span("abpoa.fuse",
+                                sum(len(instances[k]) - 1 for k in part)):
+                    self._replay(part, misc, s16, s16_d, ok_mask)
         return True
 
     def _replay(self, live, misc, s16, s16_d, ok_mask):

@@ -34,6 +34,17 @@ span only inside a root on its own thread: the spans of one thread nest
 in its roots, and a worker thread of the host pool records nothing.
 The buffer holds at most ``CAP`` records; spans past it count in
 ``BUFFER.dropped``.
+
+The spans do not say which card a phase served. Per entry of a device
+list, ``BatchPOA.shards[i]`` counts it, tracing on or off: ``instances``
+(the instances its launches carried), ``busy_s`` (the union of its
+launches' device phases, the ``dp_intervals`` values: event-timed on a
+card, the host clock on the CPU; a phase runs from a launch's upload to
+its fetch, gaps in which the card waits for the host's enqueue
+included) and ``launched_s`` (host seconds from
+the start of the run's rounds to the end of its last enqueue, so the
+spread of the entries' values is how much later the last card got its
+work than the first).
 """
 from __future__ import annotations
 

@@ -8,13 +8,16 @@
 * The device loop, the round path (-m 1, -m 2) and the seeded windows
   over 2 and 3 uneven shards equal the goldens and the single-device
   run, with equal counters (launches: one a shard with work, a round).
+* Eight seeded-random instances over four CPU entries, on the device
+  loop and on the seeded windows: the one-device run, and each entry's
+  record (busy_s, launched_s, instances).
 * -i with qv weights over two shards; a mixed batch (a capacity
   fallback, a forced step-stream cap of 2) over two shards; more shards
   than instances; the dry run over two CPU shards.
 * On a GPU: the event of each shard on the stream its copies ran on
   (two shards on one card, each stream held back by a sleep), a second
   card, 64 x heter.fa, -m 1, -m 2 and config-5 seeded over two shards of
-  one card, and over two cards.
+  one card, over two cards, and the four-entry check over four cards.
 Exact equality everywhere.
 """
 import functools
@@ -99,7 +102,8 @@ def test_device_list_arguments():
     bp = BatchPOA(_params(), device="cuda" if torch.cuda.is_available()
                   else "cpu", devices=["cpu", torch.device("cpu")])
     assert bp.device == torch.device("cpu") and len(bp._shards) == 2
-    assert bp.shards == [{"device": "cpu", "instances": 0}] * 2
+    assert bp.shards == [{"device": "cpu", "instances": 0, "busy_s": 0.0,
+                          "launched_s": 0.0}] * 2
 
 
 def test_heterogeneous_full_output_equals_jax_mesh():
@@ -227,6 +231,52 @@ def test_more_shards_than_instances():
     assert [s["instances"] for s in bp.shards] == [1, 1, 0, 0, 0]
 
 
+def _seeded_batch(n, seeded):
+    """n instances drawn from a fixed seed: 4 reads of a 120-190 base
+    ancestor (3 % substitutions, 2 % indels), 160-230 under -S."""
+    from abpoa_tpu_torch.tools.fuzz_device_loop import _gen_instance
+    rng = np.random.default_rng(20261018)
+    base = 160 if seeded else 120
+    return [_gen_instance(rng, base + 70 * k // n, 4, 0.03, 0.02)
+            for k in range(n)]
+
+
+def _four_entries(seeded, devices, one_device, n):
+    """`n` instances over the four entries of `devices` against the
+    one-device run on `one_device`: the same output bytes (consensus,
+    MSA, GFA) and counters; every entry busy, its launch skew recorded,
+    and the entries' instances adding up to the live instances (the
+    loop) or to the windows aligned on the device (seeded)."""
+    from abpoa_tpu_torch import BatchPOA
+    insts = _seeded_batch(n, seeded)
+    flag = "-S" if seeded else None
+    one = BatchPOA(_params(flag, full=True), device=one_device)
+    run_one = one.run_seeded if seeded else one.run
+    want = _render(run_one(insts), _params(flag, full=True))
+    bp = BatchPOA(_params(flag, full=True), devices=devices)
+    got = _render((bp.run_seeded if seeded else bp.run)(insts),
+                  _params(flag, full=True))
+    assert got == want
+    assert _counters(bp) == _counters(one)
+    assert bp.fallbacks == 0 and bp.used_device_loop == (not seeded)
+    assert [s["device"] for s in bp.shards] == [str(torch.device(d))
+                                                for d in devices]
+    assert all(s["busy_s"] > 0 and s["launched_s"] >= 0 for s in bp.shards)
+    live = bp.windows if seeded else sum(len(r) >= 2 for r in insts)
+    assert sum(s["instances"] for s in bp.shards) == live > 0
+    if not seeded:
+        assert [s["instances"] for s in bp.shards] == [n // 4] * 4
+    return bp
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["loop", "seeded"])
+def test_four_entries_record_each_card(seeded):
+    """Eight seeded-random instances over devices=["cpu"] * 4, on the
+    device loop and on the seeded windows: the one-device run byte for
+    byte, and each entry's busy_s, launched_s and instances."""
+    _four_entries(seeded, ["cpu"] * 4, "cpu", 8)
+
+
 def test_dryrun_over_two_cpu_shards():
     from abpoa_tpu_torch.parallel.dryrun import dryrun_multidevice
     got = dryrun_multidevice(["cpu", "cpu"], fixtures=("seq.fa",))
@@ -323,6 +373,20 @@ def _sharded_card_runs(devices):
 @pytest.mark.gpu
 def test_two_shards_on_one_card_on_gpu(cuda_device):
     _sharded_card_runs(["cuda:0", "cuda:0"])
+
+
+@pytest.mark.gpu
+def test_four_cards_on_gpu(cuda_device):
+    """64 instances over cuda:0-3 (16 a card: two sub-batches a card on
+    the loop) on the device loop and on the seeded windows: the run on
+    cuda:0 alone byte for byte, no fallback, every card busy."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards: this host has "
+                    f"{torch.cuda.device_count()}")
+    cards = [f"cuda:{i}" for i in range(4)]
+    for seeded in (False, True):
+        bp = _four_entries(seeded, cards, "cuda:0", 64)
+        assert bp.fallbacks == 0
 
 
 @pytest.mark.gpu

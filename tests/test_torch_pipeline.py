@@ -276,7 +276,9 @@ def test_pipeline_over_two_cpu_entries_and_forced_refetch():
         [p["rounds"] for p in plan] == [3, 3]
     # four instances a shard, all live in both DP rounds: 2 + 2 per entry
     assert bp.launches["band_dp_topo"] == 2 * 2 * 2
-    assert bp.shards == [{"device": "cpu", "instances": 8}] * 2
+    assert [(s["device"], s["instances"]) for s in bp.shards] == \
+        [("cpu", 8)] * 2
+    assert all(s["busy_s"] > 0 and s["launched_s"] > 0 for s in bp.shards)
 
 
 def test_incremental_qv_batch_over_the_pipeline():
