@@ -39,6 +39,11 @@ def cons_phred_score(n_cov: int, n_seq: int) -> int:
     return 33 + int(-10 * math.log10(p) + 0.499)
 
 
+def cons_phred_table(n_seq: int) -> list:
+    """cons_phred_score(n_cov, n_seq) for every n_cov in 0..n_seq."""
+    return [cons_phred_score(c, n_seq) for c in range(n_seq + 1)]
+
+
 def _popcount_and(a: int, b: int) -> int:
     return (a & b).bit_count()
 
@@ -141,9 +146,13 @@ def heaviest_bundling(graph, abc: Consensus):
         bases = graph.build_csr()["bases"]
         abc.cons_node_ids.append(ids[:ln].tolist())
         abc.cons_base.append(bases[ids[:ln]].tolist())
-        abc.cons_cov.append(covs[:ln].tolist())
-        abc.cons_phred_score.append(
-            [cons_phred_score(int(c), abc.n_seq) for c in covs[:ln]])
+        cov = covs[:ln].tolist()
+        abc.cons_cov.append(cov)
+        if ln and max(cov) > abc.n_seq:
+            raise ValueError(
+                f"unexpected n_cov/n_seq ({max(cov)}/{abc.n_seq})")
+        tab = cons_phred_table(abc.n_seq) if ln else []
+        abc.cons_phred_score.append([tab[c] for c in cov])
         abc.cons_len.append(ln)
         return
     node = graph.node

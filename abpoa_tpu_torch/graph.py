@@ -761,11 +761,59 @@ class NativeGraph(POAGraph):
             int(best_j), int(end_j), qlen, ptr(s), ptr(w), int(read_id),
             int(add_read_id), int(add_read_weight), int(inc_both_ends),
             int(beg_node_id), int(end_node_id))
+        if rc == -3:
+            raise RuntimeError("pg_fuse_steps: a step row outside the graph")
         if rc != 0:
             raise MemoryError("pg_fuse_steps failed")
         self._version += 1
         self.is_called_cons = False
         self.is_topological_sorted = False
+
+    def replay_loop(self, params, meta, s16, reads, weights, r0: int = 0,
+                    r1: int = None):
+        """Fuse the device loop's rounds r0..r1-1 (all by default) of one
+        instance (round r is reads[r + 1], read id r + 1) in one native
+        call, which runs with the GIL released: each round's toposort,
+        steps16 decode and fusion, as topological_sort, unpack_steps16
+        and fuse_steps do (no CSR export, no max_remain). meta: int32
+        [NR, 5], the rounds' (M_NSTEPS, M_BI, M_BJ, M_ENDJ, M_BEST); s16:
+        int16 [r1 - r0, cap], the streams of rounds r0.. (rows may be
+        strided); weights: per read, None for unit weights. Returns the
+        first round not fused: one whose stream is past s16's cap or,
+        under params.amb_strand, one that trips the ambiguous-strand
+        threshold; the caller takes it."""
+        assert not params.rev_cigar
+        ptr = self._n.ptr
+        r1 = len(reads) - 1 if r1 is None else r1
+        if (meta.dtype != np.int32 or not meta.flags.c_contiguous
+                or meta.shape[0] < r1 or meta.shape[1] != 5
+                or s16.dtype != np.int16 or s16.shape[0] < r1 - r0
+                or s16.strides[1] != 2 or s16.strides[0] % 2):
+            raise ValueError("replay_loop: meta or s16 of the wrong layout")
+        qs = [np.asarray(q, dtype=np.uint8) for q in reads[r0 + 1:r1 + 1]]
+        off = np.zeros(len(qs) + 1, dtype=np.int64)
+        np.cumsum([len(q) for q in qs], out=off[1:])
+        seqs = np.concatenate(qs)
+        w = None if weights is None else np.concatenate(
+            [np.asarray(x, dtype=np.int32) for x in weights[r0 + 1:r1 + 1]])
+        r = int(self._lib.pg_replay_loop(
+            self._h, r0, r1, ptr(meta), ptr(s16),
+            s16.strides[0] // 2, s16.shape[1], ptr(seqs),
+            ptr(w) if w is not None else None, ptr(off),
+            int(params.use_read_ids),
+            int(params.use_qv and (params.max_n_cons > 1)),
+            int(params.amb_strand), int(params.max_mat)))
+        if r != r0:
+            self._version += 1
+            self.is_called_cons = False
+            self.is_topological_sorted = False
+        if r == -2:
+            raise RuntimeError("Failed to set node index.")
+        if r == -3:
+            raise RuntimeError("pg_replay_loop: a step row outside the graph")
+        if r < 0:
+            raise MemoryError("pg_replay_loop failed")
+        return r
 
     # ------------------------------------------------------------------ #
     def build_csr(self):

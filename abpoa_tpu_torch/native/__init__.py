@@ -6,7 +6,8 @@ never into the package directory; the object's name carries a hash of
 the sources and flags, so an edited source is rebuilt:
   hostgraph.c — CSR traversal kernels for the pure-Python POAGraph
   poagraph.c  — full native graph store (NativeGraph backend): storage,
-                CIGAR/steps fusion, traversals, CSR export
+                CIGAR/steps fusion, the device loop's replay, traversals,
+                CSR export
   seedchain.c — minimizer sketching and anchor chaining
   dprow.c     — the oracle's whole-alignment DP row sweep
 
@@ -103,6 +104,9 @@ def get_lib():
                               [_vp, _vp, _i32, _vp, _i32, _i32, _i32,
                                _i32, _vp, _vp, _i32, _i32, _i32, _i32,
                                _i32, _i32]),
+            "pg_replay_loop": (_i32, [_vp, _i32, _i32, _vp, _vp,
+                                      ctypes.c_int64, _i32, _vp, _vp, _vp,
+                                      _i32, _i32, _i32, _i32]),
             "pg_topo_sort": (ctypes.c_int, [_vp, _vp, _vp]),
             "pg_set_remain": (ctypes.c_int, [_vp, _vp]),
             "pg_msa_rank": (ctypes.c_int, [_vp, _vp]),

@@ -340,15 +340,15 @@ int pg_add_subgraph_alignment(void *h, int32_t beg_node_id,
 /* Replay a device backtrack step stream (int64 words op|row<<2|col<<32,
  * stored reversed: steps[0] is the LAST move) and fuse it in the same pass —
  * equivalent to ops/bt_xla.py replay_steps + add_graph_alignment without
- * materializing the cigar. i2n maps dp row -> node id (row0 offset). */
-int pg_fuse_steps(void *h, const int32_t *i2n, int32_t row0,
-                  const int64_t *steps, int32_t nsteps, int32_t best_j,
-                  int32_t end_j, int32_t qlen, const uint8_t *seq,
-                  const int32_t *weight, int32_t rid, int32_t add_rid,
-                  int32_t add_rw, int32_t inc_both_ends,
-                  int32_t beg_node_id, int32_t end_node_id)
+ * materializing the cigar. i2n maps dp row -> node id (row0 offset) for
+ * the n_rows rows of the sort it came from; -3 on a row outside them. */
+static int fuse_walk(pg_t *pg, const int32_t *i2n, int32_t row0,
+                     int32_t n_rows, const int64_t *steps, int32_t nsteps,
+                     int32_t best_j, int32_t end_j, int32_t qlen,
+                     const uint8_t *seq, const int32_t *weight, int32_t rid,
+                     int32_t add_rid, int32_t add_rw, int32_t inc_both_ends,
+                     int32_t beg_node_id, int32_t end_node_id)
 {
-    pg_t *pg = (pg_t *)h;
     if (nsteps == 0 && end_j <= 0 && best_j >= qlen) return 0;
     int32_t query_id = -1, last_new = 0, last_id = beg_node_id;
     if (end_j > 0) {
@@ -360,8 +360,9 @@ int pg_fuse_steps(void *h, const int32_t *i2n, int32_t row0,
         int64_t enc = steps[k];
         int32_t op = (int32_t)(enc & 3);
         if (op == 0) {
-            int32_t node_id = i2n[row0 + (int32_t)((enc >> 2) & 0x3FFFFFFF)];
-            if (fuse_match(pg, node_id, &last_id, &last_new, &query_id,
+            int64_t row = row0 + ((enc >> 2) & 0x3FFFFFFF);
+            if (row >= n_rows) return -3;
+            if (fuse_match(pg, i2n[row], &last_id, &last_new, &query_id,
                            seq, weight, beg_node_id, inc_both_ends,
                            add_rid, add_rw, rid, 0)) return -1;
         } else if (op == 1) {
@@ -379,26 +380,40 @@ int pg_fuse_steps(void *h, const int32_t *i2n, int32_t row0,
                        weight[qlen - 1], add_rid, add_rw, rid) < 0 ? -1 : 0;
 }
 
+/* fuse_walk over the rows of a sort of the graph as it stands */
+int pg_fuse_steps(void *h, const int32_t *i2n, int32_t row0,
+                  const int64_t *steps, int32_t nsteps, int32_t best_j,
+                  int32_t end_j, int32_t qlen, const uint8_t *seq,
+                  const int32_t *weight, int32_t rid, int32_t add_rid,
+                  int32_t add_rw, int32_t inc_both_ends,
+                  int32_t beg_node_id, int32_t end_node_id)
+{
+    pg_t *pg = (pg_t *)h;
+    return fuse_walk(pg, i2n, row0, pg->n, steps, nsteps, best_j, end_j,
+                     qlen, seq, weight, rid, add_rid, add_rw, inc_both_ends,
+                     beg_node_id, end_node_id);
+}
+
 /* ------------------------------------------------------------------ */
 /* traversal kernels over the native store (same orders as hostgraph.c,
  * ref src/abpoa_graph.c:186-366) */
 
-int pg_topo_sort(void *h, int32_t *index_to_node, int32_t *node_to_index)
+/* BFS toposort with aligned-node grouping into caller scratch indeg and
+ * queue (n entries each: every node is queued once) */
+static int topo_order(pg_t *pg, int32_t *index_to_node,
+                      int32_t *node_to_index, int32_t *indeg,
+                      int32_t *queue)
 {
-    pg_t *pg = (pg_t *)h;
     int32_t n = pg->n;
-    int32_t *indeg = (int32_t *)malloc(4 * (size_t)n);
-    int32_t *queue = (int32_t *)malloc(4 * (size_t)n);
-    if (!indeg || !queue) { free(indeg); free(queue); return -1; }
     for (int32_t i = 0; i < n; i++) indeg[i] = pg->nodes[i].n_in;
-    int32_t qh = 0, qt = 0, index = 0, rc = -1;
+    int32_t qh = 0, qt = 0, index = 0;
     queue[qt++] = SRC;
     while (qh < qt) {
         int32_t cur = queue[qh++];
         index_to_node[index] = cur;
         node_to_index[cur] = index;
         index++;
-        if (cur == SINK) { rc = 0; break; }
+        if (cur == SINK) return 0;
         node_t *nd = &pg->nodes[cur];
         for (int32_t e = 0; e < nd->n_out; e++) {
             int32_t out = nd->out_ids[e];
@@ -414,8 +429,98 @@ int pg_topo_sort(void *h, int32_t *index_to_node, int32_t *node_to_index)
             }
         }
     }
+    return -1;
+}
+
+int pg_topo_sort(void *h, int32_t *index_to_node, int32_t *node_to_index)
+{
+    pg_t *pg = (pg_t *)h;
+    int32_t *indeg = (int32_t *)malloc(4 * (size_t)pg->n);
+    int32_t *queue = (int32_t *)malloc(4 * (size_t)pg->n);
+    int rc = -1;
+    if (indeg && queue)
+        rc = topo_order(pg, index_to_node, node_to_index, indeg, queue);
     free(indeg); free(queue);
     return rc;
+}
+
+/* The device loop's host replay of one instance, rounds r0..r1-1 (round
+ * r is read r + 1; read 0 is already in the graph), in one call: per
+ * round the toposort into scratch, the steps16 wire stream decoded into
+ * scratch step words and fused by fuse_walk. A wire half is op | dj<<2 |
+ * di<<3 in push order, di the topo-row decrement from the previous
+ * emission (the first's from M_BI), so step k's row is M_BI less the
+ * di of steps 0..k (ops/steps.py unpack_steps16). Columns need no
+ * decode: fusion counts query bases itself.
+ * meta: int32 rows (M_NSTEPS, M_BI, M_BJ, M_ENDJ, M_BEST), round r's at
+ * meta + 5 * r; s16: round r's stream at s16 + (r - r0) * s16_stride,
+ * `cap` halves fetched; seqs / weights: the reads of rounds r0..r1-1
+ * back to back, round r's at off[r - r0] .. off[r - r0 + 1] (off[0] =
+ * 0); weights NULL for unit weights.
+ * Stops before a round the caller must take itself: a stream past the
+ * fetch cap, or under amb_strand a score below the ambiguous-strand
+ * threshold (ref abpoa_align.c:315). Returns the first round not
+ * fused; -1 on allocation failure, -2 on a failed toposort, -3 on a
+ * step row outside the graph. */
+int32_t pg_replay_loop(void *h, int32_t r0, int32_t r1, const int32_t *meta,
+                       const int16_t *s16, int64_t s16_stride, int32_t cap,
+                       const uint8_t *seqs, const int32_t *weights,
+                       const int64_t *off, int32_t add_rid, int32_t add_rw,
+                       int32_t amb_strand, int32_t max_mat)
+{
+    pg_t *pg = (pg_t *)h;
+    int32_t ncap = 0, scap = 0, r = r0, rc = 0;
+    int32_t *i2n = 0, *n2i = 0, *indeg = 0, *queue = 0, *ones = 0;
+    int64_t *steps = 0;
+    if (!weights) {
+        int64_t wn = 1;
+        for (int32_t t = r0; t < r1; t++)
+            if (off[t - r0 + 1] - off[t - r0] > wn)
+                wn = off[t - r0 + 1] - off[t - r0];
+        ones = (int32_t *)malloc(4 * (size_t)wn);
+        if (!ones) return -1;
+        for (int64_t q = 0; q < wn; q++) ones[q] = 1;
+    }
+    for (; r < r1; r++) {
+        const int32_t *m = meta + 5 * (size_t)r;
+        int32_t nst = m[0], bi = m[1], bj = m[2], end_j = m[3];
+        int32_t qlen = (int32_t)(off[r - r0 + 1] - off[r - r0]);
+        if (amb_strand) {
+            int64_t span = qlen < pg->n - 2 ? qlen : pg->n - 2;
+            if ((double)m[4] < (double)(span * max_mat) * .3333) break;
+        }
+        if (nst > cap) break;
+        if (pg->n > ncap) {
+            ncap = 2 * pg->n;
+            free(i2n); free(n2i); free(indeg); free(queue);
+            i2n = (int32_t *)malloc(4 * (size_t)ncap);
+            n2i = (int32_t *)malloc(4 * (size_t)ncap);
+            indeg = (int32_t *)malloc(4 * (size_t)ncap);
+            queue = (int32_t *)malloc(4 * (size_t)ncap);
+            if (!i2n || !n2i || !indeg || !queue) { rc = -1; break; }
+        }
+        if (nst > scap) {
+            scap = 2 * nst;
+            free(steps);
+            steps = (int64_t *)malloc(8 * (size_t)scap);
+            if (!steps) { rc = -1; break; }
+        }
+        if (topo_order(pg, i2n, n2i, indeg, queue)) { rc = -2; break; }
+        const int16_t *st = s16 + (int64_t)(r - r0) * s16_stride;
+        int64_t row = bi;
+        for (int32_t k = 0; k < nst; k++) {
+            uint16_t raw = (uint16_t)st[k];
+            row -= (raw >> 3) & 0x1FFF;
+            steps[k] = (int64_t)(raw & 3) | ((row & 0x3FFFFFFF) << 2);
+        }
+        rc = fuse_walk(pg, i2n, 0, pg->n, steps, nst, bj, end_j, qlen,
+                       seqs + off[r - r0],
+                       weights ? weights + off[r - r0] : ones, r + 1,
+                       add_rid, add_rw, 1, SRC, SINK);
+        if (rc) break;
+    }
+    free(i2n); free(n2i); free(indeg); free(queue); free(ones); free(steps);
+    return rc ? rc : r;
 }
 
 int pg_set_remain(void *h, int32_t *max_remain)

@@ -11,7 +11,10 @@ The device loop's walk emits one 16-bit half per backtrack step
 instead, in push (reverse) order: ``op | dj<<2 | di<<3``, where (di,
 dj) are the topo-row and column decrements from the previous emission
 (the first step's are from (M_BI, M_BJ)); its 13-bit row decrement
-holds any predecessor jump of a graph up to 8192 rows. Re-hosted from
+holds any predecessor jump of a graph up to 8192 rows. The device
+loop's host replay decodes it in C as it fuses (``native/poagraph.c``
+``pg_replay_loop``); ``unpack_steps16`` decodes one stream for the
+per-read route. Re-hosted from
 ``abpoa_tpu/ops/bt_xla.py`` (``unpack_steps16``, ``replay_steps``),
 ``parallel/batch.py`` (the whole-batch decode) and ``ops/poa_loop.py``
 (``steps32_to_s16w``, here ``steps_to_s16w``).
@@ -53,9 +56,10 @@ def unpack_steps16(s16, n_steps: int, best_i: int, best_j: int):
 
 
 def decode_steps_batch(s16, misc):
-    """All rounds' and instances' step words in one vectorized pass.
-    s16: int16 [NR, B, cap]; misc: int32 [NR, B, M_NMISC]. Entries past
-    an instance's M_NSTEPS are garbage and are never read."""
+    """All rounds' and instances' step words in one vectorized pass (the
+    tests' reference for pg_replay_loop's decode). s16: int16 [NR, B,
+    cap]; misc: int32 [NR, B, M_NMISC]. Entries past an instance's
+    M_NSTEPS are garbage and are never read."""
     raw = np.asarray(s16).astype(np.int64) & 0xFFFF
     misc = np.asarray(misc).astype(np.int64)
     iall = (misc[:, :, L.M_BI:L.M_BI + 1]

@@ -86,7 +86,7 @@ from ..device import resolve_device
 from ..ops import band_dp
 from ..ops import layout as L
 from ..ops import poa_loop as pl
-from ..ops.steps import decode_steps_batch, replay_steps, unpack_steps16
+from ..ops.steps import replay_steps, unpack_steps16
 from ..align.export import repad_dense
 from .multihost import shard_bounds
 
@@ -461,6 +461,14 @@ class BatchPOA:
     for an entry with no launch. They are read from what the paths
     already record: no event, synchronisation or launch is added for
     them.
+
+    Counters, summed over the runs: ``fallbacks``, the instances rebuilt
+    on the host oracle (see the module docstring); on the device loop,
+    ``replayed_native``, the reads of the instances that did not fail
+    there fused on the host by one native call an instance
+    (``NativeGraph.replay_loop``; a step stream past the fetch cap by a
+    call of its own), and ``replayed_python``, those fused one at a time
+    (an amb_strand retry, the pure-Python graph store).
     """
 
     N_SHARDS = 4      # pipeline shards of the round path at most
@@ -501,6 +509,8 @@ class BatchPOA:
         self.dp_intervals = []     # (t0, t1) per device phase
         self.clock = _EventClock()  # places event-timed phases
         self.fallbacks = 0         # instances rebuilt on the oracle
+        self.replayed_native = 0   # loop reads fused by replay_loop
+        self.replayed_python = 0   # loop reads fused one at a time
         self.rounds = 0
         self.windows = 0           # seeded windows aligned on the device
         self.empty_windows = 0     # seeded windows with no bases (no DP)
@@ -1364,15 +1374,25 @@ class _DeviceLoop:
         return True
 
     def _replay(self, live, misc, s16, s16_d, ok_mask):
+        """Rebuild the graphs of a sub-batch's instances from their rounds
+        on the host pool. On the native store one call an instance fuses
+        its rounds with the GIL released (NativeGraph.replay_loop); a
+        stream past the fetch cap is refetched and fused by a call of its
+        own. An amb_strand retry, and every round on the pure-Python
+        store, takes the per-read route. An instance that failed on the
+        device is rebuilt on the oracle."""
         bp, params = self.bp, self.bp.params
         abs_, instances = self.abs_, self.instances
         from ..graph import NativeGraph
-        steps_all = decode_steps_batch(s16, misc)
+        meta = np.ascontiguousarray(
+            misc[:, :, (L.M_NSTEPS, L.M_BI, L.M_BJ, L.M_ENDJ, L.M_BEST)]
+            .transpose(1, 0, 2), dtype=np.int32)
 
         def replay_one(b_k):
             b, k = b_k
             ab = abs_[k]
             reads = instances[k]
+            n_native = n_python = 0
             if not ok_mask[b]:
                 # sticky device failure: rebuild on the bit-exact oracle
                 ab.graph.reset()
@@ -1380,7 +1400,18 @@ class _DeviceLoop:
                     ab.poa_one(bp.host_params, q, bp._weight(k, r, q), r)
             else:
                 g = ab.graph
-                for r, q in enumerate(reads[1:]):
+                native = isinstance(g, NativeGraph)
+                weights = bp._weights[k] if bp._weights is not None else None
+                r, nr = 0, len(reads) - 1
+                while r < nr:
+                    if native:
+                        r1 = g.replay_loop(params, meta[b], s16[r:, b],
+                                           reads, weights, r)
+                        n_native += r1 - r
+                        r = r1
+                        if r == nr:
+                            break
+                    q = reads[r + 1]
                     mi = misc[r, b]
                     if params.amb_strand and bp._amb_flagged(
                             ab, q, int(mi[L.M_BEST])):
@@ -1390,24 +1421,26 @@ class _DeviceLoop:
                         for rr in range(r + 1, len(reads)):
                             ab.poa_one(bp.host_params, reads[rr],
                                        bp._weight(k, rr, reads[rr]), rr)
+                        n_python += nr - r
                         break
                     nst = int(mi[L.M_NSTEPS])
                     if nst > s16.shape[2]:   # over the fetch cap: refetch
                         w = s16_d[r, b, :(nst + 1) // 2].cpu().numpy()
-                        words = unpack_steps16(
-                            np.ascontiguousarray(w).view(np.int16)[:nst],
-                            nst, int(mi[L.M_BI]), int(mi[L.M_BJ]))
+                        row16 = np.ascontiguousarray(w).view(np.int16)
                     else:
-                        words = steps_all[r, b]
-                    if not g.is_topological_sorted:
-                        g.topological_sort(params)
-                    if isinstance(g, NativeGraph):
-                        g.fuse_steps(params, 0, words, nst,
-                                     int(mi[L.M_BJ]), int(mi[L.M_ENDJ]),
-                                     q, r + 1, True,
-                                     weight=bp._weight(k, r + 1, q))
+                        row16 = s16[r, b]
+                    if native:
+                        if g.replay_loop(params, meta[b], row16[None], reads,
+                                         weights, r, r + 1) != r + 1:
+                            raise RuntimeError(
+                                "replay_loop left a refetched round")
+                        n_native += 1
                     else:
                         from ..align.engine_np import AlignResult
+                        words = unpack_steps16(row16, nst, int(mi[L.M_BI]),
+                                               int(mi[L.M_BJ]))
+                        if not g.is_topological_sorted:
+                            g.topological_sort(params)
                         res = AlignResult()
                         replay_steps(g, params, np.asarray(q), words, nst,
                                      int(mi[L.M_BI]), int(mi[L.M_BJ]),
@@ -1416,11 +1449,16 @@ class _DeviceLoop:
                         g.add_graph_alignment(params, q,
                                               bp._weight(k, r + 1, q),
                                               res.cigar, None, r + 1, True)
+                        n_python += 1
+                    r += 1
             if bp.precompute_cons:
                 from ..consensus import generate_consensus
                 generate_consensus(ab, params)
+            return n_native, n_python
 
         for fut in [_host_pool().submit(replay_one, bk)
                     for bk in enumerate(live)]:
-            fut.result()
+            n_native, n_python = fut.result()
+            bp.replayed_native += n_native
+            bp.replayed_python += n_python
         return True
