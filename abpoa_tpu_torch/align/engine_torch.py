@@ -30,9 +30,9 @@ Counterpart of the device wrappers of ``abpoa_tpu/align/engine_jax.py``
   oracle) and counts it in ``empty_windows``;
 * any graph, window or query runs: the kernels' step words have 30 row
   and 31 column bits; an alignment whose B5 tiles or B4 planes exceed
-  the device memory budget (``parallel/batch.py`` ``_plane_budget``)
-  runs on the host oracle instead (the JAX package runs its XLA tier
-  there), counted in ``over_budget``.
+  the device memory budget (``device.plane_budget``) runs on the host
+  oracle instead (the JAX package runs its XLA tier there), counted in
+  ``over_budget``.
 
 The kernels' wrappers count their launches; ``reroutes`` counts the B5
 results re-run on B4, by flag.
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..device import resolve_device
+from ..device import plane_budget, resolve_device
 from ..params import GLOBAL_MODE, EXTEND_MODE, SRC_NODE_ID, SINK_NODE_ID
 from ..ops import layout as L
 from .engine_np import AlignResult
@@ -65,8 +65,7 @@ def _run(kernel, cfg, arrs, dev):
 def _fits(nbytes, dev):
     """Whether one launch's tiles or planes fit the device memory
     budget."""
-    from ..parallel.batch import _plane_budget
-    return nbytes <= _plane_budget(dev)
+    return nbytes <= plane_budget(dev)
 
 
 def _oracle(graph, params, beg_node_id, end_node_id, query):

@@ -1,5 +1,5 @@
 """The H100's rates behind a kernel's bound, one definition for
-``chip_smoke.py`` and the bench (``abpoa_tpu_torch/bench.py``).
+``chip_smoke.py``'s kernel table (``--dp-only``).
 
 A kernel's bound is the larger of two times: the bytes it must move
 (inputs read once, outputs written once) over the card's HBM rate, and

@@ -39,8 +39,8 @@ An instance whose device result is unusable (band overflow, walk dead
 end, graph capacity) is rebuilt on the bit-exact oracle: that is the
 algorithm's capacity rule and is counted in ``fallbacks``. So is every
 instance of a round group whose one instance needs more plane memory
-than the budget (``_plane_budget``): the group has no launch (the JAX
-package runs its XLA tier there). A device or kernel fault is never
+than the budget (``device.plane_budget``): the group has no launch (the
+JAX package runs its XLA tier there). A device or kernel fault is never
 caught.
 
 Data parallelism (``BatchPOA(devices=[...])``, the counterpart of the
@@ -82,7 +82,7 @@ from .. import trace
 from ..api import ABPOA
 from ..params import Params, GLOBAL_MODE, SRC_NODE_ID, SINK_NODE_ID
 
-from ..device import resolve_device
+from ..device import plane_budget, resolve_device
 from ..ops import band_dp
 from ..ops import layout as L
 from ..ops import poa_loop as pl
@@ -93,11 +93,6 @@ from .multihost import shard_bounds
 # two sub-batches pipeline the device loop against the host replay once
 # the batch has at least this many live instances
 SPLIT_MIN = 16
-
-# share of the device's free memory that one round's DP planes may take;
-# the plain versions on the CPU get a fixed allowance instead
-PLANE_BUDGET_SHARE = 0.5
-CPU_PLANE_BUDGET = 4 << 30
 
 _HOST_POOL = None
 
@@ -209,16 +204,6 @@ def _loop_geometry(params, instances, wmax=None):
     return pl.LoopConfig(R=R, E=12, P=8, A=4, Wq=Wq, WB=WB, LS=LS, NR=NR,
                          B=0, pn=pn, inf_min=inf_min,
                          gap_mode=params.gap_mode, wbits=wbits, wmode=wmode)
-
-
-def _plane_budget(dev, in_flight: int = 1) -> int:
-    """Bytes one DP launch's planes may take on `dev` when `in_flight`
-    launches share the card (shards of one batch on one card each take
-    their part of the share). The CPU runs one launch at a time."""
-    if dev.type == "cuda":
-        free, _total = torch.cuda.mem_get_info(dev)
-        return int(free * PLANE_BUDGET_SHARE / in_flight)
-    return CPU_PLANE_BUDGET
 
 
 class _Shard(NamedTuple):
@@ -366,17 +351,17 @@ def round_plan(params, dgs, dev, seeded=False, budget=None) -> RoundPlan:
     one geometry): the topo-mode band kernel where ``band_refusal``
     names no limit (bands of up to 2048 lanes, up to 30 predecessor
     slots, ``band_slots``); else the full-width kernel when one
-    instance's planes fit the memory budget (``_plane_budget``); else
-    the banded-tile kernel, whose [R, WB] tiles are chunked to the same
-    budget (an instance whose band outgrows its tile goes to the oracle
-    through M_OVFL).
+    instance's planes fit the memory budget (``device.plane_budget``);
+    else the banded-tile kernel, whose [R, WB] tiles are chunked to the
+    same budget (an instance whose band outgrows its tile goes to the
+    oracle through M_OVFL).
 
     seeded: the exports are subgraph windows; the band kernel runs
     non-fresh (band state and row mask from the export), and there is no
     third branch: the banded-tile kernel has no row mask.
 
     budget: the plane bytes a launch may take (default
-    ``_plane_budget(dev)``). A group whose one instance's planes or tiles
+    ``plane_budget(dev)``). A group whose one instance's planes or tiles
     exceed the budget gets the plan "oracle" (no kernel, chunk 0): its
     instances go to the oracle."""
     import dataclasses
@@ -400,7 +385,7 @@ def round_plan(params, dgs, dev, seeded=False, budget=None) -> RoundPlan:
                                bt_lmax=LMAX) for dg in dgs]
     c0 = made[0][0]
     if budget is None:
-        budget = _plane_budget(dev)
+        budget = plane_budget(dev)
     if band:
         cfg = band_dp.BandConfig(
             gap_mode=c0.gap_mode, pn=c0.pn, R=R, WB=WB, Wq=WqB, P=P_,
@@ -447,15 +432,19 @@ class BatchPOA:
     pipeline: overlap host work with device rounds, as the JAX package
     does (see the module docstring); False runs every round in lockstep.
 
+    Device time has one clock. ``dp_intervals`` holds each launch's
+    device phase as (t0, t1) on the host clock: on a card the time
+    between the timing event before its upload and its fetch's event,
+    placed by ``clock``; on the CPU the host clock around the plain
+    versions. A phase spans the whole launch, so it also counts the time
+    the card waits for the host to enqueue the launch's kernels.
+    ``dp_busy_seconds()`` is the length of their union.
+
     ``shards`` holds one record per entry of the device list, summed over
     the runs of this BatchPOA: ``device``; ``instances``, the instances
     its launches carried (a round group counts once per round, a seeded
-    window round once per window); ``busy_s``, the union of its launches'
-    device phases, the intervals that also go into ``dp_intervals``
-    (event-timed on a card, from the timing event before the upload to
-    the fetch's event; the host clock on the CPU: a phase spans the
-    whole launch, so it also counts the time the card waits for the
-    host to enqueue the launch's kernels); ``launched_s``, host
+    window round once per window); ``busy_s``, the union of the entry's
+    own device phases (of ``dp_intervals``); ``launched_s``, host
     seconds from the start of the run's rounds (on the device loop its
     first sub-batch's export) to the end of the entry's last enqueue, 0
     for an entry with no launch. They are read from what the paths
@@ -505,7 +494,6 @@ class BatchPOA:
         self.pipeline_shards = []
         self._lane_sets = {}
         self.dp_cells = 0          # DP cells computed on the device
-        self.dp_seconds = 0.0      # wall time of the device phases
         self.dp_intervals = []     # (t0, t1) per device phase
         self.clock = _EventClock()  # places event-timed phases
         self.fallbacks = 0         # instances rebuilt on the oracle
@@ -515,8 +503,6 @@ class BatchPOA:
         self.windows = 0           # seeded windows aligned on the device
         self.empty_windows = 0     # seeded windows with no bases (no DP)
         self.used_device_loop = False
-        self.h2d_bytes = 0         # bytes the launches upload and their
-        self.d2h_bytes = 0         # fetches copy back (no refetch)
         self.launches = {"band_dp_topo": 0, "fw_dp": 0,  # round-path plan
                          "tile_dp": 0}
         self.precompute_cons = False   # consensus inside the replay pool
@@ -653,7 +639,8 @@ class BatchPOA:
         return abs_
 
     def dp_busy_seconds(self) -> float:
-        """Union length of the device-phase intervals."""
+        """Seconds the device was busy: the union length of
+        ``dp_intervals``."""
         return _union_s(self.dp_intervals)
 
     def run_consensus(self, instances, weights=None, seeded=False):
@@ -796,7 +783,7 @@ class _Job:
 
     def _plan(self, group, dgs):
         bp = self.bp
-        budgets = [_plane_budget(sh.dev, sh.in_flight) for sh in self.lanes]
+        budgets = [plane_budget(sh.dev, sh.in_flight) for sh in self.lanes]
         with trace.span("abpoa.export", len(dgs)):
             plan = round_plan(bp.params, dgs, self.lanes[0].dev, self.seeded,
                               budget=min(budgets))
@@ -848,8 +835,6 @@ class _Job:
             self.rec["launches"][plan.name] += 1
             host, ev = _enqueue_fetch(sh, fetch)
             bp._enqueued(sh)
-            bp.h2d_bytes += sum(t.numel() * t.element_size() for t in inputs)
-            bp.d2h_bytes += sum(t.numel() * t.element_size() for t in host)
             return dict(shard=sh, group=self.group[part], host=host, ev=ev,
                         start=start, t0=t0, t_done=time.perf_counter(),
                         out=out, inputs=inputs)
@@ -889,8 +874,6 @@ class _Job:
             bp._enqueued(sh)
             bp.launches[plan.name] += 1
             self.rec["launches"][plan.name] += 1
-            bp.h2d_bytes += st.nbytes
-            bp.d2h_bytes += sum(h.nbytes for h in host)
             return dict(shard=sh, group=self.group[part], host=host, ev=ev,
                         start=start, t0=t0, t_done=time.perf_counter(),
                         out=out, inputs=staged, band=True)
@@ -929,7 +912,6 @@ class _Job:
             pend["mpl"], pend["mpr"] = host[2] & L.H16, host[2] >> 16
         elif self.seeded:
             pend["mpl"], pend["mpr"] = host[2], host[3]
-        bp.dp_seconds += t1 - t0
         bp._device_phase(h["shard"], (t0, t1))
         bp.dp_cells += int(host[0][:, L.M_CELLS].sum())
         return pend
@@ -1295,7 +1277,6 @@ class _DeviceLoop:
             cap = max(2, min(cap, int(bp.s16_cap)))
 
         def put(x):
-            bp.h2d_bytes += x.nbytes
             return torch.from_numpy(np.ascontiguousarray(x)).to(
                 dev, non_blocking=True)
         start = None
@@ -1315,7 +1296,6 @@ class _DeviceLoop:
             # part's last kernel, so the host waits for this part alone
             host, ev = _enqueue_fetch(shard, (misc_d, s16_cap_d, psF.fail))
         bp._enqueued(shard)
-        bp.d2h_bytes += sum(h.numel() * h.element_size() for h in host)
         return part, cfg, host, (start, ev), s16_d, (inputs, qw_d)
 
     def run(self):
@@ -1343,10 +1323,10 @@ class _DeviceLoop:
                 parts.append((shard, mine))
         bp.used_device_loop = True
         bp.rounds += self.cfg.NR
-        # dp_seconds: host clock from the launches to each fetch, as in
-        # the JAX package; dp_intervals: on a card the event-timed device
-        # phase of each sub-batch (BatchPOA.clock), on the CPU the host
-        # clock
+        # dp_intervals: on a card the event-timed device phase of each
+        # sub-batch (BatchPOA.clock); on the CPU, where a sub-batch's
+        # loop runs in its launch, the host clock from the previous fetch
+        # (or the launches) to its own
         with bp._entry_run():
             t_prev = time.perf_counter()
             pends = [(shard, self._launch(shard, part))
@@ -1358,7 +1338,6 @@ class _DeviceLoop:
                     misc, s16w, failv = (h.numpy() for h in host)
                 s16 = s16w.view(np.int16)
                 t1 = time.perf_counter()
-                bp.dp_seconds += t1 - t_prev
                 bp._device_phase(shard, (t_prev, t1) if ev is None
                                  else bp.clock.interval(shard.dev, start, ev))
                 t_prev = t1

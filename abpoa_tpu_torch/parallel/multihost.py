@@ -134,8 +134,9 @@ def run_render_gather(params: Params, instances, render, devices=None,
     seeded: the shard runs the seeded window rounds (-S/-p,
     ``BatchPOA.run_seeded``). Returns the concatenated text (global
     instance order) on process 0, None elsewhere. ``stats`` (a dict)
-    receives this process's shard_instances, wall_s, dp_cells,
-    dp_seconds, fallbacks and rounds."""
+    receives this process's shard_instances, wall_s, dp_cells, busy_s
+    (``BatchPOA.dp_busy_seconds()``: the union of its device phases),
+    fallbacks and rounds."""
     import time
     from .batch import BatchPOA
     mine = local_shard(instances)
@@ -149,7 +150,7 @@ def run_render_gather(params: Params, instances, render, devices=None,
     dt = time.perf_counter() - t0
     if stats is not None:
         stats.update(shard_instances=len(mine), wall_s=dt,
-                     dp_cells=bp.dp_cells, dp_seconds=bp.dp_seconds,
+                     dp_cells=bp.dp_cells, busy_s=bp.dp_busy_seconds(),
                      fallbacks=bp.fallbacks, rounds=bp.rounds)
     parts = gather_text(out.getvalue())
     return "".join(parts) if parts is not None else None

@@ -18,7 +18,8 @@ per process and process 0 gathers the rendered text
         # to --out; the last line is the strong-scaling summary
     --device cpu|cuda  --instances N  --fixture NAME  --seeded  --no-warm
     --config5   instance k's reads trimmed at the end by (k % 5) * 120
-                bases (at least 64 kept): bench.py's config-5 shape
+                bases (at least 64 kept): the config-5 shape
+                (``workload.seeded_instances``)
 
 Every line is one JSON object. Shards or processes that share one card
 measure the pipeline, not scaling: the card's work does not grow.

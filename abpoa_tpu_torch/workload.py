@@ -1,7 +1,6 @@
-"""The workloads of the port's measurements: a fixture's reads and the
-config-5 instances built from them. The bench (``bench.py``), the
-scaling harness (``parallel/scaling.py``) and ``chip_smoke.py`` read
-them from here."""
+"""The workloads of the port's card checks: a fixture's reads and the
+config-5 instances built from them. The scaling harness
+(``parallel/scaling.py``) and ``chip_smoke.py`` read them from here."""
 from __future__ import annotations
 
 import pathlib

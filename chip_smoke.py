@@ -7,8 +7,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
   1. card   -- nvidia-smi name and power limit; no CUDA -> exit 2
   2. build  -- one nvcc per kernel source of abpoa_tpu_torch/csrc, all
      started together
-  3. device-loop kernels vs plain, on the card, at the bench geometry
-     (heter.fa: R=1024, WB=384, LS=2176): band DP (node-id mode) and
+  3. device-loop kernels vs plain, on the card, at heter.fa's geometry
+     (R=1024, WB=384, LS=2176): band DP (node-id mode) and
      graph update against their plain PyTorch versions on real round
      inputs, bit-equal; times of both
   3b. round-path kernels vs plain on real round inputs of 8 rotated
@@ -116,12 +116,6 @@ Phases (each prints its own lines; any failed check exits non-zero):
      mode: the serial CLI's bytes 64 times); every run without fallback,
      each shard's launches as its plan implies; e2e medians of 3, device
      busy seconds and launches per shard of each mode
-  17. bench -- python -m abpoa_tpu_torch.bench in a subprocess with
-     ABPOA_BENCH_SEEDED=256 and ABPOA_BENCH_BUDGET_S=150: exit code 0, a
-     parsed last line with 3 reps (reps_insufficient false), the golden
-     and oracle gates passed, no fallback, 0 < dp_busy_seconds < the e2e
-     median, the card's name in the extras; the record printed on a
-     line of its own (adds about a minute to a run)
   18. cli fuzz -- abpoa_tpu_torch/tools/fuzz_ref.py on the card: the
      CLI (serial engine, or -l through batch_msa_from_files) against
      its host oracle (--engine numpy) on gen_case seeds 0-199, list
@@ -154,7 +148,6 @@ times as extra keys); the last line is {"ok": true, "device": {...}}.
     python chip_smoke.py --dp-only   # phases 1-3e and 3f, then stop
     python chip_smoke.py --multi-only   # phases 1, 2 and 13-15
     python chip_smoke.py --pipeline-only   # phases 1, 2 and 16
-    python chip_smoke.py --bench-only   # phases 1, 2 and 17
     python chip_smoke.py --fuzz-only   # phases 1, 2 and 18
     python chip_smoke.py --envelope-only   # phases 1, 2 and 4c
     python chip_smoke.py --round-envelope-only   # phases 1, 2 and 4d
@@ -162,7 +155,6 @@ times as extra keys); the last line is {"ok": true, "device": {...}}.
 """
 import io
 import json
-import os
 import pathlib
 import statistics
 import subprocess
@@ -174,7 +166,7 @@ DATA = ROOT / "tests" / "data"
 GOLD_SAN = ROOT / "tests" / "golden_sanitized"
 HETER = DATA / "heter.fa"
 GOLD = GOLD_SAN / "heter_cons.fa"
-N_INST = 64      # instances of heter.fa in the slices (the bench workload)
+N_INST = 64      # instances of heter.fa in the slices (the root bench.py's)
 N_CMP = 8        # instances in the kernel-vs-plain phases
 N_SEEDED = 256   # config-5-shaped instances of the seeded phase (1024
 #                  took over 60 s a run on the host's share of the work)
@@ -2478,50 +2470,6 @@ def pipeline_phase(heter):
     return res
 
 
-def bench_phase():
-    """The port's bench (python -m abpoa_tpu_torch.bench) in a fresh
-    process at N_SEEDED seeded instances and a 150 s budget: its last
-    record landed whole, its gates passed and its device numbers are the
-    card's."""
-    import torch
-    t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    env = dict(os.environ, ABPOA_BENCH_SEEDED=str(N_SEEDED),
-               ABPOA_BENCH_BUDGET_S="150", PYTHONPATH=str(ROOT))
-    env.pop("ABPOA_BENCH_INNER", None)
-    out = subprocess.run([sys.executable, "-m", "abpoa_tpu_torch.bench"],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=300)
-    check(out.returncode == 0,
-          f"bench: exit code {out.returncode}\n{out.stdout[-2000:]}\n"
-          f"{out.stderr[-3000:]}")
-    last = json.loads(out.stdout.strip().splitlines()[-1])
-    ex = last["extras"]
-    seeded = ex.get("seeded", {})
-    check(last["metric"] == "dp_cells_per_s" and last["value"] > 0,
-          f"bench: no headline value {last}")
-    check(ex["reps"] >= 3 and not ex["reps_insufficient"],
-          f"bench: reps {ex['reps']}")
-    check(ex["gates"]["golden"] is True and ex["fallbacks"] == 0
-          and ex["device_loop"], f"bench: headline gates {ex['gates']}")
-    check(seeded.get("gates", {}).get("oracle") is True
-          and seeded.get("fallbacks") == 0
-          and seeded.get("instances") == N_SEEDED,
-          f"bench: seeded phase {seeded}")
-    check(0 < ex["dp_busy_seconds"] < ex["e2e_seconds_median"],
-          f"bench: dp_busy_seconds {ex['dp_busy_seconds']}, e2e median "
-          f"{ex['e2e_seconds_median']}")
-    kind = torch.cuda.get_device_name(0)
-    check(ex["device"] == kind and str(ex["card"]).startswith(kind),
-          f"bench: device {ex['device']!r}, card {ex['card']!r}")
-    say(json.dumps(last))
-    say(f"bench: value {last['value']:.1f} cells/s, vs_baseline "
-        f"{last['vs_baseline']}, e2e median {ex['e2e_seconds_median']:.4f} "
-        f"s, busy {ex['dp_busy_seconds']:.4f} s, seeded "
-        f"{seeded.get('windows_per_s', 0):.1f} windows/s; phase "
-        f"{time.perf_counter() - t_phase:.1f} s")
-
-
 def cli_fuzz_phase():
     """The CLI's differential fuzzer on the card (python -m
     abpoa_tpu_torch.tools.fuzz_ref, in this process): FUZZ_SERIAL
@@ -2585,7 +2533,6 @@ def main(argv):
     dp_only = "--dp-only" in argv
     multi_only = "--multi-only" in argv
     pipeline_only = "--pipeline-only" in argv
-    bench_only = "--bench-only" in argv
     fuzz_only = "--fuzz-only" in argv
     envelope_only = "--envelope-only" in argv
     round_envelope_only = "--round-envelope-only" in argv
@@ -2626,11 +2573,6 @@ def main(argv):
         f"; nvcc {_build.build_seconds or 0:.3f} s)")
 
     heter = reads_of(HETER)
-    if bench_only:
-        # ---- 17 alone: the port's bench ----
-        bench_phase()
-        say(f"total: {time.perf_counter() - t_start:.1f} s")
-        return 0
     if fuzz_only:
         # ---- 18 alone: the CLI's differential fuzzer ----
         cli_fuzz_phase()
@@ -2796,9 +2738,6 @@ def main(argv):
 
     # ---- 16. the host/device pipeline against lockstep ----
     pipeline_phase(heter)
-
-    # ---- 17. the port's bench ----
-    bench_phase()
 
     # ---- 18. the CLI's differential fuzzer ----
     cli_fuzz_phase()

@@ -19,7 +19,9 @@ the same rule holds with no raise: B3 while the band fits a block (past
 8192 rows too), B4 past that, B5 when B4's planes exceed the budget, and
 the plan "oracle" (no kernel, chunk 0, the bytes of one instance in
 ``per``) when one instance's tiles exceed it too, or a window's planes
-(the seeded rounds have no third branch).
+(the seeded rounds have no third branch). The budget itself
+(``device.plane_budget``) is a share of the card's free memory over the
+launches that share it, and a fixed allowance on the CPU.
 """
 import pathlib
 
@@ -185,8 +187,9 @@ def test_round_plan_seeded_windows_pinned(monkeypatch):
 
 def _synth_plan(n, budget, monkeypatch, seeded=False, wb=None, **kw):
     from test_torch_dp_edges import _params, synth_dense
+    from abpoa_tpu_torch import device
     from abpoa_tpu_torch.parallel import batch
-    monkeypatch.setattr(batch, "CPU_PLANE_BUDGET", budget)
+    monkeypatch.setattr(device, "CPU_PLANE_BUDGET", budget)
     dg = synth_dense(_params(wb=wb), n, seed=7, **kw)
     return batch.round_plan(_params(wb=wb), [dg], torch.device("cpu"),
                             seeded)
@@ -285,17 +288,40 @@ def _cli_bytes(argv, out):
     return out.read_bytes()
 
 
+def test_plane_budget_shares_the_free_memory(monkeypatch):
+    """The budget both engines hold a launch to (device.plane_budget):
+    on a card PLANE_BUDGET_SHARE of the free memory that cudaMemGetInfo
+    reports, over the launches that share the card; on the CPU the fixed
+    allowance, whatever shares it."""
+    from abpoa_tpu_torch import device
+    card = torch.device("cuda", 3)
+    asked = []
+
+    def mem_get_info(dev):
+        asked.append(dev)
+        return 10 << 30, 80 << 30
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    share = device.PLANE_BUDGET_SHARE
+    assert device.plane_budget(card) == int((10 << 30) * share)
+    assert device.plane_budget(card, 4) == int((10 << 30) * share / 4)
+    assert asked == [card, card]
+    cpu = torch.device("cpu")
+    assert device.plane_budget(cpu) == device.plane_budget(cpu, 4) \
+        == device.CPU_PLANE_BUDGET
+    assert asked == [card, card]
+
+
 @pytest.mark.parametrize("args", [[], ["-S"]], ids=["B5", "S-windows"])
 def test_serial_engine_over_the_budget_runs_the_oracle(args, tmp_path,
                                                        monkeypatch):
     """An alignment whose tiles or planes exceed the budget (here every
     one: a budget of 1 byte) runs on the oracle and counts in
     over_budget; the output equals the oracle's, nothing raises."""
+    from abpoa_tpu_torch import device
     from abpoa_tpu_torch.align import engine_torch
-    from abpoa_tpu_torch.parallel import batch
     fa = str(DATA / "seq.fa")
     want = _cli_bytes([*args, "--engine", "numpy", fa], tmp_path / "o.fa")
-    monkeypatch.setattr(batch, "CPU_PLANE_BUDGET", 1)
+    monkeypatch.setattr(device, "CPU_PLANE_BUDGET", 1)
     n0 = engine_torch.over_budget
     got = _cli_bytes([*args, "--device", "cpu", fa], tmp_path / "t.fa")
     assert got == want
@@ -308,7 +334,7 @@ def test_batch_over_the_budget_falls_back(args, tmp_path, monkeypatch):
     """A round (or window round) group whose one instance exceeds the
     budget launches nothing; each instance goes to the oracle, counted
     in fallbacks; the output equals the oracle's, nothing raises."""
-    from abpoa_tpu_torch import cli
+    from abpoa_tpu_torch import cli, device
     from abpoa_tpu_torch.parallel import batch
     fa = str(DATA / "seq.fa")
     one = _cli_bytes([*args, "--engine", "numpy", fa], tmp_path / "o.fa")
@@ -319,7 +345,7 @@ def test_batch_over_the_budget_falls_back(args, tmp_path, monkeypatch):
         grab["bp"] = orig(*a, **k)
         return grab["bp"]
     monkeypatch.setattr(batch, "batch_msa_from_files", keep)
-    monkeypatch.setattr(batch, "CPU_PLANE_BUDGET", 1)
+    monkeypatch.setattr(device, "CPU_PLANE_BUDGET", 1)
     lst = tmp_path / "in.list"
     lst.write_text(f"{fa}\n" * 4)
     got = _cli_bytes([*args, "-l", "--device", "cpu", str(lst)],

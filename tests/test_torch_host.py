@@ -11,15 +11,21 @@ by convert.params, the same encoded reads).
   array for array, dtype and values, at the band kernel's and the
   full-width kernel's query widths (the edge counts in the port's wider
   index dtype).
+* The measurement workloads (workload.py): a fixture's reads and the
+  config-5 instances equal the root bench.py's ``_load_reads`` and
+  ``_seeded_instances`` on heter.fa (bench.py is loaded by path; it
+  imports no JAX at module level).
 Exact equality everywhere.
 """
 import dataclasses
+import importlib.util
 import pathlib
 
 import numpy as np
 import pytest
 
-DATA = pathlib.Path(__file__).resolve().parent / "data"
+REPO = pathlib.Path(__file__).resolve().parent.parent
+DATA = REPO / "tests" / "data"
 MODES = ["global", "local", "extend"]
 
 
@@ -124,3 +130,27 @@ def test_make_pallas_inputs_equals_jax(mode):
                 want = ta[2].dtype if i in (3, 5) else j.dtype
                 assert t.dtype == want and t.shape == j.shape, (i, rid)
                 assert (t == j).all(), (mode, rid, i)
+
+
+def _root_bench():
+    spec = importlib.util.spec_from_file_location("root_bench",
+                                                  REPO / "bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_config5_generator_equals_bench_py():
+    from abpoa_tpu_torch import workload
+    root = _root_bench()
+    reads = workload.load_reads("heter.fa")
+    theirs = root._load_reads("heter.fa")
+    assert len(reads) == len(theirs)
+    assert all(np.array_equal(a, b) for a, b in zip(reads, theirs))
+    mine = workload.seeded_instances(reads, 10)
+    want = root._seeded_instances(theirs, 10)
+    assert len(mine) == len(want) == 10
+    for a, b in zip(mine, want):
+        assert [len(q) for q in a] == [len(q) for q in b]
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert len({tuple(len(q) for q in inst) for inst in mine}) == 5

@@ -1,11 +1,12 @@
 """abpoa_tpu_torch stands alone: no module of the port, and not
 chip_smoke.py, imports the JAX package (abpoa_tpu), JAX, the root
-bench.py (which drives the JAX package; the port has its own bench) or
-the root tools/ (tools/fuzz_ref.py, whose generator the port's fuzzer
-copies).
+bench.py (which drives the JAX package) or the root tools/
+(tools/fuzz_ref.py, whose generator the port's fuzzer copies).
 
 * An AST scan of every abpoa_tpu_torch/**/*.py and chip_smoke.py finds
   no such import statement and no importlib/__import__ call naming one.
+* The layers point down: no module under ops/ or align/ imports the
+  batch paths (parallel/), the aligner API (api.py) or the CLI.
 * A fresh interpreter that imports abpoa_tpu_torch and runs BatchPOA on
   the CPU, through the device loop, the round path, the qv device loop
   and the seeded window rounds (the port's seed.py), then the CLI (the
@@ -51,7 +52,7 @@ def _bad_imports(path):
 
 
 NEW_IN_SLICES = ["cli.py", "plot.py", "pyabpoa.py", "align/engine_torch.py",
-                 "ops/tile_dp.py", "ops/topo.py", "seed.py", "bench.py",
+                 "ops/tile_dp.py", "ops/topo.py", "seed.py",
                  "ops/roofline.py", "examples/example.py",
                  "examples/sub_example.py", "examples/batch_example.py",
                  "workload.py", "tools/fuzz_ref.py"]
@@ -85,6 +86,58 @@ def test_scan_finds_a_forbidden_import(tmp_path):
     assert sorted(m for _line, m in _bad_imports(src)) == \
         ["abpoa_tpu.graph", "bench", "fuzz_ref", "jax.numpy", "jaxlib",
          "tools.fuzz_ref"]
+
+
+UPPER = {"parallel", "api", "cli"}
+
+
+def _upward(src: str, rel: str):
+    """(line, module) of every import in `src`, the text of the port's
+    module at `rel` (a path under the repository), of a module in
+    UPPER. Relative imports resolve against the module's package, and
+    ``from X import y`` also names X.y (y may be a submodule)."""
+    pkg = rel.split("/")[:-1]
+    for node in ast.walk(ast.parse(src, rel)):
+        if isinstance(node, ast.Import):
+            mods = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg[:len(pkg) - node.level + 1] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            mods = [mod] + [f"{mod}.{alias.name}" for alias in node.names]
+        else:
+            continue
+        for mod in mods:
+            parts = mod.split(".")
+            if parts[0] == "abpoa_tpu_torch" and len(parts) > 1 \
+                    and parts[1] in UPPER:
+                yield node.lineno, mod
+
+
+def test_ops_and_align_import_no_higher_layer():
+    """The kernels' wrappers (ops/) and the engines (align/) sit below
+    the batch paths (parallel/), the aligner API and the CLI: a policy
+    both levels share, such as the DP planes' memory budget, lives below
+    both (device.py)."""
+    lower = sorted((ROOT / "abpoa_tpu_torch" / "ops").rglob("*.py")) \
+        + sorted((ROOT / "abpoa_tpu_torch" / "align").rglob("*.py"))
+    assert ROOT / "abpoa_tpu_torch" / "align" / "engine_torch.py" in lower
+    bad = [f"{p.relative_to(ROOT)}:{line}: {mod}" for p in lower
+           for line, mod in _upward(p.read_text(),
+                                    p.relative_to(ROOT).as_posix())]
+    assert not bad, "\n".join(bad)
+    # the scan itself: each form of an upward import is caught, imports
+    # of the same level or below are not
+    probe = ("from ..parallel.batch import BatchPOA\n"
+             "from .. import api\n"
+             "import abpoa_tpu_torch.cli\n"
+             "from ..device import plane_budget\n"
+             "from .export import pick_WB\n"
+             "from ..ops import band_dp\n")
+    got = sorted(_upward(probe, "abpoa_tpu_torch/align/probe.py"))
+    assert got == [(1, "abpoa_tpu_torch.parallel.batch"),
+                   (1, "abpoa_tpu_torch.parallel.batch.BatchPOA"),
+                   (2, "abpoa_tpu_torch.api"),
+                   (3, "abpoa_tpu_torch.cli")]
 
 
 RUN = """

@@ -1,7 +1,9 @@
 """abpoa_tpu_torch: data parallelism over a device list
 (``BatchPOA(devices=[...])``), the counterpart of the JAX package's mesh.
 
-* shard_bounds equals the JAX package's partition.
+* shard_bounds equals the JAX package's partition; the union of device
+  phases (busy time) over empty, disjoint, overlapping, nested, touching
+  and unsorted phases.
 * Heterogeneous seq.fa instances over four CPU shards, rendered as
   consensus, MSA and GFA, equal the JAX package's BatchPOA over a
   4-device virtual CPU mesh.
@@ -88,6 +90,20 @@ def test_shard_bounds_equal_jax():
             assert got == [jax_bounds(n, shards, i) for i in range(shards)]
             assert got[0][0] == 0 and got[-1][1] == n
             assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+
+
+@pytest.mark.parametrize("intervals,want", [
+    pytest.param([], 0.0, id="empty"),
+    pytest.param([(0.0, 1.0), (2.0, 3.5)], 2.5, id="disjoint"),
+    pytest.param([(0.0, 2.0), (1.0, 3.0)], 3.0, id="overlapping"),
+    pytest.param([(0.0, 4.0), (1.0, 2.0)], 4.0, id="nested"),
+    pytest.param([(0.0, 1.0), (1.0, 2.5)], 2.5, id="touching"),
+    pytest.param([(5.0, 6.0), (0.0, 1.0), (0.5, 2.0)], 3.0, id="unsorted")])
+def test_union_of_device_phases(intervals, want):
+    """_union_s, the one path of device time (dp_busy_seconds, each
+    entry's busy_s): the length of the union of the phases."""
+    from abpoa_tpu_torch.parallel.batch import _union_s
+    assert _union_s(intervals) == pytest.approx(want)
 
 
 def test_device_list_arguments():

@@ -6,6 +6,9 @@ rendezvous through a file:// store, run their shards of 6 x seq.fa and
 gather the rendered text on process 0 over gloo; the gathered FASTA
 equals the single-process port run (and, plain, seq_cons.fa six times),
 process 1 holds no text, and no worker loaded JAX or the JAX package.
+In one process over devices=["cpu"], instances of uneven depth give the
+port's serial oracle's text through the device loop, and ``stats``
+report the device's busy time as busy_s, inside the call.
 On a GPU: the same through the card (the two processes share it).
 """
 import io
@@ -90,6 +93,40 @@ def test_gather_text_of_one_process():
     assert mh.gather_text("abc") == ["abc"]
     assert mh.local_shard([1, 2, 3]) == [1, 2, 3]
     assert mh.local_devices("cpu") == ["cpu"]
+
+
+def test_stats_of_one_cpu_entry(monkeypatch):
+    """run_consensus_fasta over devices=["cpu"] in one process, instance
+    k keeping seq.fa's reads[k % 4:]: the serial oracle's text through
+    the device loop with no fallback; busy_s is the union of the device
+    phases, inside the call, and stats carry no second clock."""
+    import dataclasses
+    from abpoa_tpu_torch.api import ABPOA
+    from abpoa_tpu_torch.alphabet import encode_table
+    from abpoa_tpu_torch.params import Params
+    from abpoa_tpu_torch.parallel import batch, multihost as mh
+    from abpoa_tpu_torch.seqio import read_seqs
+    tab = encode_table(5)
+    seqs = [r.seq for r in read_seqs(str(DATA / FIXTURE))]
+    reads = [tab[np.frombuffer(q.encode(), dtype=np.uint8)] for q in seqs]
+    insts = [reads[k % 4:] for k in range(4)]
+    p = Params().post_set()
+    p.out_cons = 1
+    host = dataclasses.replace(p, engine="numpy")
+    want = io.StringIO()
+    for k in range(4):
+        ABPOA().msa(host, seqs[k % 4:], out=want)
+    loops = []
+    run = batch._DeviceLoop.run
+    monkeypatch.setattr(batch._DeviceLoop, "run",
+                        lambda self: loops.append(run(self)))
+    s = {}
+    got = mh.run_consensus_fasta(p, insts, devices=["cpu"], stats=s)
+    assert got == want.getvalue() and loops == [True]
+    assert s["shard_instances"] == 4 and s["fallbacks"] == 0
+    assert s["rounds"] == len(reads) - 1 and s["dp_cells"] > 0
+    assert 0 < s["busy_s"] <= s["wall_s"]
+    assert "dp_seconds" not in s
 
 
 @pytest.mark.gpu

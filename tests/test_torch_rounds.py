@@ -168,8 +168,8 @@ def test_round_plan_third_branch_runs_the_tile_kernel(monkeypatch):
     from abpoa_tpu_torch.api import ABPOA
     from abpoa_tpu_torch.consensus import generate_consensus
     from abpoa_tpu_torch.alphabet import decode_table
+    from abpoa_tpu_torch import device
     from abpoa_tpu_torch.ops import band_dp
-    from abpoa_tpu_torch.parallel import batch
     params = _cli_params(["-m", "2"], monkeypatch)
     reads = _reads("heter.fa")
     instances = [reads[:3], reads[3:6]]
@@ -187,7 +187,7 @@ def test_round_plan_third_branch_runs_the_tile_kernel(monkeypatch):
     # heter.fa rounds: tiles of 5 x R x 384 x 4 bytes (R <= 832) fit 8 MiB,
     # full-width planes of 5 x R x Wq x 4 bytes (R >= 704, Wq >= 640) do not
     monkeypatch.setattr(band_dp, "MAX_SMEM_BYTES", 0)
-    monkeypatch.setattr(batch, "CPU_PLANE_BUDGET", 8 << 20)
+    monkeypatch.setattr(device, "CPU_PLANE_BUDGET", 8 << 20)
     bp = BatchPOA(params, device="cpu")
     assert bp.run_consensus(instances) == exp
     assert not bp.used_device_loop and bp.fallbacks == 0
